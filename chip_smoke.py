@@ -7,25 +7,42 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Card: print nvidia-smi's name and power limit; build the CUDA kernels
    from flownet2_tpu_torch/csrc and print the build time.
-2. Kernels against their plain PyTorch versions on the card, at the shapes
-   FlowNet2 b8 384x512 gives them, TF32 off: the correlation (K1) at
+2. Kernels against their plain PyTorch versions on the card, TF32 off: the
+   correlation (K1) and its gradient (K5 d_f1, K6 d_f2) at
    (8, 256, 48, 64), at the wide (4, 256, 48, 128) and at a ragged
-   (2, 40, 20, 152), atol/rtol 1e-4; the warp (K2) for one flow of +-8 px
-   and of +-200 px and for two flows over one (8, 3, 384, 512) image, and
-   for one flow at a ragged (2, 3, 100, 150), atol/rtol 1e-5.
+   (2, 40, 20, 152), atol/rtol 1e-4 (K5/K6 also at the training shape
+   (8, 256, 48, 56)); the warp (K2) for one flow of +-8 px and of +-200 px
+   and for two flows over one (8, 3, 384, 512) image, and the warp with
+   tangents (K3, one and two flows) and its flow gradient (K4) over one
+   (8, 3, 384, 448) image at +-8 px and +-200 px, each also at a ragged
+   (2, 3, 100, 150), atol/rtol 1e-5; K4 also against the tangent route's
+   flow gradient on the same inputs.
 3. FlowNet2 inference, seeded random weights, b8 384x512 fp32: warm-up,
    then 10 timed batches with CUDA events, with the launch counters set to
    0 just before and read just after (1 K1 and 3 K2 launches per forward,
    no plain-op call).  The output must be finite, (8, 384, 512, 2), agree
    with the same model run with the plain ops on the card, and agree on a
    small pair with the model run on the CPU, at rtol/atol 1e-3.
-4. Each kernel's time, its plain version's time, the card's bound for the
-   same work and, for K2, F.grid_sample's time, at the main-path shapes.
-5. Where FlowNet2's device time goes: the phase 3 model and pair, 5
-   forwards under torch.profiler, the device time summed by kernel family
-   (convolutions, K1, K2, the other PyTorch kernels) and the device's idle
-   share of the profiled window.  Raises if no device time is recorded.
-6. One JSON line listing the kernels; the last line is the result.
+4. FlowNet2 training through StepFactory, b8 384x448 fp32, MultiScale,
+   Adam 1e-4, seeded weights, random images x255 and flow x5: the first
+   step's loss and every parameter's gradient against the plain-op model
+   on the card (loss at rtol 1e-4, each gradient within 1e-3 of its
+   tensor's largest |g|), and a (1, 2, 64, 128, 3) step against the CPU at
+   the same tolerances; then 2 warm-up and 10 timed steps per warp route,
+   in turns (K2 + K4, tangents, tangents, K2 + K4, twice), the counters
+   set to 0 just before each route's first block and read after it (per
+   step: 1 K1, 1 K5, 1 K6 and, on the default K2 + K4 route, 2 one-flow
+   and 1 two-flow K2 and K4 and no K3, on the tangent route 2 one-flow and
+   1 two-flow K3 and no K2 or K4; no plain-op call).  Loss and EPE must be
+   finite.
+5. Each kernel's time, its plain version's time, the card's bound for the
+   same work and, where one PyTorch call computes the same function, that
+   call's time, at the main-path shapes.
+6. Where the device time goes: the phase 3 model and pair, 5 forwards, and
+   the phase 4 train step, 3 steps, under torch.profiler, the device time
+   summed by kernel family and the device's idle share of the profiled
+   window.  Raises if no device time is recorded.
+7. One JSON line listing the kernels; the last line is the result.
 
 Uses one card, the first the environment lists.  Exits non-zero, printing
 no result, where no CUDA device is available or the package is not beside
@@ -34,6 +51,7 @@ this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -53,18 +71,31 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 
-# Kernel families of the phase 5 profile, by kernel name; the first match
+# Kernel families of the phase 6 profiles, by kernel name; the first match
 # wins.  cuDNN's kernels include its FFT algorithm's transforms and
 # pointwise complex products.
+CONV = re.compile(r"conv|cudnn|gemm|xmma|sm90|sm80|implicit|wgrad|dgrad|"
+                  r"fprop|winograd|fft|complex", re.I)
 FAMILIES = (
     ("correlation_fwd (K1)", re.compile(r"correlation_fwd")),
     ("resample2d_fwd (K2)", re.compile(r"resample2d_fwd")),
-    ("convolution", re.compile(r"conv|cudnn|gemm|xmma|sm90|sm80|implicit|"
-                               r"wgrad|dgrad|fprop|winograd|fft|complex",
-                               re.I)),
+    ("convolution", CONV),
+    ("other PyTorch kernels", re.compile(r".")),
+)
+TRAIN_FAMILIES = (
+    ("correlation_fwd (K1)", re.compile(r"correlation_fwd")),
+    ("correlation_bwd (K5, K6)", re.compile(r"correlation_bwd")),
+    ("resample2d_fwd (K2)", re.compile(r"resample2d_fwd")),
+    ("resample2d_tangents (K3)", re.compile(r"resample2d_tangents")),
+    ("resample2d_grad_flow (K4)", re.compile(r"resample2d_grad_flow")),
+    ("optimizer (Adam)", re.compile(r"multi_tensor_apply|adam", re.I)),
+    ("convolution wgrad", re.compile(r"wgrad", re.I)),
+    ("convolution dgrad", re.compile(r"dgrad", re.I)),
+    ("convolution forward and other cuDNN", CONV),
     ("other PyTorch kernels", re.compile(r".")),
 )
 PROFILED_FORWARDS = 5
+PROFILED_STEPS = 3
 
 # Published peaks: (memory bytes/s, float32 FLOP/s outside the tensor
 # cores), from NVIDIA's data sheets; the first name that the card's name
@@ -75,6 +106,10 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
 DEVICE = "cuda"
 BATCH, HEIGHT, WIDTH = 8, 384, 512
 TIMED_BATCHES = 10
+TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH = 8, 384, 448
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+ROUTES = ("grad_flow", "tangents")
+ROUTE_ROUNDS = 2
 
 
 def card_peaks(name: str):
@@ -115,6 +150,67 @@ def max_err(got: torch.Tensor, want: torch.Tensor, rtol: float,
     return err
 
 
+def grad_errors(got: dict, want: dict):
+    """(worst ratio of a tensor's max |difference| to its max |g|, that
+    tensor's name, |all differences| / |all gradients| in L2)."""
+    worst, worst_name, diff2, norm2 = 0.0, None, 0.0, 0.0
+    for name, w in want.items():
+        w = w.double().cpu()
+        d = got[name].double().cpu() - w
+        ratio = (d.abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+        diff2 += d.square().sum().item()
+        norm2 += w.square().sum().item()
+    return worst, worst_name, (diff2 / max(norm2, 1e-300)) ** 0.5
+
+
+def grads_close(got: dict, want: dict, tol: float, what: str,
+                per_tensor: bool = True) -> None:
+    """Every gradient within ``tol`` of its tensor's largest |g| or, with
+    ``per_tensor`` False, all gradients within ``tol`` in relative L2."""
+    worst, name, rel = grad_errors(got, want)
+    print(f"  {what}: worst tensor {worst:.3e} of its max |g| ({name}); "
+          f"all {len(want)} gradients {rel:.3e} in relative L2")
+    if not (worst if per_tensor else rel) <= tol:
+        raise AssertionError(f"{what}: gradients differ beyond {tol:g} "
+                             f"{'per tensor' if per_tensor else 'in L2'}")
+
+
+def profile_families(run, n: int, families, smi: str, unit: str):
+    """Profile ``run()`` (n repetitions of the work) and print the device
+    time by kernel family and the idle share of the window."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel events only: their self device time is the kernel's own time
+    per_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        # (a user annotation's device range spans the kernels inside it)
+        if (us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us
+    busy_ms = sum(per_kernel.values()) / 1e3
+    if busy_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    totals = {name: 0.0 for name, _ in families}
+    for key, us in per_kernel.items():
+        totals[next(n for n, rx in families if rx.search(key))] += us / 1e3
+    print(f"  wall {wall_ms / n:.3f} ms/{unit}, device busy {busy_ms / n:.3f} "
+          f"ms/{unit}, idle share {1 - busy_ms / wall_ms:.4f}  [{smi}]")
+    for name, fam_ms in sorted(totals.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:38s} {fam_ms / n:9.3f} ms/{unit}  "
+              f"{fam_ms / busy_ms:7.2%}")
+    print("  top kernels:")
+    for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {us / 1e3 / n:9.3f} ms/{unit}  {key[:100]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -125,10 +221,30 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from flownet2_tpu_torch import ops
+    from flownet2_tpu_torch.losses import MultiScale
     from flownet2_tpu_torch.models import get_model
     from flownet2_tpu_torch.ops import _cuda
     from flownet2_tpu_torch.ops import correlation as corr
     from flownet2_tpu_torch.ops import resample2d as r2d
+    from flownet2_tpu_torch.ops import stage_glue
+    from flownet2_tpu_torch.train import StepFactory, get_optimizer
+
+    backward_kernels = (
+        (corr, "correlation_bwd_cuda", corr.correlation_bwd_plain),
+        (r2d, "resample2d_grad_flow_cuda", r2d.resample2d_grad_flow_plain))
+    forward_kernels = (
+        (corr, "correlation_cuda", corr.correlation_plain),
+        (r2d, "resample2d_cuda", r2d.resample2d_plain),
+        (r2d, "resample2d_multi_cuda", r2d.resample2d_multi_plain),
+        (r2d, "resample2d_tangents_cuda", r2d.resample2d_tangents_plain))
+
+    def plain_ops(wrappers=forward_kernels + backward_kernels):
+        """The given CUDA wrappers (all of them by default) replaced by
+        their plain versions."""
+        stack = contextlib.ExitStack()
+        for mod, name, plain in wrappers:
+            stack.enter_context(mock.patch.object(mod, name, plain))
+        return stack
 
     # -- 1. card and build ------------------------------------------------
     smi = subprocess.run(
@@ -161,18 +277,33 @@ def main() -> int:
         return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * scale
 
     corr_args = (20, 1, 20, 1, 2)
+    disp = 21
     print("phase 2: kernels against their plain versions")
-    with torch.inference_mode():
-        errs = {}
-        # the main path's shape, the wide (384x1024 frames) one, and a
+    errs = {}
+    # no_grad, not inference_mode: the tangent route's check below builds
+    # a graph from these tensors
+    with torch.no_grad():
+        # the main paths' shapes, the wide (384x1024 frames) one, and a
         # ragged one: a partial channel chunk and a partial column tile
-        for shape in ((BATCH, 256, HEIGHT // 8, WIDTH // 8), (4, 256, 48, 128),
-                      (2, 40, 20, 152)):
+        for shape in ((BATCH, 256, HEIGHT // 8, WIDTH // 8),
+                      (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8),
+                      (4, 256, 48, 128), (2, 40, 20, 152)):
             f1, f2 = randn(*shape), randn(*shape)
-            errs.setdefault("correlation_fwd", []).append(max_err(
-                corr.correlation_cuda(f1, f2, *corr_args),
-                corr.correlation_plain(f1, f2, *corr_args), 1e-4, 1e-4,
-                f"K1 correlation {shape}"))
+            if shape[3] != TRAIN_WIDTH // 8:
+                errs.setdefault("correlation_fwd", []).append(max_err(
+                    corr.correlation_cuda(f1, f2, *corr_args),
+                    corr.correlation_plain(f1, f2, *corr_args), 1e-4, 1e-4,
+                    f"K1 correlation {shape}"))
+            if shape[3] == WIDTH // 8:
+                continue
+            g = randn(shape[0], disp * disp, *shape[2:])
+            got = corr.correlation_bwd_cuda(g, f1, f2, 20, 2)
+            want = corr.correlation_bwd_plain(g, f1, f2, 20, 2)
+            for k, name in enumerate(("correlation_bwd_f1",
+                                      "correlation_bwd_f2")):
+                errs.setdefault(name, []).append(max_err(
+                    got[k], want[k], 1e-4, 1e-4,
+                    f"K{5 + k} correlation d_f{1 + k} {shape}"))
         img = randn(BATCH, 3, HEIGHT, WIDTH)
         flow8 = uniform(BATCH, 2, HEIGHT, WIDTH, scale=8.0)
         flow200 = uniform(BATCH, 2, HEIGHT, WIDTH, scale=200.0)
@@ -191,6 +322,35 @@ def main() -> int:
             r2d.resample2d_multi_cuda(img, flows),
             r2d.resample2d_multi_plain(img, flows), 1e-5, 1e-5,
             "K2 warp, two flows")]
+
+        t_img = randn(TRAIN_BATCH, 3, TRAIN_HEIGHT, TRAIN_WIDTH)
+        t_flows = torch.stack([
+            uniform(TRAIN_BATCH, 2, TRAIN_HEIGHT, TRAIN_WIDTH, scale=px)
+            for px in (8.0, 200.0)], dim=1)
+        cases = [(f"+-{px} px", t_img, t_flows[:, i:i + 1].contiguous())
+                 for i, px in enumerate((8, 200))]
+        cases += [("two flows", t_img, t_flows),
+                  ("(2, 3, 100, 150)", ragged_img, ragged_flow.unsqueeze(1))]
+        for what, im, fl in cases:
+            nflows = fl.shape[1]
+            k3 = r2d._per_flow("resample2d_tangents", nflows)
+            got = r2d.resample2d_tangents_cuda(im, fl)
+            want = r2d.resample2d_tangents_plain(im, fl)
+            for part, a, b in zip(("out", "d1", "d2"), got, want):
+                errs.setdefault(k3, []).append(max_err(
+                    a, b, 1e-5, 1e-5, f"K3 warp tangents {part}, {what}"))
+            g = randn(*want[0].shape)
+            k4 = r2d.resample2d_grad_flow_cuda(g, im, fl)
+            errs.setdefault("resample2d_grad_flow", []).append(max_err(
+                k4, r2d.resample2d_grad_flow_plain(g, im, fl), 1e-5, 1e-5,
+                f"K4 warp flow gradient, {what}"))
+            # the tangent route's flow gradient for the same cotangent
+            with torch.enable_grad():
+                leaf = fl.clone().requires_grad_()
+                (tangent_grad,) = torch.autograd.grad(
+                    r2d.resample2d_tangents(im, leaf), leaf, g)
+            max_err(k4, tangent_grad, 1e-5, 1e-5,
+                    f"K4 against the tangent route's d_flow, {what}")
 
     # -- 3. FlowNet2 inference ----------------------------------------------
     print(f"phase 3: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, TF32 off")
@@ -229,12 +389,7 @@ def main() -> int:
               f"{peak_gib:.2f} GiB allocated  [{smi}]")
 
         flow = model(pairs[0])
-        with mock.patch.object(corr, "correlation_cuda",
-                               corr.correlation_plain), \
-                mock.patch.object(r2d, "resample2d_cuda",
-                                  r2d.resample2d_plain), \
-                mock.patch.object(r2d, "resample2d_multi_cuda",
-                                  r2d.resample2d_multi_plain):
+        with plain_ops():
             flow_plain = model(pairs[0])
             plain_model_ms = time_ms(lambda: model(pairs[0]), 3, warmup=0)
         err = (flow - flow_plain).abs().max().item()
@@ -253,13 +408,151 @@ def main() -> int:
         if not torch.allclose(on_card, on_cpu, rtol=1e-3, atol=1e-3):
             raise AssertionError("card and CPU disagree on the small pair")
 
-    # -- 4. kernel times ------------------------------------------------------
-    print("phase 4: kernel times at the main-path shapes")
+    # -- 4. FlowNet2 training -------------------------------------------------
+    print(f"phase 4: FlowNet2 train step b{TRAIN_BATCH} {TRAIN_HEIGHT}x"
+          f"{TRAIN_WIDTH} fp32, TF32 off, MultiScale, Adam 1e-4")
+    tmodel = get_model("FlowNet2", device=DEVICE, seed=0)
+    images = torch.rand((TRAIN_BATCH, 2, TRAIN_HEIGHT, TRAIN_WIDTH, 3),
+                        generator=gen, device=dev) * 255.0
+    target = torch.rand((TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, 2),
+                        generator=gen, device=dev) * 5.0
+    loss_fn = MultiScale()
+
+    def loss_and_grads(net, imgs, tgt):
+        net.train()
+        net.zero_grad(set_to_none=True)
+        lossvalue, epevalue = loss_fn(net(imgs), tgt)
+        lossvalue.backward()
+        grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        return lossvalue.item(), epevalue.item(), grads
+
+    # The gradient is discontinuous in the forward's values (floor() in
+    # the warps, the LeakyReLU kinks), so two forwards that differ in the
+    # last bit give gradients that differ well beyond rounding.  The checks
+    # are therefore: with the forward shared, the backward kernels against
+    # the plain backward, per tensor; both warp routes against each other,
+    # per tensor (their forwards are the same arithmetic); the plain-op
+    # model in relative L2 over all gradients, its per-tensor spread printed
+    # beside the kernel model's own spread from run to run.  cuDNN is made
+    # deterministic for the comparisons, so that only the ops differ.
+    torch.backends.cudnn.deterministic = True
+    loss_k, epe_k, grads_k = loss_and_grads(tmodel, images, target)
+    print(f"  first step: loss {loss_k:.6f}, EPE {epe_k:.6f}")
+    for route in ROUTES:
+        with mock.patch.object(stage_glue, "TRAIN_WARP", route):
+            grads_r = (grads_k if route == stage_glue.TRAIN_WARP else
+                       loss_and_grads(tmodel, images, target)[2])
+            with plain_ops(backward_kernels):
+                ops.reset_counts()
+                grads_b = loss_and_grads(tmodel, images, target)[2]
+                if any(k in ops.LAUNCHES for k in (
+                        "correlation_bwd_f1", "correlation_bwd_f2",
+                        "resample2d_grad_flow", "resample2d_grad_flow_multi")):
+                    raise AssertionError(f"plain backward launched "
+                                         f"{dict(ops.LAUNCHES)}")
+            grads_close(grads_r, grads_b, 1e-3, f"{route} route, backward "
+                        "kernels against the plain backward")
+        if route != stage_glue.TRAIN_WARP:
+            grads_close(grads_r, grads_k, 1e-3, f"{route} route against the "
+                        f"{stage_glue.TRAIN_WARP} route")
+    del grads_r, grads_b
+    with plain_ops():
+        ops.reset_counts()
+        loss_p, epe_p, grads_p = loss_and_grads(tmodel, images, target)
+        if sum(ops.LAUNCHES.values()):
+            raise AssertionError(f"plain-op step launched {ops.LAUNCHES}")
+    print(f"  plain-op model: loss {loss_p:.6f}, EPE {epe_p:.6f}")
+    for a, b, what in ((loss_k, loss_p, "loss"), (epe_k, epe_p, "EPE")):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"{what}: kernels {a} vs plain ops {b}")
+    grads_close(grads_k, grads_p, 1e-3, "against the plain-op model",
+                per_tensor=False)
+    del grads_p
+    torch.backends.cudnn.deterministic = False
+    grads_1 = loss_and_grads(tmodel, images, target)[2]
+    worst, name, rel = grad_errors(loss_and_grads(tmodel, images, target)[2],
+                                   grads_1)
+    print(f"  the kernel model against itself, cuDNN not deterministic: "
+          f"worst tensor {worst:.3e} of its max |g| ({name}), {rel:.3e} in "
+          f"relative L2")
+    del grads_1
+
+    small_img = images[:1, :, :64, :128].contiguous()
+    small_tgt = target[:1, :64, :128].contiguous()
+    cpu_model = get_model("FlowNet2", device="cpu", seed=0)
+    loss_s, epe_s, grads_s = loss_and_grads(tmodel, small_img, small_tgt)
+    loss_c, epe_c, grads_c = loss_and_grads(cpu_model, small_img.cpu(),
+                                            small_tgt.cpu())
+    print(f"  small step: loss {loss_s:.6f} / EPE {epe_s:.6f} on the card, "
+          f"{loss_c:.6f} / {epe_c:.6f} on the CPU")
+    for a, b, what in ((loss_s, loss_c, "small loss"),
+                       (epe_s, epe_c, "small EPE")):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"{what}: card {a} vs CPU {b}")
+    grads_close(grads_s, grads_c, 1e-3, "small step against the CPU")
+    del grads_k, grads_s, grads_c, cpu_model
+
+    step = StepFactory(tmodel, loss_fn, get_optimizer("Adam", 1e-4)) \
+        .train_step()
+    route_ms = {route: [] for route in ROUTES}
+    route_launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    for route in (ROUTES + ROUTES[::-1]) * ROUTE_ROUNDS:
+        with mock.patch.object(stage_glue, "TRAIN_WARP", route):
+            for _ in range(TRAIN_WARMUP):
+                step(images, target)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            ops.reset_counts()
+            start.record()
+            metrics = [step(images, target) for _ in range(TRAIN_STEPS)]
+            end.record()
+            torch.cuda.synchronize()
+        route_ms[route].append(start.elapsed_time(end) / TRAIN_STEPS)
+        route_launches.setdefault(route, (dict(ops.LAUNCHES),
+                                          dict(ops.PLAIN_CALLS)))
+        losses = torch.stack([torch.stack([m["loss"], m["epe"]])
+                              for m in metrics])
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"{route}: non-finite loss/EPE {losses}")
+    peak_train_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = TRAIN_STEPS
+    want_launches = {
+        "tangents": {"correlation_fwd": n, "correlation_bwd_f1": n,
+                     "correlation_bwd_f2": n, "resample2d_tangents": 2 * n,
+                     "resample2d_tangents_multi": n},
+        "grad_flow": {"correlation_fwd": n, "correlation_bwd_f1": n,
+                      "correlation_bwd_f2": n, "resample2d_fwd": 2 * n,
+                      "resample2d_fwd_multi": n,
+                      "resample2d_grad_flow": 2 * n,
+                      "resample2d_grad_flow_multi": n}}
+    for route in ROUTES:
+        got, plain = route_launches[route]
+        print(f"  {route} route, launches over {n} steps: {got}; plain-op "
+              f"calls: {plain}")
+        if got != want_launches[route] or plain:
+            raise AssertionError(f"{route} route launches {got} / plain "
+                                 f"calls {plain}; expected "
+                                 f"{want_launches[route]} / {{}}")
+    for route in ROUTES:
+        times = route_ms[route]
+        mean = sum(times) / len(times)
+        print(f"  {route} route: {mean:.3f} ms/step "
+              f"({', '.join(f'{t:.3f}' for t in times)}), "
+              f"{TRAIN_BATCH / mean * 1e3:.2f} frames/s  [{smi}]")
+    print(f"  last loss {metrics[-1]['loss'].item():.6f}, EPE "
+          f"{metrics[-1]['epe'].item():.6f}; peak {peak_train_gib:.2f} GiB "
+          f"allocated")
+    train_launches = route_launches[stage_glue.TRAIN_WARP][0]
+
+    # -- 5. kernel times ------------------------------------------------------
+    print("phase 5: kernel times at the main-path shapes")
     rows = []
-    with torch.inference_mode():
+    with torch.no_grad():
         b, c, h, w = BATCH, 256, HEIGHT // 8, WIDTH // 8
         f1, f2 = randn(b, c, h, w), randn(b, c, h, w)
-        disp = 21
         k1_bytes = 4 * (2 * b * c * h * w + b * disp * disp * h * w)
         k1_flops = 2 * b * disp * disp * h * w * c
         rows.append(("correlation_fwd", "correlation_pallas.py:83",
@@ -272,7 +565,7 @@ def main() -> int:
         xs = torch.arange(w, device=dev).view(1, 1, -1)
         ys = torch.arange(h, device=dev).view(1, -1, 1)
 
-        def grid_of(fl):
+        def grid_of(fl, xs=xs, ys=ys, h=h, w=w):
             gx = (xs + fl[:, 0]) * (2.0 / (w - 1)) - 1.0
             gy = (ys + fl[:, 1]) * (2.0 / (h - 1)) - 1.0
             return torch.stack([gx, gy], dim=-1)
@@ -298,6 +591,58 @@ def main() -> int:
                              padding_mode="border", align_corners=True)),
                          nbytes, flops))
 
+        # the training shapes: K5/K6 at FlowNetC's (8, 256, 48, 56), K3/K4
+        # at (8, 3, 384, 448) with +-8 px flows
+        b, c, h, w = TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8
+        tf1, tf2 = randn(b, c, h, w), randn(b, c, h, w)
+        tg = randn(b, disp * disp, h, w)
+        bwd_bytes = 4 * (2 * b * c * h * w + b * disp * disp * h * w)
+        bwd_flops = 2 * b * disp * disp * h * w * c
+        for name, needs, replaces in (
+                ("correlation_bwd_f1", (True, False),
+                 "correlation_pallas.py:449"),
+                ("correlation_bwd_f2", (False, True),
+                 "correlation_pallas.py:478")):
+            rows.append((name, replaces, "correlation_bwd.cu",
+                         (lambda needs=needs: corr.correlation_bwd_cuda(
+                             tg, tf1, tf2, 20, 2, needs=needs)),
+                         (lambda needs=needs: corr.correlation_bwd_plain(
+                             tg, tf1, tf2, 20, 2, needs=needs)),
+                         None, bwd_bytes, bwd_flops))
+
+        b, h, w, ch = TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, 3
+        one, two = t_flows[:, :1].contiguous(), t_flows
+        # per output pixel ~10 flops of coordinates and weights, then 17 per
+        # channel (7 for out, 5 each for d1 and d2)
+        for name, fl in (("resample2d_tangents", one),
+                         ("resample2d_tangents_multi", two)):
+            nflows = fl.shape[1]
+            rows.append((name, "resample2d_pallas.py:262",
+                         "resample2d_tangents.cu",
+                         (lambda fl=fl: r2d.resample2d_tangents_cuda(t_img,
+                                                                     fl)),
+                         (lambda fl=fl: r2d.resample2d_tangents_plain(t_img,
+                                                                      fl)),
+                         None, 4 * b * h * w * (ch + nflows * (2 + 3 * ch)),
+                         b * nflows * h * w * (10 + 17 * ch)))
+        tg4 = randn(b, 1, ch, h, w)
+        grid = grid_of(one[:, 0], xs=torch.arange(w, device=dev).view(1, 1, -1),
+                       ys=torch.arange(h, device=dev).view(1, -1, 1), h=h, w=w)
+        with torch.enable_grad():
+            grid_leaf = grid.clone().requires_grad_()
+            sampled = F.grid_sample(t_img, grid_leaf, mode="bilinear",
+                                    padding_mode="border", align_corners=True)
+        # the same function as one library call: grid_sample's backward for
+        # the grid (its gradient times (W-1)/2 and (H-1)/2 is d_flow)
+        rows.append(("resample2d_grad_flow", "resample2d_pallas.py:312",
+                     "resample2d_grad_flow.cu",
+                     lambda: r2d.resample2d_grad_flow_cuda(tg4, t_img, one),
+                     lambda: r2d.resample2d_grad_flow_plain(tg4, t_img, one),
+                     lambda: torch.autograd.grad(sampled, grid_leaf, tg4[:, 0],
+                                                 retain_graph=True),
+                     4 * b * h * w * (2 * ch + 2 + 2),
+                     b * h * w * (10 + 12 * ch)))
+
         kernels = []
         for name, replaces, src, fn, plain, lib, nbytes, flops in rows:
             k_ms = time_ms(fn, 50)
@@ -308,50 +653,48 @@ def main() -> int:
                   f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
                   f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.3f} GFLOP)  [{smi}]")
+            if name in launches:      # over the phase 3 forwards
+                count = launches[name]
+            elif name == "resample2d_grad_flow":   # one and two flows
+                k4 = route_launches["grad_flow"][0]
+                count = (k4["resample2d_grad_flow"]
+                         + k4["resample2d_grad_flow_multi"]) / TRAIN_STEPS
+            elif name.startswith("resample2d_tangents"):
+                count = route_launches["tangents"][0][name] / TRAIN_STEPS
+            else:                      # per step of the default route
+                count = train_launches[name] / TRAIN_STEPS
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"flownet2_tpu_torch/csrc/{src}",
                 "replaces": f"flownet2_tpu/ops/{replaces}",
-                "launches": launches[name], "max_abs_err": max(errs[name]),
+                "launches": count, "max_abs_err": max(errs[name]),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": l_ms})
+        del sampled, grid_leaf
 
-    # -- 5. where the device time goes --------------------------------------
-    print(f"phase 5: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, "
+    # -- 6. where the device time goes --------------------------------------
+    print(f"phase 6: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, "
           f"{PROFILED_FORWARDS} forwards under torch.profiler")
     with torch.inference_mode():
         model(pairs[0])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+        def forwards():
             for _ in range(PROFILED_FORWARDS):
                 model(pairs[0])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel events only: their self device time is the kernel's own time
-    per_kernel = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us
-    busy_ms = sum(per_kernel.values()) / 1e3
-    if busy_ms <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    families = {name: 0.0 for name, _ in FAMILIES}
-    for key, us in per_kernel.items():
-        families[next(n for n, rx in FAMILIES if rx.search(key))] += us / 1e3
-    n = PROFILED_FORWARDS
-    print(f"  wall {wall_ms / n:.3f} ms/batch, device busy {busy_ms / n:.3f} "
-          f"ms/batch, idle share {1 - busy_ms / wall_ms:.4f}  [{smi}]")
-    for name, fam_ms in sorted(families.items(), key=lambda kv: -kv[1]):
-        print(f"  {name:24s} {fam_ms / n:9.3f} ms/batch  "
-              f"{fam_ms / busy_ms:7.2%}")
-    print("  top kernels:")
-    for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {us / 1e3 / n:9.3f} ms/batch  {key[:100]}")
 
-    # -- 6. result ------------------------------------------------------------
+        profile_families(forwards, PROFILED_FORWARDS, FAMILIES, smi, "batch")
+    print(f"  FlowNet2 train step b{TRAIN_BATCH} {TRAIN_HEIGHT}x{TRAIN_WIDTH}, "
+          f"{PROFILED_STEPS} steps under torch.profiler "
+          f"({stage_glue.TRAIN_WARP} route)")
+    step(images, target)
+
+    def steps():
+        for _ in range(PROFILED_STEPS):
+            step(images, target)
+
+    profile_families(steps, PROFILED_STEPS, TRAIN_FAMILIES, smi, "step")
+
+    # -- 7. result ------------------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

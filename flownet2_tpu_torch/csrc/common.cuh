@@ -3,6 +3,8 @@
 // appears once in each library.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 extern "C" const char* fnet_error_string(int err) {
@@ -13,4 +15,42 @@ extern "C" const char* fnet_error_string(int err) {
 // runtime, whose current device starts at 0) and returns the error, if any.
 static inline int fnet_set_device(int device) {
   return static_cast<int>(cudaSetDevice(device));
+}
+
+// The bilinear warp's sample point for output pixel p = y*W + x of one flow
+// (dx at flow[p], dy at flow[H*W + p]), as the JAX package's
+// ops/resample2d.py defines it: xf = x + dx, x0 = floor(xf), a = xf - x0
+// (likewise y0, b), corners x0, x0+1, y0, y0+1 clamped to the image, the
+// weights not renormalised at the border.  floorf (not an int cast, which
+// truncates toward zero) gives the right corner for negative coordinates,
+// and the coordinate is clamped in float first so a wild flow cannot
+// overflow the int conversion (the index clamps give the same corners).
+struct FnetBilinear {
+  float a, b;                // fractional offsets in x and y
+  int64_t tl, tr, bl, br;    // corner offsets in an H x W plane
+};
+
+static __device__ __forceinline__ FnetBilinear fnet_bilinear(
+    const float* __restrict__ flow, int64_t p, int H, int W) {
+  const int64_t plane = static_cast<int64_t>(H) * W;
+  const int x = static_cast<int>(p % W);
+  const int y = static_cast<int>(p / W);
+  const float xf = static_cast<float>(x) + flow[p];
+  const float yf = static_cast<float>(y) + flow[plane + p];
+  const float x0 = floorf(xf);
+  const float y0 = floorf(yf);
+  const int xi = static_cast<int>(fminf(fmaxf(x0, -1.f), static_cast<float>(W)));
+  const int yi = static_cast<int>(fminf(fmaxf(y0, -1.f), static_cast<float>(H)));
+  const int xL = min(max(xi, 0), W - 1);
+  const int xR = min(max(xi + 1, 0), W - 1);
+  const int yT = min(max(yi, 0), H - 1);
+  const int yB = min(max(yi + 1, 0), H - 1);
+  FnetBilinear s;
+  s.a = xf - x0;
+  s.b = yf - y0;
+  s.tl = static_cast<int64_t>(yT) * W + xL;
+  s.tr = static_cast<int64_t>(yT) * W + xR;
+  s.bl = static_cast<int64_t>(yB) * W + xL;
+  s.br = static_cast<int64_t>(yB) * W + xR;
+  return s;
 }

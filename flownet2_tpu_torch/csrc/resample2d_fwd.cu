@@ -10,8 +10,8 @@
 //                      + (1-a) b   img[yB, xL] + a b    img[yB, xR]
 //
 // with the corner indices x0, x0+1, y0, y0+1 clamped to the image and the
-// weights not renormalised at the border (ops/resample2d.py in the JAX
-// package).  Image (B, C, H, W), flows (B, F, 2, H, W), out (B, F, C, H, W).
+// weights not renormalised at the border (fnet_bilinear in common.cuh).
+// Image (B, C, H, W), flows (B, F, 2, H, W), out (B, F, C, H, W).
 //
 // Bound on an H100 SXM at FlowNet2's shape (B 8, C 3, 384x512): the warp
 // does ~10 flops per output value, so memory bounds it: ~50 MB moved for one
@@ -23,8 +23,7 @@
 // are nearly coalesced for smooth flow, and the image (19 MB at this shape)
 // stays in the 50 MB L2 for both flows of a launch.  The TPU kernel's
 // x-shifted planes and _fold_lr exist for lane-local gathers on that chip
-// and are not carried over.  floorf (not an int cast, which truncates
-// toward zero) gives the right corner for negative coordinates.
+// and are not carried over.
 
 #include <cstdint>
 
@@ -43,38 +42,20 @@ resample2d_fwd_kernel(const float* __restrict__ img,
   if (p >= plane) return;
   const int bf = blockIdx.y;  // b * F + f
   const int b = bf / F;
-  const int x = static_cast<int>(p % W);
-  const int y = static_cast<int>(p / W);
 
-  const float* flow = flows + static_cast<int64_t>(bf) * 2 * plane;
-  const float xf = static_cast<float>(x) + flow[p];
-  const float yf = static_cast<float>(y) + flow[plane + p];
-  const float x0 = floorf(xf);
-  const float y0 = floorf(yf);
-  const float a = xf - x0;
-  const float bw = yf - y0;
-  // Clamp in float first so a huge flow cannot overflow the int conversion;
-  // the index clamps below give the same corners either way.
-  const int xi = static_cast<int>(fminf(fmaxf(x0, -1.f), static_cast<float>(W)));
-  const int yi = static_cast<int>(fminf(fmaxf(y0, -1.f), static_cast<float>(H)));
-  const int xL = min(max(xi, 0), W - 1);
-  const int xR = min(max(xi + 1, 0), W - 1);
-  const int yT = min(max(yi, 0), H - 1);
-  const int yB = min(max(yi + 1, 0), H - 1);
-  const int64_t iTL = static_cast<int64_t>(yT) * W + xL;
-  const int64_t iTR = static_cast<int64_t>(yT) * W + xR;
-  const int64_t iBL = static_cast<int64_t>(yB) * W + xL;
-  const int64_t iBR = static_cast<int64_t>(yB) * W + xR;
-  const float wTL = (1.f - a) * (1.f - bw);
-  const float wTR = a * (1.f - bw);
-  const float wBL = (1.f - a) * bw;
-  const float wBR = a * bw;
+  const FnetBilinear s =
+      fnet_bilinear(flows + static_cast<int64_t>(bf) * 2 * plane, p, H, W);
+  const float wTL = (1.f - s.a) * (1.f - s.b);
+  const float wTR = s.a * (1.f - s.b);
+  const float wBL = (1.f - s.a) * s.b;
+  const float wBR = s.a * s.b;
 
   const float* src = img + static_cast<int64_t>(b) * C * plane;
   float* dst = out + static_cast<int64_t>(bf) * C * plane + p;
   for (int c = 0; c < C; ++c) {
-    const float* s = src + c * plane;
-    dst[c * plane] = wTL * s[iTL] + wTR * s[iTR] + wBL * s[iBL] + wBR * s[iBR];
+    const float* i = src + c * plane;
+    dst[c * plane] = wTL * i[s.tl] + wTR * i[s.tr] + wBL * i[s.bl] +
+                     wBR * i[s.br];
   }
 }
 

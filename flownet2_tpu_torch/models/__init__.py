@@ -1,4 +1,4 @@
-"""Model zoo of the port.  This slice carries FlowNet2 inference; the
+"""Model zoo of the port: FlowNet2, for inference and training; the
 FlowNet2C/S/SD/CS/CSS wrappers come with a later slice."""
 
 from __future__ import annotations

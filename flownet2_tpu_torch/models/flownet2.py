@@ -7,6 +7,10 @@ NCHW.  The cascade keeps the reference's quirks: the flow is upsampled
 bilinearly after FlowNetC and the first FlowNetS and by nearest after the
 second FlowNetS and FlowNetSD, and the SD branch divides by ``div_flow``
 where the others multiply.
+
+In ``train()`` mode the forward is the same and returns the fusion flow,
+as the JAX package's ``FlowNet2(training=True)`` does; the gradient
+reaches every sub-net through the glues' warps and the correlation.
 """
 
 from __future__ import annotations

@@ -57,7 +57,8 @@ class FlowNetC(nn.Module):
             # train-mode BatchNorm would mix the two streams' statistics in
             # the batched tower below
             raise NotImplementedError(
-                "FlowNetC: train-mode BatchNorm comes with the training slice")
+                "FlowNetC: train-mode BatchNorm is not in the FlowNet2 "
+                "training slice yet")
         # shared weights: both streams in one batch, half the launches
         out_conv2, out_conv3 = self._tower(torch.cat([x1, x2], dim=0))
         out_conv2a = out_conv2[:x1.shape[0]]

@@ -129,14 +129,11 @@ def check(lib_name: str, what: str, err: int) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def reject_grad(op: str, *tensors: torch.Tensor) -> None:
-    """The CUDA kernels are forward-only: refuse inputs that autograd
-    would need to differentiate rather than silently dropping the graph."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{op}: the CUDA path is forward-only; its backward kernels come "
-            "with the training slice. Run inference under torch.no_grad() or "
-            "torch.inference_mode().")
+def on_cpu(t: torch.Tensor) -> bool:
+    """Whether an op takes its plain version for ``t``: only for a tensor
+    on the CPU.  Any other tensor goes to the CUDA wrapper, which launches
+    its kernel or raises."""
+    return t.device.type == "cpu"
 
 
 def check_operand(op: str, name: str, t: torch.Tensor, ndim: int,

@@ -1,9 +1,10 @@
-"""Flow warping (backward resampling), forward only.
+"""Flow warping (backward resampling) and its gradients.
 
-Counterpart of flownet2_tpu/ops/resample2d.py (the plain form) and of the
-Pallas forward kernel in flownet2_tpu/ops/resample2d_pallas.py (the CUDA
-kernel ``csrc/resample2d_fwd.cu``).  Semantics of the reference's
-Resample2d op:
+Counterpart of flownet2_tpu/ops/resample2d.py (the plain form and its
+custom VJP) and of the Pallas kernels in flownet2_tpu/ops/resample2d_pallas.py
+(the CUDA kernels ``csrc/resample2d_fwd.cu`` K2,
+``csrc/resample2d_tangents.cu`` K3 and ``csrc/resample2d_grad_flow.cu``
+K4).  Semantics of the reference's Resample2d op:
 
     xf = x + flow[:, 0], yf = y + flow[:, 1]      (channel 0 is dx)
     bilinear: corners floor/floor+1 clamped to the image, weights not
@@ -14,8 +15,22 @@ Resample2d op:
 Layout: image ``(B, C, H, W)``, flow ``(B, 2, H, W)``; ``resample2d_multi``
 warps one image by F flows ``(B, F, 2, H, W)`` into ``(B, F, C, H, W)``.
 
-A CPU tensor takes the plain PyTorch version.  A CUDA tensor launches the
-kernel (bilinear, K=1, float32) or raises.
+The bilinear K=1 warp is differentiable in two ways, which agree:
+
+- the generic op (``resample2d``, ``resample2d_multi``): forward K2,
+  backward K4, which recomputes the corners and forms the analytic flow
+  gradient, as the reference CUDA backward does;
+- the tangent route (``resample2d_tangents``): forward K3, which also
+  writes d1 = d out/d dx and d2 = d out/d dy per channel, so the backward
+  is the elementwise ``d_flow = (sum_c g*d1, sum_c g*d2)``.
+
+The image gradient, a scatter-add of the four taps, is plain PyTorch on
+any device (the JAX package leaves it to an XLA scatter), computed only
+when the image needs a gradient, which no model's warp does.  Nearest and
+K > 1 are differentiated by autograd through the plain version, on the CPU.
+
+A CPU tensor takes the plain PyTorch versions.  A CUDA tensor launches the
+kernels (bilinear, K=1, float32) or raises.
 """
 
 from __future__ import annotations
@@ -26,7 +41,6 @@ import torch
 
 from . import _cuda
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _MAX_GRID_Y = 65535
 
 
@@ -47,18 +61,30 @@ def _coords(flow: torch.Tensor):
             ys.view(1, -1, 1) + flow[:, 1].float())
 
 
-def _bilinear_plain(img, flow, kernel_size):
-    _, _, height, width = img.shape
+def _sample_point(flow: torch.Tensor, height: int, width: int):
+    """Bilinear weights a, b (B, 1, Ho, Wo) and the clamped corner indices
+    x_l, x_r, y_t, y_b (B, Ho, Wo)."""
     xf, yf = _coords(flow)
     x0 = torch.floor(xf)
     y0 = torch.floor(yf)
-    a = (xf - x0).unsqueeze(1).to(img.dtype)
-    b = (yf - y0).unsqueeze(1).to(img.dtype)
-    x_l = x0.clamp(0, width - 1).long()
-    x_r = (x0 + 1).clamp(0, width - 1).long()
-    y_t = y0.clamp(0, height - 1).long()
-    y_b = (y0 + 1).clamp(0, height - 1).long()
+    return ((xf - x0).unsqueeze(1), (yf - y0).unsqueeze(1),
+            x0.clamp(0, width - 1).long(), (x0 + 1).clamp(0, width - 1).long(),
+            y0.clamp(0, height - 1).long(),
+            (y0 + 1).clamp(0, height - 1).long())
 
+
+def _corners(img: torch.Tensor, flow: torch.Tensor):
+    """a, b and the four corner values iTL, iTR, iBL, iBR (B, C, Ho, Wo)."""
+    a, b, x_l, x_r, y_t, y_b = _sample_point(flow, *img.shape[2:])
+    return (a.to(img.dtype), b.to(img.dtype), _gather(img, y_t, x_l),
+            _gather(img, y_t, x_r), _gather(img, y_b, x_l),
+            _gather(img, y_b, x_r))
+
+
+def _bilinear_plain(img, flow, kernel_size):
+    _, _, height, width = img.shape
+    a, b, x_l, x_r, y_t, y_b = _sample_point(flow, height, width)
+    a, b = a.to(img.dtype), b.to(img.dtype)
     out = torch.zeros(img.shape[:2] + flow.shape[2:], dtype=img.dtype,
                       device=img.device)
     for fy in range(kernel_size):
@@ -82,6 +108,11 @@ def _nearest_plain(img, flow):
     return _gather(img, yn, xn)
 
 
+def _per_flow(base: str, nflows: int) -> str:
+    """Counter name of a warp over ``nflows`` flows: one, or several."""
+    return base if nflows == 1 else f"{base}_multi"
+
+
 def resample2d_plain(img: torch.Tensor, flow: torch.Tensor,
                      kernel_size: int = 1,
                      bilinear: bool = True) -> torch.Tensor:
@@ -100,9 +131,59 @@ def resample2d_multi_plain(img: torch.Tensor,
                         for f in range(flows.shape[1])], dim=1)
 
 
-def _launch(name: str, img: torch.Tensor, flows: torch.Tensor):
-    """Run csrc/resample2d_fwd.cu over flows (B, F, 2, H, W)."""
-    _cuda.reject_grad(name, img, flows)
+def resample2d_tangents_plain(img: torch.Tensor, flows: torch.Tensor):
+    """The plain version of K3: the bilinear warp of one image (B, C, H, W)
+    by F flows (B, F, 2, H, W) and its flow tangents d1 = d out/d dx,
+    d2 = d out/d dy, as ``(out, d1, d2)``, each (B, F, C, H, W)."""
+    _cuda.PLAIN_CALLS[_per_flow("resample2d_tangents", flows.shape[1])] += 1
+    outs, d1s, d2s = [], [], []
+    for f in range(flows.shape[1]):
+        a, b, i_tl, i_tr, i_bl, i_br = _corners(img, flows[:, f])
+        outs.append((1 - a) * (1 - b) * i_tl + a * (1 - b) * i_tr
+                    + (1 - a) * b * i_bl + a * b * i_br)
+        d1s.append((1 - b) * (i_tr - i_tl) + b * (i_br - i_bl))
+        d2s.append((1 - a) * (i_bl - i_tl) + a * (i_br - i_tr))
+    return (torch.stack(outs, dim=1), torch.stack(d1s, dim=1),
+            torch.stack(d2s, dim=1))
+
+
+def resample2d_grad_flow_plain(g: torch.Tensor, img: torch.Tensor,
+                               flows: torch.Tensor) -> torch.Tensor:
+    """The plain version of K4: the flow gradient (B, F, 2, H, W) of the
+    bilinear warp of ``img`` by ``flows`` for the cotangent ``g``
+    (B, F, C, H, W)."""
+    _cuda.PLAIN_CALLS[_per_flow("resample2d_grad_flow", flows.shape[1])] += 1
+    d_flows = []
+    for f in range(flows.shape[1]):
+        a, b, i_tl, i_tr, i_bl, i_br = _corners(img, flows[:, f])
+        gf = g[:, f]
+        d_flows.append(torch.stack([
+            torch.sum(gf * ((1 - b) * (i_tr - i_tl) + b * (i_br - i_bl)), 1),
+            torch.sum(gf * ((1 - a) * (i_bl - i_tl) + a * (i_br - i_tr)), 1),
+        ], dim=1))
+    return torch.stack(d_flows, dim=1)
+
+
+def _d_img(g: torch.Tensor, img: torch.Tensor,
+           flows: torch.Tensor) -> torch.Tensor:
+    """The image gradient of the bilinear warp: each flow's cotangent
+    (B, F, C, H, W) scattered back onto its four taps, plain PyTorch on any
+    device (the reference's and the JAX package's scatter-add)."""
+    batch, channels, height, width = img.shape
+    d_img = torch.zeros_like(img).reshape(batch, channels, -1)
+    for f in range(flows.shape[1]):
+        a, b, x_l, x_r, y_t, y_b = _sample_point(flows[:, f], height, width)
+        gf = g[:, f].reshape(batch, channels, -1)
+        a, b = a.reshape(batch, 1, -1), b.reshape(batch, 1, -1)
+        for yi, xi, w in ((y_t, x_l, (1 - a) * (1 - b)),
+                          (y_t, x_r, a * (1 - b)),
+                          (y_b, x_l, (1 - a) * b), (y_b, x_r, a * b)):
+            idx = (yi * width + xi).reshape(batch, 1, -1).expand_as(gf)
+            d_img.scatter_add_(2, idx, w * gf)
+    return d_img.reshape(img.shape)
+
+
+def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor):
     device = img.device
     _cuda.check_operand(name, "img", img, 4, device)
     _cuda.check_operand(name, "flows", flows, 5, device)
@@ -114,39 +195,134 @@ def _launch(name: str, img: torch.Tensor, flows: torch.Tensor):
     if batch * nflows > _MAX_GRID_Y:
         raise ValueError(f"{name}: B*F = {batch * nflows} exceeds "
                          f"{_MAX_GRID_Y}")
-    out = torch.empty((batch, nflows, channels, height, width),
-                      dtype=img.dtype, device=device)
-    if out.numel() == 0:
-        return out
-    fn = _cuda.function("resample2d_fwd", "resample2d_fwd", _ARGTYPES)
-    err = fn(img.data_ptr(), flows.data_ptr(), out.data_ptr(), batch, nflows,
-             channels, height, width, device.index, _cuda.stream_ptr(device))
+    return device, (batch, nflows, channels, height, width)
+
+
+def _launch(lib: str, name: str, pointers, dims, device) -> None:
+    """Run the C entry point ``lib`` of ``csrc/<lib>.cu`` on ``pointers``
+    (tensors) and ``dims`` (B, F, C, H, W) on the current stream."""
+    argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
+    fn = _cuda.function(lib, lib, argtypes)
+    err = fn(*(t.data_ptr() for t in pointers), *dims, device.index,
+             _cuda.stream_ptr(device))
     _cuda.LAUNCHES[name] += 1
-    _cuda.check("resample2d_fwd", name, err)
+    _cuda.check(lib, name, err)
+
+
+def _fwd_cuda(name: str, img: torch.Tensor, flows: torch.Tensor):
+    """Run K2 (csrc/resample2d_fwd.cu) over flows (B, F, 2, H, W)."""
+    device, dims = _check_warp(name, img, flows)
+    out = torch.empty(dims, dtype=img.dtype, device=device)
+    if out.numel():
+        _launch("resample2d_fwd", name, (img, flows, out), dims, device)
     return out
 
 
 def resample2d_cuda(img: torch.Tensor, flow: torch.Tensor,
                     kernel_size: int = 1,
                     bilinear: bool = True) -> torch.Tensor:
-    """The CUDA warp of one flow; bilinear K=1 float32 only."""
+    """The CUDA warp of one flow (K2); bilinear K=1 float32 only."""
     if kernel_size != 1 or not bilinear:
         raise NotImplementedError(
             "resample2d on CUDA: the kernel covers bilinear, kernel_size=1 "
             f"(got kernel_size={kernel_size}, bilinear={bilinear})")
-    return _launch("resample2d_fwd", img, flow.unsqueeze(1)).squeeze(1)
+    return _fwd_cuda("resample2d_fwd", img, flow.unsqueeze(1)).squeeze(1)
 
 
 def resample2d_multi_cuda(img: torch.Tensor,
                           flows: torch.Tensor) -> torch.Tensor:
-    """The CUDA warp of F flows over one image, in one launch."""
-    return _launch("resample2d_fwd_multi", img, flows)
+    """The CUDA warp of F flows over one image, in one launch (K2)."""
+    return _fwd_cuda("resample2d_fwd_multi", img, flows)
+
+
+def resample2d_tangents_cuda(img: torch.Tensor, flows: torch.Tensor):
+    """K3: the warp of one image by F flows (B, F, 2, H, W) and its flow
+    tangents, ``(out, d1, d2)`` each (B, F, C, H, W), in one launch."""
+    name = _per_flow("resample2d_tangents", flows.shape[1])
+    device, dims = _check_warp(name, img, flows)
+    outs = tuple(torch.empty(dims, dtype=img.dtype, device=device)
+                 for _ in range(3))
+    if outs[0].numel():
+        _launch("resample2d_tangents", name, (img, flows, *outs), dims,
+                device)
+    return outs
+
+
+def resample2d_grad_flow_cuda(g: torch.Tensor, img: torch.Tensor,
+                              flows: torch.Tensor) -> torch.Tensor:
+    """K4: the flow gradient (B, F, 2, H, W) of the warp of ``img`` by
+    ``flows`` for the cotangent ``g`` (B, F, C, H, W), in one launch."""
+    name = _per_flow("resample2d_grad_flow", flows.shape[1])
+    device, dims = _check_warp(name, img, flows)
+    _cuda.check_operand(name, "g", g, 5, device)
+    if g.shape != dims:
+        raise ValueError(f"{name}: g {tuple(g.shape)} is not {dims}")
+    d_flows = torch.empty_like(flows)
+    if d_flows.numel():
+        _launch("resample2d_grad_flow", name, (g, img, flows, d_flows), dims,
+                device)
+    return d_flows
+
+
+class _Warp(torch.autograd.Function):
+    """The generic bilinear K=1 warp of F flows: forward K2, backward K4
+    recomputing the corners (the plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, img, flows):
+        ctx.save_for_backward(img, flows)
+        single = flows.shape[1] == 1
+        if _cuda.on_cpu(img):
+            if single:
+                return resample2d_plain(img, flows[:, 0]).unsqueeze(1)
+            return resample2d_multi_plain(img, flows)
+        if single:
+            return resample2d_cuda(img, flows[:, 0]).unsqueeze(1)
+        return resample2d_multi_cuda(img, flows)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, flows = ctx.saved_tensors
+        g = g.contiguous()
+        d_img = _d_img(g, img, flows) if ctx.needs_input_grad[0] else None
+        d_flows = None
+        if ctx.needs_input_grad[1]:
+            grad_flow = (resample2d_grad_flow_plain if _cuda.on_cpu(img)
+                         else resample2d_grad_flow_cuda)
+            d_flows = grad_flow(g, img, flows)
+        return d_img, d_flows
+
+
+class _WarpTangents(torch.autograd.Function):
+    """The tangent route of the bilinear K=1 warp of F flows: forward K3,
+    which saves d1 and d2, and the elementwise backward."""
+
+    @staticmethod
+    def forward(ctx, img, flows):
+        tangents = (resample2d_tangents_plain if _cuda.on_cpu(img)
+                    else resample2d_tangents_cuda)
+        out, d1, d2 = tangents(img, flows)
+        ctx.save_for_backward(img, flows, d1, d2)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        img, flows, d1, d2 = ctx.saved_tensors
+        d_img = _d_img(g, img, flows) if ctx.needs_input_grad[0] else None
+        d_flows = None
+        if ctx.needs_input_grad[1]:
+            d_flows = torch.stack([torch.sum(g * d1, dim=2),
+                                   torch.sum(g * d2, dim=2)], dim=2)
+        return d_img, d_flows
 
 
 def resample2d(img: torch.Tensor, flow: torch.Tensor, kernel_size: int = 1,
                bilinear: bool = True) -> torch.Tensor:
     """Backward-warp ``img`` (B, C, H, W) by ``flow`` (B, 2, H, W)."""
-    if img.device.type == "cpu":
+    if bilinear and kernel_size == 1:
+        return _Warp.apply(img, flow.unsqueeze(1)).squeeze(1)
+    if _cuda.on_cpu(img):
         return resample2d_plain(img, flow, kernel_size, bilinear)
     return resample2d_cuda(img, flow, kernel_size, bilinear)
 
@@ -154,6 +330,10 @@ def resample2d(img: torch.Tensor, flow: torch.Tensor, kernel_size: int = 1,
 def resample2d_multi(img: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
     """Bilinear warps of one image (B, C, H, W) by F flows (B, F, 2, H, W)
     -> (B, F, C, H, W)."""
-    if img.device.type == "cpu":
-        return resample2d_multi_plain(img, flows)
-    return resample2d_multi_cuda(img, flows)
+    return _Warp.apply(img, flows)
+
+
+def resample2d_tangents(img: torch.Tensor,
+                        flows: torch.Tensor) -> torch.Tensor:
+    """``resample2d_multi`` differentiated by the tangent route."""
+    return _WarpTangents.apply(img, flows)

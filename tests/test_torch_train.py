@@ -1,0 +1,274 @@
+"""The port's training slice (losses, optimizers, the train step) against
+the JAX package, on the CPU, on the same numpy inputs.
+
+The slice test takes one FlowNet2 train step at 64x128 on weights made by
+the port, carried to the JAX package by its own importer and back into a
+second port model by ``from_jax_variables``, and holds the loss, the EPE
+and every parameter's gradient to ``jax.value_and_grad`` of the JAX
+package's MultiScale on ``FlowNet2().apply(..., training=True)``.
+"""
+
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from flownet2_tpu import losses as jax_losses
+from flownet2_tpu.checkpoints.torch_import import state_dict_to_variables
+from flownet2_tpu.models import FlowNet2 as JaxFlowNet2
+from flownet2_tpu.train import optim as jax_optim
+
+from flownet2_tpu_torch import losses, ops
+from flownet2_tpu_torch.checkpoints import from_jax_variables
+from flownet2_tpu_torch.models import FlowNet2, get_model
+from flownet2_tpu_torch.ops import stage_glue
+from flownet2_tpu_torch.train import LRSchedule, StepFactory, get_optimizer
+
+H, W = 64, 128
+# Loss and EPE agree to float32 summation order; each gradient to 1e-3 of
+# its tensor's largest magnitude, since the cascade amplifies summation
+# noise through the warps and the correlation (the inference test holds
+# the flow to 1e-3 for the same reason).
+LOSS_TOL = 1e-4
+GRAD_TOL = 1e-3
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(
+        np.float32)
+
+
+# ------------------------------------------------------------------ losses
+
+def _flow_outputs(seed):
+    """A multi-scale output at 64x128 (finest 16x32, as FlowNetS gives at
+    start scale 4) and its full-resolution target."""
+    outs = tuple(_rand((2, H // s, W // s, 2), seed + i)
+                 for i, s in enumerate((4, 8, 16, 32, 64)))
+    return outs, _rand((2, H, W, 2), seed + 9, 5.0)
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("L1Loss", {}), ("L2Loss", {}), ("MultiScale", {}),
+    ("MultiScale", {"norm": "L2", "num_scales": 3, "l_weight": 0.5})])
+def test_losses_match_jax(name, kwargs):
+    """Single outputs and MultiScale's tuple branch, mean and per-sample
+    forms, f32."""
+    outs, target = _flow_outputs(1)
+    full = _rand((2, H, W, 2), 20)
+    port = losses.get_loss(name, **kwargs)
+    ref = jax_losses.get_loss(name, **kwargs)
+    assert port.loss_labels == ref.loss_labels
+    cases = [(full, target)]
+    if name == "MultiScale":
+        cases.append((outs, target))
+    for output, tgt in cases:
+        t_out = (tuple(map(torch.from_numpy, output))
+                 if isinstance(output, tuple) else torch.from_numpy(output))
+        j_out = (tuple(map(jnp.asarray, output))
+                 if isinstance(output, tuple) else jnp.asarray(output))
+        for form in ("__call__", "per_sample"):
+            got = getattr(port, form)(t_out, torch.from_numpy(tgt))
+            want = getattr(ref, form)(j_out, jnp.asarray(tgt))
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                           rtol=1e-5, atol=1e-6)
+
+
+def test_unknown_names_raise():
+    with pytest.raises(KeyError, match="available"):
+        losses.get_loss("L3")
+    with pytest.raises(KeyError, match="available"):
+        get_optimizer("Lion", 1e-3)
+
+
+# -------------------------------------------------------------- optimizers
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("Adam", {}), ("AdamW", {}), ("SGD", {}), ("Momentum", {}),
+    ("RMSprop", {}), ("Adagrad", {}),
+    ("Adam", {"b1": 0.8, "eps": 1e-6}), ("SGD", {"momentum": 0.5,
+                                                 "nesterov": True})])
+@pytest.mark.parametrize("clip", [None, 0.5])
+def test_optimizer_updates_match_optax(name, kwargs, clip):
+    """Three steps on identical gradients, with a step schedule that decays
+    after the first step and, in half the cases, a global-norm clip that
+    the gradients exceed: the parameters after each step agree with the
+    JAX package's optax transform, f32."""
+    schedule = LRSchedule(0.1, frequency=1, fraction=2.0)
+    params = [_rand((3, 4), 80), _rand((5,), 81)]
+    grads = [[_rand(p.shape, 90 + 10 * k + i) for i, p in enumerate(params)]
+             for k in range(3)]
+    tx = jax_optim.get_optimizer(name, 0.1, jax_optim.LRSchedule(
+        0.1, frequency=1, fraction=2.0), grad_clip=clip, **kwargs)
+    j_params = [jnp.asarray(p) for p in params]
+    state = tx.init(j_params)
+    t_params = [torch.nn.Parameter(torch.from_numpy(p.copy()))
+                for p in params]
+    opt = get_optimizer(name, 0.1, schedule, grad_clip=clip, **kwargs)
+    opt.init(t_params)
+    for k in range(3):
+        updates, state = tx.update([jnp.asarray(g) for g in grads[k]],
+                                   state, j_params)
+        j_params = optax.apply_updates(j_params, updates)
+        for p, g in zip(t_params, grads[k]):
+            p.grad = torch.from_numpy(g.copy())
+        opt.step()
+        for a, b in zip(t_params, j_params):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                       rtol=1e-5, atol=1e-6)
+    assert opt.count == 3
+
+
+def test_lr_schedule_matches_jax():
+    ours = LRSchedule(1e-4, frequency=3, fraction=10.0)
+    ref = jax_optim.LRSchedule(1e-4, frequency=3, fraction=10.0)
+    for step in range(0, 20, 2):
+        assert ours(step) == pytest.approx(float(ref(step)), rel=1e-6)
+    assert ours(19) == 1e-6   # the floor
+    assert LRSchedule(3e-4)(1000) == 3e-4
+
+
+# ----------------------------------------------------------- the train step
+
+def _batch(batch, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(batch, 2, H, W, 3).astype(np.float32) * 255.0,
+            rng.rand(batch, H, W, 2).astype(np.float32) * 5.0)
+
+
+ROUTES = ("grad_flow", "tangents")
+
+
+@pytest.fixture(scope="module")
+def slice_run():
+    """One train step of the JAX package and, per training warp route, of
+    the port, from the same weights and batch."""
+    made = get_model("FlowNet2", device="cpu", seed=0)
+    variables = state_dict_to_variables(
+        {k: v.numpy() for k, v in made.state_dict().items()}, "FlowNet2")
+    images, flow = _batch(1, 3)
+
+    def jax_loss(params):
+        out = JaxFlowNet2().apply({"params": params}, jnp.asarray(images),
+                                  training=True)
+        lossvalue, epevalue = jax_losses.MultiScale()(out, jnp.asarray(flow))
+        return lossvalue, epevalue
+
+    (j_loss, j_epe), j_grads = jax.jit(jax.value_and_grad(
+        jax_loss, has_aux=True))(variables["params"])
+    run = {"want": (float(j_loss), float(j_epe), from_jax_variables(
+        {"params": jax.tree_util.tree_map(np.asarray, j_grads)},
+        "FlowNet2"))}
+    for route in ROUTES:
+        model = FlowNet2()
+        model.load_state_dict(from_jax_variables(variables, "FlowNet2"),
+                              strict=True)
+        factory = StepFactory(model, losses.MultiScale(),
+                              get_optimizer("Adam", 1e-4))
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        ops.reset_counts()
+        with mock.patch.object(stage_glue, "TRAIN_WARP", route):
+            metrics = factory.train_step()(torch.from_numpy(images),
+                                           torch.from_numpy(flow))
+        run[route] = dict(model=model, metrics=metrics, before=before,
+                          counts=(dict(ops.PLAIN_CALLS), dict(ops.LAUNCHES)))
+    return run
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_flownet2_train_step_matches_jax(slice_run, route):
+    """Both training warp routes: loss, EPE and every gradient."""
+    model, metrics = slice_run[route]["model"], slice_run[route]["metrics"]
+    j_loss, j_epe, want_grads = slice_run["want"]
+    assert np.isfinite(j_loss) and np.isfinite(j_epe)
+    np.testing.assert_allclose(metrics["loss"].item(), j_loss, rtol=LOSS_TOL)
+    np.testing.assert_allclose(metrics["epe"].item(), j_epe, rtol=LOSS_TOL)
+    params = dict(model.named_parameters())
+    assert set(params) == set(want_grads)
+    worst = 0.0
+    for name, p in params.items():
+        want = want_grads[name].numpy()
+        got = p.grad.numpy()
+        scale = max(np.abs(want).max(), 1e-30)
+        err = np.abs(got - want).max() / scale
+        worst = max(worst, err)
+        assert err <= GRAD_TOL, f"{name}: {err:.2e} of max |g| {scale:.2e}"
+    assert worst > 0.0
+
+
+def test_train_step_takes_plain_versions_and_updates_in_place(slice_run):
+    """On the CPU the step runs every op's plain version, the warps by the
+    default route (the generic warp and its flow gradient: two single-flow
+    and one two-flow call each), launches no kernel, and Adam moves every
+    parameter by about lr."""
+    plain, launches = slice_run["grad_flow"]["counts"]
+    assert plain == {"correlation": 1, "correlation_bwd": 1,
+                     "resample2d": 2, "resample2d_multi": 1,
+                     "resample2d_grad_flow": 2,
+                     "resample2d_grad_flow_multi": 1}
+    assert slice_run["tangents"]["counts"] == (
+        {"correlation": 1, "correlation_bwd": 1, "resample2d_tangents": 2,
+         "resample2d_tangents_multi": 1}, {})
+    assert launches == {}
+    assert stage_glue.TRAIN_WARP == "grad_flow"
+    model, before = (slice_run["grad_flow"]["model"],
+                     slice_run["grad_flow"]["before"])
+    assert model.training
+    for name, p in model.named_parameters():
+        step = (p.detach() - before[name]).abs().max().item()
+        assert 0.0 < step <= 1.01e-4, name
+
+
+def test_step_factory_options_and_eval_step():
+    """loss_scale divides the gradients back; skip_nonfinite_updates leaves
+    the parameters and the optimizer alone on a non-finite gradient; the
+    eval step sums the first n_valid samples' per-sample metrics."""
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Conv2d(2, 2, 3, padding=1))
+
+    class Model(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, images):
+            return self.net(images[:, 0, :, :, :2].permute(0, 3, 1, 2)) \
+                .permute(0, 2, 3, 1)
+
+    images = torch.from_numpy(_rand((3, 2, 8, 8, 3), 100))
+    flow = torch.from_numpy(_rand((3, 8, 8, 2), 101))
+    grads = {}
+    for scale in (1.0, 128.0):
+        model = Model()
+        factory = StepFactory(model, losses.L1Loss(),
+                              get_optimizer("SGD", 0.0), loss_scale=scale)
+        factory.train_step()(images, flow)
+        grads[scale] = [p.grad.clone() for p in model.parameters()]
+    for a, b in zip(grads[1.0], grads[128.0]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+    model = Model()
+    factory = StepFactory(model, losses.L1Loss(), get_optimizer("Adam", 0.1),
+                          skip_nonfinite_updates=True)
+    before = [p.detach().clone() for p in model.parameters()]
+    bad = images.clone()
+    bad[0, 0, 0, 0, 0] = float("nan")
+    metrics = factory.train_step()(bad, flow)
+    assert not torch.isfinite(metrics["loss"])
+    assert factory.optimizer.count == 0
+    assert all(torch.equal(a, b) for a, b in zip(before, model.parameters()))
+    factory.train_step()(images, flow)
+    assert factory.optimizer.count == 1
+
+    sums = factory.eval_step()(images, flow, 2)
+    assert not model.training and sums["count"] == 2
+    with torch.no_grad():
+        pred = model(images)
+    loss_ps, epe_ps = losses.L1Loss().per_sample(pred, flow)
+    torch.testing.assert_close(sums["loss_sum"], loss_ps[:2].sum())
+    torch.testing.assert_close(sums["epe_sum"], epe_ps[:2].sum())
