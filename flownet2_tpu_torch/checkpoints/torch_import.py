@@ -15,7 +15,10 @@ JAX package's ``state_dict_to_variables``
 Conv kernels go HWIO -> OIHW; transposed-conv kernels, which the JAX
 package stores flipped, are un-flipped back to torch's (in, out, kh, kw).
 The Sequential index ``.0`` is dropped for the bare ``predict_flow*`` and
-``upsampled_flow*`` modules, as in the reference.
+``upsampled_flow*`` modules, as in the reference.  The single-net wrappers
+FlowNet2C, 2S and 2SD keep their modules at the root of the state_dict
+where the JAX package nests them under a named sub-net; ``ROOT_PREFIX``
+names that sub-net, and it is stripped.
 """
 
 from __future__ import annotations
@@ -25,6 +28,17 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+# The Flax sub-net that holds a model's root-level modules (the port's copy
+# of the JAX importer's table; None: the keys carry their sub-net's name).
+ROOT_PREFIX = {
+    "FlowNet2": None,
+    "FlowNet2CS": None,
+    "FlowNet2CSS": None,
+    "FlowNet2C": "flownetc",
+    "FlowNet2S": "flownets",
+    "FlowNet2SD": "flownetsd",
+}
 
 _BN_PARAMS = {"scale": "weight", "bias": "bias"}
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
@@ -56,9 +70,12 @@ def from_jax_variables(variables: Mapping[str, Any],
     """Flax ``{'params': ..., 'batch_stats': ...}`` (numpy leaves) of the
     JAX package's ``model_name`` -> the port's state_dict."""
     state: dict[str, torch.Tensor] = {}
+    root = ROOT_PREFIX.get(model_name)
 
     def put(path, kind, leaf, value):
         *prefix, module = path
+        if prefix[:1] == [root]:
+            prefix = prefix[1:]
         index = [] if _is_bare(module) else ["1" if kind == "bn" else "0"]
         key = ".".join([*prefix, module, *index, leaf])
         state[key] = torch.from_numpy(

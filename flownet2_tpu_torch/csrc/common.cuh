@@ -17,24 +17,29 @@ static inline int fnet_set_device(int device) {
   return static_cast<int>(cudaSetDevice(device));
 }
 
-// The bilinear warp's sample point for output pixel p = y*W + x of one flow
-// (dx at flow[p], dy at flow[H*W + p]), as the JAX package's
+// The bilinear warp's sample point for output pixel p = r*W + x of one flow
+// over Ho rows (dx at flow[p], dy at flow[Ho*W + p]), as the JAX package's
 // ops/resample2d.py defines it: xf = x + dx, x0 = floor(xf), a = xf - x0
-// (likewise y0, b), corners x0, x0+1, y0, y0+1 clamped to the image, the
-// weights not renormalised at the border.  floorf (not an int cast, which
-// truncates toward zero) gives the right corner for negative coordinates,
-// and the coordinate is clamped in float first so a wild flow cannot
-// overflow the int conversion (the index clamps give the same corners).
+// (likewise y0, b), corners x0, x0+1, y0, y0+1 clamped to the H x W image,
+// the weights not renormalised at the border.  Output row r of the flow is
+// image row y = r + off: the flow may cover only the rows [off, off + Ho) of
+// the image (one row band of a height-split warp).  The offset joins the
+// integer row index before the flow is added, so a band's rows carry the
+// very bits of the whole-image call; Ho = H, off = 0 is that call.  floorf
+// (not an int cast, which truncates toward zero) gives the right corner for
+// negative coordinates, and the coordinate is clamped in float first so a
+// wild flow cannot overflow the int conversion (the index clamps give the
+// same corners).
 struct FnetBilinear {
   float a, b;                // fractional offsets in x and y
   int64_t tl, tr, bl, br;    // corner offsets in an H x W plane
 };
 
 static __device__ __forceinline__ FnetBilinear fnet_bilinear(
-    const float* __restrict__ flow, int64_t p, int H, int W) {
-  const int64_t plane = static_cast<int64_t>(H) * W;
+    const float* __restrict__ flow, int64_t p, int H, int W, int Ho, int off) {
+  const int64_t plane = static_cast<int64_t>(Ho) * W;
   const int x = static_cast<int>(p % W);
-  const int y = static_cast<int>(p / W);
+  const int y = static_cast<int>(p / W) + off;
   const float xf = static_cast<float>(x) + flow[p];
   const float yf = static_cast<float>(y) + flow[plane + p];
   const float x0 = floorf(xf);

@@ -1,11 +1,14 @@
-// K5 and K6: the correlation cost volume's gradient, float32.
+// K5, K6 and K7 backward: the correlation cost volume's gradient, float32.
 //
 // Replaces flownet2_tpu/ops/correlation_pallas.py: _bwd_f1_kernel and
 // _bwd_f1_kernel_wide (K5, d_f1) and _bwd_f2_kernel and _bwd_f2_kernel_wide
-// (K6, d_f2), reached from correlation_pallas_bwd through
-// _correlation_pallas_bwd_impl.  Each kernel has no width limit, so one
-// covers the narrow and the wide case.  With r = maxd / s2, D = 2r + 1,
-// d = (tj+r)*D + (ti+r) and out-of-range terms zero:
+// (K6, d_f2), reached through _correlation_pallas_bwd_impl from
+// correlation_pallas_bwd (entry points correlation_bwd_f1 and
+// correlation_bwd_f2) and, with slab=True, from correlation_pallas_bwd_rows
+// (K7, entry points correlation_bwd_f1_rows and correlation_bwd_f2_rows).
+// Each kernel has no width limit, so one covers the narrow and the wide
+// case.  With r = maxd / s2, D = 2r + 1, d = (tj+r)*D + (ti+r) and
+// out-of-range terms zero:
 //
 //   K5: d_f1[b,c,y,x]   = (1/C) sum_{tj,ti} g[b,d,y,x] * f2[b,c,y+tj*s2,x+ti*s2]
 //   K6: d_f2[b,c,y2,x2] = (1/C) sum_{tj,ti} g[b,d,y2-tj*s2,x2-ti*s2]
@@ -13,6 +16,25 @@
 //
 // g is (B, D*D, H, W); f1, f2, d_f1, d_f2 are (B, C, H, W).  K=1, stride1=1,
 // pad=maxd, as for K1 (correlation_fwd.cu).
+//
+// The row-slab forms (K7) serve a height-split cost volume: g and f1 hold
+// one band of Hloc rows, and the second operand is the band's halo slab of
+// Hloc + 2*maxd rows (correlation_fwd.cu), whose gradient comes back in slab
+// coordinates:
+//
+//   d_f1[b,c,y,x]     = (1/C) sum_{tj,ti} g[b,d,y,x]
+//                                        * slab[b,c,y+maxd+tj*s2,x+ti*s2]
+//   d_slab[b,c,ys,x2] = (1/C) sum_{tj,ti} g[b,d,ys-maxd-tj*s2,x2-ti*s2]
+//                                        * f1[b,c,ys-maxd-tj*s2,x2-ti*s2]
+//
+// with source rows outside [0, Hloc) and columns outside [0, W) contributing
+// zero, so the top and bottom maxd slab rows get terms from only some tj.
+// Each kernel body reads or writes the second operand with a row count H2
+// and a row shift: K5 and K6 are (H2 = H, shift = 0), K7 is
+// (H2 = Hloc + 2*maxd, shift = maxd), two instantiations of one template, so
+// that K5 and K6 keep the code they had with both values folded in (as
+// run-time arguments they cost 3-4% of their time on the H100).  The d_f2
+// grid covers H2 rows.  The sums run in the same order either way.
 //
 // Bound on an H100 SXM at FlowNet2's training shape (B 8, C 256, H 48,
 // W 56, maxd 20, s2 2 -> 441 channels): each kernel does 4.855 GFLOP of
@@ -47,15 +69,18 @@ constexpr int kThreads = kTileW * kGroups;   // 256
 constexpr int kChunkC = 32;                  // channels per block
 constexpr int kPerThread = kChunkC / kGroups;
 
-// K5: d_f1.  Block (tile * chunks, y, b).  For row shift tj the f2 row is
-// y + (tj - r)*s2; column shift ti reads f2 at span offset tx + ti*s2 +
-// (maxd - r*s2), the span starting at column x0 - maxd.
+// K5: d_f1.  Block (tile * chunks, y, b).  For row shift tj the f2 row (of
+// H2) is y + shift + (tj - r)*s2; column shift ti reads f2 at span offset
+// tx + ti*s2 + (maxd - r*s2), the span starting at column x0 - maxd.
+template <bool kSlab>
 __global__ void __launch_bounds__(kThreads)
 correlation_bwd_f1_kernel(const float* __restrict__ g,
                           const float* __restrict__ f2,
                           float* __restrict__ d_f1, int C, int H, int W,
                           int maxd, int s2, int D, int tiles) {
   extern __shared__ float smem[];
+  const int H2 = kSlab ? H + 2 * maxd : H;   // rows of f2
+  const int shift = kSlab ? maxd : 0;
   const int span = kTileW + 2 * maxd;
   float* gs = smem;                        // [D][kTileW]
   float* f2s = smem + D * kTileW;          // [kChunkC][span]
@@ -72,17 +97,18 @@ correlation_bwd_f1_kernel(const float* __restrict__ g,
   const int xs = x0 - maxd;
 
   const int64_t plane = static_cast<int64_t>(H) * W;
+  const int64_t plane2 = static_cast<int64_t>(H2) * W;
   const float* g_row = g + static_cast<int64_t>(b) * D * D * plane +
                        static_cast<int64_t>(y) * W;
-  const float* f2_b = f2 + (static_cast<int64_t>(b) * C + c0) * plane;
+  const float* f2_b = f2 + (static_cast<int64_t>(b) * C + c0) * plane2;
 
   float acc[kPerThread];
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) acc[k] = 0.f;
 
   for (int tj = 0; tj < D; ++tj) {
-    const int y2 = y + (tj - r) * s2;
-    if (y2 < 0 || y2 >= H) continue;
+    const int y2 = y + shift + (tj - r) * s2;
+    if (y2 < 0 || y2 >= H2) continue;
     for (int i = threadIdx.x; i < D * kTileW; i += kThreads) {
       const int ti = i / kTileW;
       const int col = x0 + i % kTileW;
@@ -94,7 +120,7 @@ correlation_bwd_f1_kernel(const float* __restrict__ g,
       const int c = i / span;
       const int col = xs + i % span;
       f2s[i] = (c < nc && col >= 0 && col < W)
-                   ? f2_row[static_cast<int64_t>(c) * plane + col]
+                   ? f2_row[static_cast<int64_t>(c) * plane2 + col]
                    : 0.f;
     }
     __syncthreads();
@@ -121,16 +147,20 @@ correlation_bwd_f1_kernel(const float* __restrict__ g,
   }
 }
 
-// K6: d_f2.  Block (tile * chunks, y2, b).  For row shift tj the source row
-// is y = y2 - (tj - r)*s2; column shift ti reads g and f1 at source column
+// K6: d_f2.  Block (tile * chunks, y2, b) with y2 over the H2 output rows.
+// For row shift tj the source row (of H) is y = y2 - shift - (tj - r)*s2;
+// column shift ti reads g and f1 at source column
 // x2 - (ti - r)*s2, at span offset tx + (maxd + r*s2) - ti*s2, the span
 // starting at column x0 - maxd.
+template <bool kSlab>
 __global__ void __launch_bounds__(kThreads)
 correlation_bwd_f2_kernel(const float* __restrict__ g,
                           const float* __restrict__ f1,
                           float* __restrict__ d_f2, int C, int H, int W,
                           int maxd, int s2, int D, int tiles) {
   extern __shared__ float smem[];
+  const int H2 = kSlab ? H + 2 * maxd : H;   // rows of d_f2
+  const int shift = kSlab ? maxd : 0;
   const int span = kTileW + 2 * maxd;
   float* gs = smem;                        // [D][span]
   float* f1s = smem + D * span;            // [kChunkC][span]
@@ -155,7 +185,7 @@ correlation_bwd_f2_kernel(const float* __restrict__ g,
   for (int k = 0; k < kPerThread; ++k) acc[k] = 0.f;
 
   for (int tj = 0; tj < D; ++tj) {
-    const int y = y2 - (tj - r) * s2;
+    const int y = y2 - shift - (tj - r) * s2;
     if (y < 0 || y >= H) continue;
     const float* g_row = g_b + static_cast<int64_t>(tj * D) * plane +
                          static_cast<int64_t>(y) * W;
@@ -189,12 +219,13 @@ correlation_bwd_f2_kernel(const float* __restrict__ g,
 
   const int x2 = x0 + tx;
   if (x2 < W) {
-    float* out = d_f2 + (static_cast<int64_t>(b) * C + c0) * plane +
+    const int64_t plane2 = static_cast<int64_t>(H2) * W;
+    float* out = d_f2 + (static_cast<int64_t>(b) * C + c0) * plane2 +
                  static_cast<int64_t>(y2) * W + x2;
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const int c = grp + k * kGroups;
-      if (c < nc) out[c * plane] = acc[k] / static_cast<float>(C);
+      if (c < nc) out[c * plane2] = acc[k] / static_cast<float>(C);
     }
   }
 }
@@ -202,8 +233,9 @@ correlation_bwd_f2_kernel(const float* __restrict__ g,
 using BwdKernel = void (*)(const float*, const float*, float*, int, int, int,
                            int, int, int, int);
 
+// ``rows`` is the output's row count: H for d_f1, H2 for d_f2.
 int launch(BwdKernel kernel, size_t smem, const float* g, const float* src,
-           float* out, int B, int C, int H, int W, int maxd, int s2,
+           float* out, int B, int C, int H, int W, int rows, int maxd, int s2,
            int device, void* stream) {
   int err = fnet_set_device(device);
   if (err) return err;
@@ -216,31 +248,58 @@ int launch(BwdKernel kernel, size_t smem, const float* g, const float* src,
         static_cast<int>(smem)));
     if (err) return err;
   }
-  const dim3 grid(tiles * chunks, H, B);
+  const dim3 grid(tiles * chunks, rows, B);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       g, src, out, C, H, W, maxd, s2, D, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
+size_t smem_f1(int maxd, int s2) {
+  const int D = 2 * (maxd / s2) + 1;
+  return sizeof(float) * (D * kTileW + kChunkC * (kTileW + 2 * maxd));
+}
+
+size_t smem_f2(int maxd, int s2) {
+  const int D = 2 * (maxd / s2) + 1;
+  return sizeof(float) * (D + kChunkC) * (kTileW + 2 * maxd);
+}
+
 }  // namespace
 
-// g: (B, D*D, H, W); f2, d_f1: (B, C, H, W); all float32 and contiguous,
-// with D = 2*(maxd/s2) + 1.
+// K5.  g: (B, D*D, H, W); f2, d_f1: (B, C, H, W); all float32 and
+// contiguous, with D = 2*(maxd/s2) + 1.
 extern "C" int correlation_bwd_f1(const float* g, const float* f2, float* d_f1,
                                   int B, int C, int H, int W, int maxd, int s2,
                                   int device, void* stream) {
-  const int D = 2 * (maxd / s2) + 1;
-  const size_t smem = sizeof(float) * (D * kTileW + kChunkC * (kTileW + 2 * maxd));
-  return launch(correlation_bwd_f1_kernel, smem, g, f2, d_f1, B, C, H, W, maxd,
-                s2, device, stream);
+  return launch(correlation_bwd_f1_kernel<false>, smem_f1(maxd, s2), g, f2,
+                d_f1, B, C, H, W, H, maxd, s2, device, stream);
 }
 
-// g: (B, D*D, H, W); f1, d_f2: (B, C, H, W); all float32 and contiguous.
+// K6.  g: (B, D*D, H, W); f1, d_f2: (B, C, H, W); all float32 and contiguous.
 extern "C" int correlation_bwd_f2(const float* g, const float* f1, float* d_f2,
                                   int B, int C, int H, int W, int maxd, int s2,
                                   int device, void* stream) {
-  const int D = 2 * (maxd / s2) + 1;
-  const size_t smem = sizeof(float) * (D + kChunkC) * (kTileW + 2 * maxd);
-  return launch(correlation_bwd_f2_kernel, smem, g, f1, d_f2, B, C, H, W, maxd,
-                s2, device, stream);
+  return launch(correlation_bwd_f2_kernel<false>, smem_f2(maxd, s2), g, f1,
+                d_f2, B, C, H, W, H, maxd, s2, device, stream);
+}
+
+// K7 backward, d_f1.  g: (B, D*D, Hloc, W); slab: (B, C, Hloc + 2*maxd, W);
+// d_f1: (B, C, Hloc, W); all float32 and contiguous.
+extern "C" int correlation_bwd_f1_rows(const float* g, const float* slab,
+                                       float* d_f1, int B, int C, int Hloc,
+                                       int W, int maxd, int s2, int device,
+                                       void* stream) {
+  return launch(correlation_bwd_f1_kernel<true>, smem_f1(maxd, s2), g, slab,
+                d_f1, B, C, Hloc, W, Hloc, maxd, s2, device, stream);
+}
+
+// K7 backward, d_slab.  g: (B, D*D, Hloc, W); f1: (B, C, Hloc, W); d_slab:
+// (B, C, Hloc + 2*maxd, W), in slab coordinates; all float32 and contiguous.
+extern "C" int correlation_bwd_f2_rows(const float* g, const float* f1,
+                                       float* d_slab, int B, int C, int Hloc,
+                                       int W, int maxd, int s2, int device,
+                                       void* stream) {
+  return launch(correlation_bwd_f2_kernel<true>, smem_f2(maxd, s2), g, f1,
+                d_slab, B, C, Hloc, W, Hloc + 2 * maxd, maxd, s2, device,
+                stream);
 }

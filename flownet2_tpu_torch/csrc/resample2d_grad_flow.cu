@@ -10,7 +10,9 @@
 //   d_flow[b,f,0,y,x] = sum_c g[b,f,c,y,x] ((1-b)(iTR - iTL) + b(iBR - iBL))
 //   d_flow[b,f,1,y,x] = sum_c g[b,f,c,y,x] ((1-a)(iBL - iTL) + a(iBR - iTR))
 //
-// g (B, F, C, H, W), image (B, C, H, W), flows and d_flow (B, F, 2, H, W).
+// g (B, F, C, Ho, W), image (B, C, H, W), flows and d_flow (B, F, 2, Ho, W).
+// As in K2 the flow may cover only the image rows [off, off + Ho) (the
+// local-rows form, resample2d_pallas.py:533-540).
 //
 // Bound on an H100 SXM at FlowNet2's training shape (B 8, C 3, 384x448,
 // one flow): ~25 flops per pixel and channel, so memory bounds it: g,
@@ -29,50 +31,64 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
 resample2d_grad_flow_kernel(const float* __restrict__ g,
                             const float* __restrict__ img,
                             const float* __restrict__ flows,
                             float* __restrict__ d_flows, int F, int C, int H,
-                            int W) {
-  const int64_t plane = static_cast<int64_t>(H) * W;
+                            int W, int ho_arg, int off_arg) {
+  // whole image: Ho = H and off = 0 folded in, the code the kernel had
+  // before it took local rows
+  const int Ho = kRows ? ho_arg : H;
+  const int off = kRows ? off_arg : 0;
+  const int64_t plane = static_cast<int64_t>(H) * W;    // image
+  const int64_t oplane = static_cast<int64_t>(Ho) * W;  // g, flow and d_flow
   const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= plane) return;
+  if (p >= oplane) return;
   const int bf = blockIdx.y;  // b * F + f
   const int b = bf / F;
 
   const FnetBilinear s =
-      fnet_bilinear(flows + static_cast<int64_t>(bf) * 2 * plane, p, H, W);
+      fnet_bilinear(flows + static_cast<int64_t>(bf) * 2 * oplane, p, H, W, Ho,
+                    off);
   const float* src = img + static_cast<int64_t>(b) * C * plane;
-  const float* gp = g + static_cast<int64_t>(bf) * C * plane + p;
+  const float* gp = g + static_cast<int64_t>(bf) * C * oplane + p;
   float ddx = 0.f, ddy = 0.f;
   for (int c = 0; c < C; ++c) {
     const float* i = src + c * plane;
     const float tl = i[s.tl], tr = i[s.tr], bl = i[s.bl], br = i[s.br];
-    const float gv = gp[c * plane];
+    const float gv = gp[c * oplane];
     ddx += gv * ((1.f - s.b) * (tr - tl) + s.b * (br - bl));
     ddy += gv * ((1.f - s.a) * (bl - tl) + s.a * (br - tr));
   }
-  float* d = d_flows + static_cast<int64_t>(bf) * 2 * plane + p;
+  float* d = d_flows + static_cast<int64_t>(bf) * 2 * oplane + p;
   d[0] = ddx;
-  d[plane] = ddy;
+  d[oplane] = ddy;
 }
 
 }  // namespace
 
-// g: (B, F, C, H, W); img: (B, C, H, W); flows, d_flows: (B, F, 2, H, W);
-// all float32 and contiguous.
+// g: (B, F, C, Ho, W); img: (B, C, H, W); flows, d_flows: (B, F, 2, Ho, W);
+// all float32 and contiguous; output row r is image row r + off.
 extern "C" int resample2d_grad_flow(const float* g, const float* img,
                                     const float* flows, float* d_flows, int B,
-                                    int F, int C, int H, int W, int device,
-                                    void* stream) {
+                                    int F, int C, int H, int W, int Ho,
+                                    int off, int device, void* stream) {
   const int err = fnet_set_device(device);
   if (err) return err;
-  const int64_t plane = static_cast<int64_t>(H) * W;
-  const dim3 grid(static_cast<unsigned>((plane + kThreads - 1) / kThreads),
+  const int64_t oplane = static_cast<int64_t>(Ho) * W;
+  const dim3 grid(static_cast<unsigned>((oplane + kThreads - 1) / kThreads),
                   B * F);
-  resample2d_grad_flow_kernel<<<grid, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      g, img, flows, d_flows, F, C, H, W);
+  // a whole-image call keeps the kernel with Ho = H and off = 0 folded in
+  if (Ho == H && off == 0) {
+    resample2d_grad_flow_kernel<false>
+        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            g, img, flows, d_flows, F, C, H, W, Ho, off);
+  } else {
+    resample2d_grad_flow_kernel<true>
+        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            g, img, flows, d_flows, F, C, H, W, Ho, off);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,9 @@
 //   d2[b,f,c,y,x]  = d out / d dy = (1-a)(iBL - iTL) + a(iBR - iTR)
 //
 // so the training backward is the elementwise d_flow = (sum_c g*d1,
-// sum_c g*d2).  Image (B, C, H, W), flows (B, F, 2, H, W); out, d1, d2
-// (B, F, C, H, W).
+// sum_c g*d2).  Image (B, C, H, W), flows (B, F, 2, Ho, W); out, d1, d2
+// (B, F, C, Ho, W).  As in K2 the flow may cover only the image rows
+// [off, off + Ho) (the local-rows form, resample2d_pallas.py:424-430).
 //
 // Bound on an H100 SXM at FlowNet2's training shape (B 8, C 3, 384x448):
 // ~20 flops per output value, so memory bounds it: image, flow and three
@@ -34,31 +35,38 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
 resample2d_tangents_kernel(const float* __restrict__ img,
                            const float* __restrict__ flows,
                            float* __restrict__ out, float* __restrict__ d1,
                            float* __restrict__ d2, int F, int C, int H,
-                           int W) {
-  const int64_t plane = static_cast<int64_t>(H) * W;
+                           int W, int ho_arg, int off_arg) {
+  // whole image: Ho = H and off = 0 folded in, the code the kernel had
+  // before it took local rows
+  const int Ho = kRows ? ho_arg : H;
+  const int off = kRows ? off_arg : 0;
+  const int64_t plane = static_cast<int64_t>(H) * W;    // image
+  const int64_t oplane = static_cast<int64_t>(Ho) * W;  // flow and outputs
   const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= plane) return;
+  if (p >= oplane) return;
   const int bf = blockIdx.y;  // b * F + f
   const int b = bf / F;
 
   const FnetBilinear s =
-      fnet_bilinear(flows + static_cast<int64_t>(bf) * 2 * plane, p, H, W);
+      fnet_bilinear(flows + static_cast<int64_t>(bf) * 2 * oplane, p, H, W, Ho,
+                    off);
   const float wTL = (1.f - s.a) * (1.f - s.b);
   const float wTR = s.a * (1.f - s.b);
   const float wBL = (1.f - s.a) * s.b;
   const float wBR = s.a * s.b;
 
   const float* src = img + static_cast<int64_t>(b) * C * plane;
-  const int64_t at = static_cast<int64_t>(bf) * C * plane + p;
+  const int64_t at = static_cast<int64_t>(bf) * C * oplane + p;
   for (int c = 0; c < C; ++c) {
     const float* i = src + c * plane;
     const float tl = i[s.tl], tr = i[s.tr], bl = i[s.bl], br = i[s.br];
-    const int64_t o = at + c * plane;
+    const int64_t o = at + c * oplane;
     out[o] = wTL * tl + wTR * tr + wBL * bl + wBR * br;
     d1[o] = (1.f - s.b) * (tr - tl) + s.b * (br - bl);
     d2[o] = (1.f - s.a) * (bl - tl) + s.a * (br - tr);
@@ -67,19 +75,26 @@ resample2d_tangents_kernel(const float* __restrict__ img,
 
 }  // namespace
 
-// img: (B, C, H, W); flows: (B, F, 2, H, W); out, d1, d2: (B, F, C, H, W);
-// all float32 and contiguous.
+// img: (B, C, H, W); flows: (B, F, 2, Ho, W); out, d1, d2: (B, F, C, Ho, W);
+// all float32 and contiguous; output row r is image row r + off.
 extern "C" int resample2d_tangents(const float* img, const float* flows,
                                    float* out, float* d1, float* d2, int B,
-                                   int F, int C, int H, int W, int device,
-                                   void* stream) {
+                                   int F, int C, int H, int W, int Ho, int off,
+                                   int device, void* stream) {
   const int err = fnet_set_device(device);
   if (err) return err;
-  const int64_t plane = static_cast<int64_t>(H) * W;
-  const dim3 grid(static_cast<unsigned>((plane + kThreads - 1) / kThreads),
+  const int64_t oplane = static_cast<int64_t>(Ho) * W;
+  const dim3 grid(static_cast<unsigned>((oplane + kThreads - 1) / kThreads),
                   B * F);
-  resample2d_tangents_kernel<<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      img, flows, out, d1, d2, F, C, H, W);
+  // a whole-image call keeps the kernel with Ho = H and off = 0 folded in
+  if (Ho == H && off == 0) {
+    resample2d_tangents_kernel<false>
+        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            img, flows, out, d1, d2, F, C, H, W, Ho, off);
+  } else {
+    resample2d_tangents_kernel<true>
+        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            img, flows, out, d1, d2, F, C, H, W, Ho, off);
+  }
   return static_cast<int>(cudaGetLastError());
 }

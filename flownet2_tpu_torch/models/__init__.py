@@ -1,5 +1,5 @@
-"""Model zoo of the port: FlowNet2, for inference and training; the
-FlowNet2C/S/SD/CS/CSS wrappers come with a later slice."""
+"""Model zoo of the port: FlowNet2 and the FlowNet2C, 2S, 2SD, 2CS and 2CSS
+wrappers, for inference and training."""
 
 from __future__ import annotations
 
@@ -7,12 +7,14 @@ import torch
 
 from ..nn.layers import init_weights
 from ..utils.device import resolve_device
-from .flownet2 import FlowNet2, normalize_pair  # noqa: F401
+from .flownet2 import (FlowNet2, FlowNet2C, FlowNet2CS,  # noqa: F401
+                       FlowNet2CSS, FlowNet2S, FlowNet2SD, normalize_pair)
 from .flownet_c import FlowNetC  # noqa: F401
 from .flownet_s import FlowNetS  # noqa: F401
 from .flownet_sd import FlowNetFusion, FlowNetSD  # noqa: F401
 
-MODELS = {"FlowNet2": FlowNet2}
+MODELS = {cls.__name__: cls for cls in (FlowNet2, FlowNet2C, FlowNet2S,
+                                        FlowNet2SD, FlowNet2CS, FlowNet2CSS)}
 
 
 def get_model(name: str, device: str | torch.device | None = None,

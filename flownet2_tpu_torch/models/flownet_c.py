@@ -50,19 +50,22 @@ class FlowNetC(nn.Module):
         out_conv2 = self.conv2(self.conv1(x))
         return out_conv2, self.conv3(out_conv2)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        """x1, x2: the normalised frames (B, 3, H, W) -> flow2
-        (B, 2, H/4, W/4)."""
+    def forward(self, x1: torch.Tensor,
+                x2: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """x1, x2: the normalised frames (B, 3, H, W) -> ``(flow2,)``
+        (B, 2, H/4, W/4) or, in ``train()`` mode, ``(flow2, flow3, flow4,
+        flow5, flow6)``."""
         if self.batch_norm and self.training:
-            # train-mode BatchNorm would mix the two streams' statistics in
-            # the batched tower below
-            raise NotImplementedError(
-                "FlowNetC: train-mode BatchNorm is not in the FlowNet2 "
-                "training slice yet")
-        # shared weights: both streams in one batch, half the launches
-        out_conv2, out_conv3 = self._tower(torch.cat([x1, x2], dim=0))
-        out_conv2a = out_conv2[:x1.shape[0]]
-        out_conv3a, out_conv3b = out_conv3.chunk(2, dim=0)
+            # train-mode BatchNorm normalises each stream with its own batch
+            # statistics (the reference calls the tower twice): batching the
+            # streams would mix them
+            out_conv2a, out_conv3a = self._tower(x1)
+            _, out_conv3b = self._tower(x2)
+        else:
+            # shared weights: both streams in one batch, half the launches
+            out_conv2, out_conv3 = self._tower(torch.cat([x1, x2], dim=0))
+            out_conv2a = out_conv2[:x1.shape[0]]
+            out_conv3a, out_conv3b = out_conv3.chunk(2, dim=0)
 
         out_corr = F.leaky_relu(
             corr_ops.correlation(out_conv3a, out_conv3b, pad_size=20,
@@ -89,4 +92,7 @@ class FlowNetC(nn.Module):
         # the skip is the first stream's conv2 (the reference's FlowNetC)
         concat2 = torch.cat([out_conv2a, self.deconv2(concat3),
                              self.upsampled_flow3_to_2(flow3)], dim=1)
-        return self.predict_flow2(concat2)
+        flow2 = self.predict_flow2(concat2)
+        if self.training:
+            return flow2, flow3, flow4, flow5, flow6
+        return (flow2,)

@@ -41,8 +41,10 @@ class FlowNetS(nn.Module):
         self.upsampled_flow4_to_3 = upsampled_flow(bias=False)
         self.upsampled_flow3_to_2 = upsampled_flow(bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, C, H, W) -> flow2 (B, 2, H/4, W/4)."""
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """x (B, C, H, W) -> ``(flow2,)`` (B, 2, H/4, W/4) or, in
+        ``train()`` mode, ``(flow2, flow3, flow4, flow5, flow6)``, each half
+        the size of the one before: the multi-scale training outputs."""
         out_conv2 = self.conv2(self.conv1(x))
         out_conv3 = self.conv3_1(self.conv3(out_conv2))
         out_conv4 = self.conv4_1(self.conv4(out_conv3))
@@ -61,4 +63,7 @@ class FlowNetS(nn.Module):
         flow3 = self.predict_flow3(concat3)
         concat2 = torch.cat([out_conv2, self.deconv2(concat3),
                              self.upsampled_flow3_to_2(flow3)], dim=1)
-        return self.predict_flow2(concat2)
+        flow2 = self.predict_flow2(concat2)
+        if self.training:
+            return flow2, flow3, flow4, flow5, flow6
+        return (flow2,)

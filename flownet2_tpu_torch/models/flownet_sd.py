@@ -48,8 +48,9 @@ class FlowNetSD(nn.Module):
         self.upsampled_flow4_to_3 = upsampled_flow()
         self.upsampled_flow3_to_2 = upsampled_flow()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, 6, H, W) -> flow2 (B, 2, H/4, W/4)."""
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """x (B, 6, H, W) -> ``(flow2,)`` (B, 2, H/4, W/4) or, in
+        ``train()`` mode, ``(flow2, flow3, flow4, flow5, flow6)``."""
         out_conv1 = self.conv1_1(self.conv1(self.conv0(x)))
         out_conv2 = self.conv2_1(self.conv2(out_conv1))
         out_conv3 = self.conv3_1(self.conv3(out_conv2))
@@ -69,7 +70,10 @@ class FlowNetSD(nn.Module):
         flow3 = self.predict_flow3(self.inter_conv3(concat3))
         concat2 = torch.cat([out_conv2, self.deconv2(concat3),
                              self.upsampled_flow3_to_2(flow3)], dim=1)
-        return self.predict_flow2(self.inter_conv2(concat2))
+        flow2 = self.predict_flow2(self.inter_conv2(concat2))
+        if self.training:
+            return flow2, flow3, flow4, flow5, flow6
+        return (flow2,)
 
 
 class FlowNetFusion(nn.Module):

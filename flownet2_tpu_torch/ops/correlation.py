@@ -31,7 +31,9 @@ Other configurations run the plain forward under autograd (CPU only).
 
 Layout: NCHW in, ``(B, D*D, out_h, out_w)`` out.  A CPU tensor takes the
 plain versions; a CUDA tensor launches the kernels (K 1, s1 1,
-pad == maxd, float32) or raises.
+pad == maxd, float32) or raises.  With
+``sharding_hints.spatial_shards() > 1`` that configuration runs as row
+bands against halo slabs of f2 (``ops/correlation_spatial.py``).
 """
 
 from __future__ import annotations
@@ -42,8 +44,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import _cuda
+from . import _cuda, sharding_hints
 
+# Every entry point of csrc/correlation_fwd.cu and csrc/correlation_bwd.cu,
+# the row-slab ones included: three tensors, B, C, H, W, maxd, s2, the
+# device index and the stream.  ctypes checks nothing against the
+# ``extern "C"`` signatures, so the two change together.
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _MAX_GRID_YZ = 65535
 
@@ -159,6 +165,18 @@ def _check_features(name, f1, f2):
     return device
 
 
+def _launch(lib: str, name: str, tensors, f1: torch.Tensor,
+            max_displacement: int, stride2: int) -> None:
+    """Run the C entry point ``name`` of ``csrc/<lib>.cu`` on ``tensors``
+    and f1's (B, C, H, W) on the current stream, and count the launch."""
+    device = f1.device
+    fn = _cuda.function(lib, name, _ARGTYPES)
+    err = fn(*(t.data_ptr() for t in tensors), *f1.shape, max_displacement,
+             stride2, device.index, _cuda.stream_ptr(device))
+    _cuda.LAUNCHES[name] += 1
+    _cuda.check(lib, name, err)
+
+
 def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
                      kernel_size: int = 1, max_displacement: int = 20,
                      stride1: int = 1, stride2: int = 2) -> torch.Tensor:
@@ -172,14 +190,9 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
     disp = 2 * (max_displacement // stride2) + 1
     out = torch.empty((batch, disp * disp, height, width),
                       dtype=f1.dtype, device=device)
-    if out.numel() == 0:
-        return out
-    fn = _cuda.function("correlation_fwd", "correlation_fwd", _ARGTYPES)
-    err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), batch, channels,
-             height, width, max_displacement, stride2, device.index,
-             _cuda.stream_ptr(device))
-    _cuda.LAUNCHES[name] += 1
-    _cuda.check("correlation_fwd", name, err)
+    if out.numel():
+        _launch("correlation_fwd", name, (f1, f2, out), f1, max_displacement,
+                stride2)
     return out
 
 
@@ -207,12 +220,8 @@ def correlation_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
             continue
         out = torch.empty_like(f1)
         if out.numel():
-            fn = _cuda.function("correlation_bwd", name, _ARGTYPES)
-            err = fn(g.data_ptr(), src.data_ptr(), out.data_ptr(), batch,
-                     channels, height, width, max_displacement, stride2,
-                     device.index, _cuda.stream_ptr(device))
-            _cuda.LAUNCHES[name] += 1
-            _cuda.check("correlation_bwd", name, err)
+            _launch("correlation_bwd", name, (g, src, out), f1,
+                    max_displacement, stride2)
         grads.append(out)
     return tuple(grads)
 
@@ -249,6 +258,15 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
     del corr_multiply
     if _kernel_config(pad_size, kernel_size, max_displacement, stride1,
                       stride2):
+        if sharding_hints.spatial_shards() > 1:
+            from .correlation_spatial import spatial_wrapper
+
+            out = spatial_wrapper(f1, f2, max_displacement, stride2)
+            if out is not None:
+                return out
+        sharding_hints.record_dispatch(
+            "correlation", "whole map, kernel="
+            + ("plain" if _cuda.on_cpu(f1) else "cuda"))
         return _Correlation.apply(f1, f2, max_displacement, stride2)
     if _cuda.on_cpu(f1):
         return correlation_plain(f1, f2, pad_size, kernel_size,

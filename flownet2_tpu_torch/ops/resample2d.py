@@ -15,6 +15,15 @@ K4).  Semantics of the reference's Resample2d op:
 Layout: image ``(B, C, H, W)``, flow ``(B, 2, H, W)``; ``resample2d_multi``
 warps one image by F flows ``(B, F, 2, H, W)`` into ``(B, F, C, H, W)``.
 
+Local rows: the bilinear K=1 functions take a flow of ``Ho <= H`` rows and
+an integer row offset ``off``; output row ``r`` then samples at
+``y = (r + off) + dy``, clamped against the image's ``H`` (the local-rows
+form of the Pallas kernels, which the height-split composition in
+``ops/resample2d_spatial.py`` runs per row band).  The offset joins the
+integer row index before the flow is added, so the result is bit-equal to
+rows ``[off, off + Ho)`` of the whole-image call; ``Ho == H, off == 0`` is
+that call.
+
 The bilinear K=1 warp is differentiable in two ways, which agree:
 
 - the generic op (``resample2d``, ``resample2d_multi``): forward K2,
@@ -30,7 +39,9 @@ when the image needs a gradient, which no model's warp does.  Nearest and
 K > 1 are differentiated by autograd through the plain version, on the CPU.
 
 A CPU tensor takes the plain PyTorch versions.  A CUDA tensor launches the
-kernels (bilinear, K=1, float32) or raises.
+kernels (bilinear, K=1, float32) or raises.  With
+``sharding_hints.spatial_shards() > 1`` the three differentiable entry
+points run as row bands (``ops/resample2d_spatial.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ import ctypes
 
 import torch
 
-from . import _cuda
+from . import _cuda, sharding_hints
 
 _MAX_GRID_Y = 65535
 
@@ -52,19 +63,21 @@ def _gather(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor):
         batch, channels, *yi.shape[1:])
 
 
-def _coords(flow: torch.Tensor):
-    """Source coordinates (xf, yf), each (B, Ho, Wo) float32."""
+def _coords(flow: torch.Tensor, off: int = 0):
+    """Source coordinates (xf, yf), each (B, Ho, Wo) float32, of output
+    rows ``off .. off + Ho``."""
     _, _, out_h, out_w = flow.shape
-    ys = torch.arange(out_h, dtype=torch.float32, device=flow.device)
+    ys = torch.arange(off, off + out_h, dtype=torch.float32,
+                      device=flow.device)
     xs = torch.arange(out_w, dtype=torch.float32, device=flow.device)
     return (xs.view(1, 1, -1) + flow[:, 0].float(),
             ys.view(1, -1, 1) + flow[:, 1].float())
 
 
-def _sample_point(flow: torch.Tensor, height: int, width: int):
+def _sample_point(flow: torch.Tensor, height: int, width: int, off: int = 0):
     """Bilinear weights a, b (B, 1, Ho, Wo) and the clamped corner indices
     x_l, x_r, y_t, y_b (B, Ho, Wo)."""
-    xf, yf = _coords(flow)
+    xf, yf = _coords(flow, off)
     x0 = torch.floor(xf)
     y0 = torch.floor(yf)
     return ((xf - x0).unsqueeze(1), (yf - y0).unsqueeze(1),
@@ -73,17 +86,17 @@ def _sample_point(flow: torch.Tensor, height: int, width: int):
             (y0 + 1).clamp(0, height - 1).long())
 
 
-def _corners(img: torch.Tensor, flow: torch.Tensor):
+def _corners(img: torch.Tensor, flow: torch.Tensor, off: int = 0):
     """a, b and the four corner values iTL, iTR, iBL, iBR (B, C, Ho, Wo)."""
-    a, b, x_l, x_r, y_t, y_b = _sample_point(flow, *img.shape[2:])
+    a, b, x_l, x_r, y_t, y_b = _sample_point(flow, *img.shape[2:], off)
     return (a.to(img.dtype), b.to(img.dtype), _gather(img, y_t, x_l),
             _gather(img, y_t, x_r), _gather(img, y_b, x_l),
             _gather(img, y_b, x_r))
 
 
-def _bilinear_plain(img, flow, kernel_size):
+def _bilinear_plain(img, flow, kernel_size, off=0):
     _, _, height, width = img.shape
-    a, b, x_l, x_r, y_t, y_b = _sample_point(flow, height, width)
+    a, b, x_l, x_r, y_t, y_b = _sample_point(flow, height, width, off)
     a, b = a.to(img.dtype), b.to(img.dtype)
     out = torch.zeros(img.shape[:2] + flow.shape[2:], dtype=img.dtype,
                       device=img.device)
@@ -114,31 +127,35 @@ def _per_flow(base: str, nflows: int) -> str:
 
 
 def resample2d_plain(img: torch.Tensor, flow: torch.Tensor,
-                     kernel_size: int = 1,
-                     bilinear: bool = True) -> torch.Tensor:
-    """The plain PyTorch warp; any device, any K, bilinear or nearest."""
+                     kernel_size: int = 1, bilinear: bool = True,
+                     off: int = 0) -> torch.Tensor:
+    """The plain PyTorch warp; any device, any K, bilinear or nearest
+    (``off``: bilinear only)."""
     _cuda.PLAIN_CALLS["resample2d"] += 1
     if bilinear:
-        return _bilinear_plain(img, flow, kernel_size)
+        return _bilinear_plain(img, flow, kernel_size, off)
+    if off:
+        raise NotImplementedError("the nearest warp has no local-rows form")
     return _nearest_plain(img, flow)
 
 
-def resample2d_multi_plain(img: torch.Tensor,
-                           flows: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch F-flow bilinear warp: (B, F, C, H, W)."""
+def resample2d_multi_plain(img: torch.Tensor, flows: torch.Tensor,
+                           off: int = 0) -> torch.Tensor:
+    """The plain PyTorch F-flow bilinear warp: (B, F, C, Ho, W)."""
     _cuda.PLAIN_CALLS["resample2d_multi"] += 1
-    return torch.stack([_bilinear_plain(img, flows[:, f], 1)
+    return torch.stack([_bilinear_plain(img, flows[:, f], 1, off)
                         for f in range(flows.shape[1])], dim=1)
 
 
-def resample2d_tangents_plain(img: torch.Tensor, flows: torch.Tensor):
+def resample2d_tangents_plain(img: torch.Tensor, flows: torch.Tensor,
+                              off: int = 0):
     """The plain version of K3: the bilinear warp of one image (B, C, H, W)
-    by F flows (B, F, 2, H, W) and its flow tangents d1 = d out/d dx,
-    d2 = d out/d dy, as ``(out, d1, d2)``, each (B, F, C, H, W)."""
+    by F flows (B, F, 2, Ho, W) and its flow tangents d1 = d out/d dx,
+    d2 = d out/d dy, as ``(out, d1, d2)``, each (B, F, C, Ho, W)."""
     _cuda.PLAIN_CALLS[_per_flow("resample2d_tangents", flows.shape[1])] += 1
     outs, d1s, d2s = [], [], []
     for f in range(flows.shape[1]):
-        a, b, i_tl, i_tr, i_bl, i_br = _corners(img, flows[:, f])
+        a, b, i_tl, i_tr, i_bl, i_br = _corners(img, flows[:, f], off)
         outs.append((1 - a) * (1 - b) * i_tl + a * (1 - b) * i_tr
                     + (1 - a) * b * i_bl + a * b * i_br)
         d1s.append((1 - b) * (i_tr - i_tl) + b * (i_br - i_bl))
@@ -148,14 +165,15 @@ def resample2d_tangents_plain(img: torch.Tensor, flows: torch.Tensor):
 
 
 def resample2d_grad_flow_plain(g: torch.Tensor, img: torch.Tensor,
-                               flows: torch.Tensor) -> torch.Tensor:
-    """The plain version of K4: the flow gradient (B, F, 2, H, W) of the
+                               flows: torch.Tensor,
+                               off: int = 0) -> torch.Tensor:
+    """The plain version of K4: the flow gradient (B, F, 2, Ho, W) of the
     bilinear warp of ``img`` by ``flows`` for the cotangent ``g``
-    (B, F, C, H, W)."""
+    (B, F, C, Ho, W)."""
     _cuda.PLAIN_CALLS[_per_flow("resample2d_grad_flow", flows.shape[1])] += 1
     d_flows = []
     for f in range(flows.shape[1]):
-        a, b, i_tl, i_tr, i_bl, i_br = _corners(img, flows[:, f])
+        a, b, i_tl, i_tr, i_bl, i_br = _corners(img, flows[:, f], off)
         gf = g[:, f]
         d_flows.append(torch.stack([
             torch.sum(gf * ((1 - b) * (i_tr - i_tl) + b * (i_br - i_bl)), 1),
@@ -164,15 +182,17 @@ def resample2d_grad_flow_plain(g: torch.Tensor, img: torch.Tensor,
     return torch.stack(d_flows, dim=1)
 
 
-def _d_img(g: torch.Tensor, img: torch.Tensor,
-           flows: torch.Tensor) -> torch.Tensor:
+def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
+           off: int = 0) -> torch.Tensor:
     """The image gradient of the bilinear warp: each flow's cotangent
-    (B, F, C, H, W) scattered back onto its four taps, plain PyTorch on any
-    device (the reference's and the JAX package's scatter-add)."""
+    (B, F, C, Ho, W) scattered back onto its four taps in the full-height
+    image, plain PyTorch on any device (the reference's and the JAX
+    package's scatter-add)."""
     batch, channels, height, width = img.shape
     d_img = torch.zeros_like(img).reshape(batch, channels, -1)
     for f in range(flows.shape[1]):
-        a, b, x_l, x_r, y_t, y_b = _sample_point(flows[:, f], height, width)
+        a, b, x_l, x_r, y_t, y_b = _sample_point(flows[:, f], height, width,
+                                                 off)
         gf = g[:, f].reshape(batch, channels, -1)
         a, b = a.reshape(batch, 1, -1), b.reshape(batch, 1, -1)
         for yi, xi, w in ((y_t, x_l, (1 - a) * (1 - b)),
@@ -183,25 +203,36 @@ def _d_img(g: torch.Tensor, img: torch.Tensor,
     return d_img.reshape(img.shape)
 
 
-def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor):
+def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor, off: int):
+    """The device, the kernels' integer arguments (B, F, C, H, W, Ho, off)
+    and the output shape (B, F, C, Ho, W) of a warp of ``img`` (B, C, H, W)
+    by ``flows`` (B, F, 2, Ho, W) whose rows are image rows
+    ``[off, off + Ho)``."""
     device = img.device
     _cuda.check_operand(name, "img", img, 4, device)
     _cuda.check_operand(name, "flows", flows, 5, device)
     batch, channels, height, width = img.shape
-    nflows = flows.shape[1]
-    if flows.shape != (batch, nflows, 2, height, width):
+    nflows, out_h = flows.shape[1], flows.shape[3]
+    if flows.shape != (batch, nflows, 2, out_h, width):
         raise ValueError(f"{name}: flows {tuple(flows.shape)} do not match "
                          f"img {tuple(img.shape)}")
+    if int(off) != off or off < 0 or off + out_h > height:
+        raise ValueError(f"{name}: rows [{off}, {off} + {out_h}) are not "
+                         f"rows of an image of height {height}")
     if batch * nflows > _MAX_GRID_Y:
         raise ValueError(f"{name}: B*F = {batch * nflows} exceeds "
                          f"{_MAX_GRID_Y}")
-    return device, (batch, nflows, channels, height, width)
+    return (device,
+            (batch, nflows, channels, height, width, out_h, int(off)),
+            (batch, nflows, channels, out_h, width))
 
 
 def _launch(lib: str, name: str, pointers, dims, device) -> None:
     """Run the C entry point ``lib`` of ``csrc/<lib>.cu`` on ``pointers``
-    (tensors) and ``dims`` (B, F, C, H, W) on the current stream."""
-    argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 6
+    (tensors) and ``dims`` (B, F, C, H, W, Ho, off) on the current stream.
+    The argument types and the ``extern "C"`` signatures change together:
+    ctypes checks neither."""
+    argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 8
                 + [ctypes.c_void_p])
     fn = _cuda.function(lib, lib, argtypes)
     err = fn(*(t.data_ptr() for t in pointers), *dims, device.index,
@@ -210,38 +241,39 @@ def _launch(lib: str, name: str, pointers, dims, device) -> None:
     _cuda.check(lib, name, err)
 
 
-def _fwd_cuda(name: str, img: torch.Tensor, flows: torch.Tensor):
-    """Run K2 (csrc/resample2d_fwd.cu) over flows (B, F, 2, H, W)."""
-    device, dims = _check_warp(name, img, flows)
-    out = torch.empty(dims, dtype=img.dtype, device=device)
+def _fwd_cuda(name: str, img: torch.Tensor, flows: torch.Tensor, off: int):
+    """Run K2 (csrc/resample2d_fwd.cu) over flows (B, F, 2, Ho, W)."""
+    device, dims, shape = _check_warp(name, img, flows, off)
+    out = torch.empty(shape, dtype=img.dtype, device=device)
     if out.numel():
         _launch("resample2d_fwd", name, (img, flows, out), dims, device)
     return out
 
 
 def resample2d_cuda(img: torch.Tensor, flow: torch.Tensor,
-                    kernel_size: int = 1,
-                    bilinear: bool = True) -> torch.Tensor:
+                    kernel_size: int = 1, bilinear: bool = True,
+                    off: int = 0) -> torch.Tensor:
     """The CUDA warp of one flow (K2); bilinear K=1 float32 only."""
     if kernel_size != 1 or not bilinear:
         raise NotImplementedError(
             "resample2d on CUDA: the kernel covers bilinear, kernel_size=1 "
             f"(got kernel_size={kernel_size}, bilinear={bilinear})")
-    return _fwd_cuda("resample2d_fwd", img, flow.unsqueeze(1)).squeeze(1)
+    return _fwd_cuda("resample2d_fwd", img, flow.unsqueeze(1), off).squeeze(1)
 
 
-def resample2d_multi_cuda(img: torch.Tensor,
-                          flows: torch.Tensor) -> torch.Tensor:
+def resample2d_multi_cuda(img: torch.Tensor, flows: torch.Tensor,
+                          off: int = 0) -> torch.Tensor:
     """The CUDA warp of F flows over one image, in one launch (K2)."""
-    return _fwd_cuda("resample2d_fwd_multi", img, flows)
+    return _fwd_cuda("resample2d_fwd_multi", img, flows, off)
 
 
-def resample2d_tangents_cuda(img: torch.Tensor, flows: torch.Tensor):
-    """K3: the warp of one image by F flows (B, F, 2, H, W) and its flow
-    tangents, ``(out, d1, d2)`` each (B, F, C, H, W), in one launch."""
+def resample2d_tangents_cuda(img: torch.Tensor, flows: torch.Tensor,
+                             off: int = 0):
+    """K3: the warp of one image by F flows (B, F, 2, Ho, W) and its flow
+    tangents, ``(out, d1, d2)`` each (B, F, C, Ho, W), in one launch."""
     name = _per_flow("resample2d_tangents", flows.shape[1])
-    device, dims = _check_warp(name, img, flows)
-    outs = tuple(torch.empty(dims, dtype=img.dtype, device=device)
+    device, dims, shape = _check_warp(name, img, flows, off)
+    outs = tuple(torch.empty(shape, dtype=img.dtype, device=device)
                  for _ in range(3))
     if outs[0].numel():
         _launch("resample2d_tangents", name, (img, flows, *outs), dims,
@@ -250,14 +282,15 @@ def resample2d_tangents_cuda(img: torch.Tensor, flows: torch.Tensor):
 
 
 def resample2d_grad_flow_cuda(g: torch.Tensor, img: torch.Tensor,
-                              flows: torch.Tensor) -> torch.Tensor:
-    """K4: the flow gradient (B, F, 2, H, W) of the warp of ``img`` by
-    ``flows`` for the cotangent ``g`` (B, F, C, H, W), in one launch."""
+                              flows: torch.Tensor,
+                              off: int = 0) -> torch.Tensor:
+    """K4: the flow gradient (B, F, 2, Ho, W) of the warp of ``img`` by
+    ``flows`` for the cotangent ``g`` (B, F, C, Ho, W), in one launch."""
     name = _per_flow("resample2d_grad_flow", flows.shape[1])
-    device, dims = _check_warp(name, img, flows)
+    device, dims, shape = _check_warp(name, img, flows, off)
     _cuda.check_operand(name, "g", g, 5, device)
-    if g.shape != dims:
-        raise ValueError(f"{name}: g {tuple(g.shape)} is not {dims}")
+    if g.shape != shape:
+        raise ValueError(f"{name}: g {tuple(g.shape)} is not {shape}")
     d_flows = torch.empty_like(flows)
     if d_flows.numel():
         _launch("resample2d_grad_flow", name, (g, img, flows, d_flows), dims,
@@ -266,62 +299,86 @@ def resample2d_grad_flow_cuda(g: torch.Tensor, img: torch.Tensor,
 
 
 class _Warp(torch.autograd.Function):
-    """The generic bilinear K=1 warp of F flows: forward K2, backward K4
-    recomputing the corners (the plain versions on the CPU)."""
+    """The generic bilinear K=1 warp of F flows over the image rows
+    ``[off, off + Ho)``: forward K2, backward K4 recomputing the corners
+    (the plain versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, img, flows):
+    def forward(ctx, img, flows, off):
         ctx.save_for_backward(img, flows)
+        ctx.off = off
         single = flows.shape[1] == 1
         if _cuda.on_cpu(img):
             if single:
-                return resample2d_plain(img, flows[:, 0]).unsqueeze(1)
-            return resample2d_multi_plain(img, flows)
+                return resample2d_plain(img, flows[:, 0],
+                                        off=off).unsqueeze(1)
+            return resample2d_multi_plain(img, flows, off)
         if single:
-            return resample2d_cuda(img, flows[:, 0]).unsqueeze(1)
-        return resample2d_multi_cuda(img, flows)
+            return resample2d_cuda(img, flows[:, 0], off=off).unsqueeze(1)
+        return resample2d_multi_cuda(img, flows, off)
 
     @staticmethod
     def backward(ctx, g):
         img, flows = ctx.saved_tensors
         g = g.contiguous()
-        d_img = _d_img(g, img, flows) if ctx.needs_input_grad[0] else None
+        d_img = (_d_img(g, img, flows, ctx.off)
+                 if ctx.needs_input_grad[0] else None)
         d_flows = None
         if ctx.needs_input_grad[1]:
             grad_flow = (resample2d_grad_flow_plain if _cuda.on_cpu(img)
                          else resample2d_grad_flow_cuda)
-            d_flows = grad_flow(g, img, flows)
-        return d_img, d_flows
+            d_flows = grad_flow(g, img, flows, ctx.off)
+        return d_img, d_flows, None
 
 
 class _WarpTangents(torch.autograd.Function):
-    """The tangent route of the bilinear K=1 warp of F flows: forward K3,
-    which saves d1 and d2, and the elementwise backward."""
+    """The tangent route of the bilinear K=1 warp of F flows over the image
+    rows ``[off, off + Ho)``: forward K3, which saves d1 and d2, and the
+    elementwise backward."""
 
     @staticmethod
-    def forward(ctx, img, flows):
+    def forward(ctx, img, flows, off):
         tangents = (resample2d_tangents_plain if _cuda.on_cpu(img)
                     else resample2d_tangents_cuda)
-        out, d1, d2 = tangents(img, flows)
+        out, d1, d2 = tangents(img, flows, off)
         ctx.save_for_backward(img, flows, d1, d2)
+        ctx.off = off
         return out
 
     @staticmethod
     def backward(ctx, g):
         img, flows, d1, d2 = ctx.saved_tensors
-        d_img = _d_img(g, img, flows) if ctx.needs_input_grad[0] else None
+        d_img = (_d_img(g, img, flows, ctx.off)
+                 if ctx.needs_input_grad[0] else None)
         d_flows = None
         if ctx.needs_input_grad[1]:
             d_flows = torch.stack([torch.sum(g * d1, dim=2),
                                    torch.sum(g * d2, dim=2)], dim=2)
-        return d_img, d_flows
+        return d_img, d_flows, None
+
+
+def _warp(img: torch.Tensor, flows: torch.Tensor,
+          tangents: bool) -> torch.Tensor:
+    """The differentiable bilinear K=1 warp of F flows, by the generic or
+    the tangent route: as row bands where ``sharding_hints`` asks for them
+    and the composition takes the shapes, else over the whole image."""
+    if sharding_hints.spatial_shards() > 1:
+        from .resample2d_spatial import spatial_wrapper
+
+        out = spatial_wrapper(img, flows, tangents)
+        if out is not None:
+            return out
+    sharding_hints.record_dispatch(
+        "resample2d", "whole image, kernel="
+        + ("plain" if _cuda.on_cpu(img) else "cuda"))
+    return (_WarpTangents if tangents else _Warp).apply(img, flows, 0)
 
 
 def resample2d(img: torch.Tensor, flow: torch.Tensor, kernel_size: int = 1,
                bilinear: bool = True) -> torch.Tensor:
     """Backward-warp ``img`` (B, C, H, W) by ``flow`` (B, 2, H, W)."""
     if bilinear and kernel_size == 1:
-        return _Warp.apply(img, flow.unsqueeze(1)).squeeze(1)
+        return _warp(img, flow.unsqueeze(1), False).squeeze(1)
     if _cuda.on_cpu(img):
         return resample2d_plain(img, flow, kernel_size, bilinear)
     return resample2d_cuda(img, flow, kernel_size, bilinear)
@@ -330,10 +387,10 @@ def resample2d(img: torch.Tensor, flow: torch.Tensor, kernel_size: int = 1,
 def resample2d_multi(img: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
     """Bilinear warps of one image (B, C, H, W) by F flows (B, F, 2, H, W)
     -> (B, F, C, H, W)."""
-    return _Warp.apply(img, flows)
+    return _warp(img, flows, False)
 
 
 def resample2d_tangents(img: torch.Tensor,
                         flows: torch.Tensor) -> torch.Tensor:
     """``resample2d_multi`` differentiated by the tangent route."""
-    return _WarpTangents.apply(img, flows)
+    return _warp(img, flows, True)

@@ -22,6 +22,10 @@ from flownet2_tpu_torch.checkpoints import from_jax_variables, load_checkpoint
 from flownet2_tpu_torch.data import read_flo
 from flownet2_tpu_torch.models import FlowNet2
 
+# one torch thread per test process: several test workers share the cores
+# with XLA's own thread pools
+torch.set_num_threads(1)
+
 H, W = 64, 128
 # The cascade amplifies summation-order noise through the warps and the
 # correlation; tests/test_parity_torch.py holds the JAX package to the

@@ -36,6 +36,10 @@ jax_up = _jax_ops("upsample")
 from flownet2_tpu_torch.ops import channelnorm, correlation, resample2d  # noqa: E402
 from flownet2_tpu_torch.ops import stage_glue, upsample  # noqa: E402
 
+# one torch thread per test process: several test workers share the cores
+# with XLA's own thread pools
+torch.set_num_threads(1)
+
 
 def _rand(shape, seed, scale=1.0):
     return (np.random.RandomState(seed).randn(*shape) * scale).astype(

@@ -28,13 +28,35 @@ from flownet2_tpu_torch.models import FlowNet2, get_model
 from flownet2_tpu_torch.ops import stage_glue
 from flownet2_tpu_torch.train import LRSchedule, StepFactory, get_optimizer
 
+# one torch thread per test process: several test workers share the cores
+# with XLA's own thread pools
+torch.set_num_threads(1)
+
 H, W = 64, 128
-# Loss and EPE agree to float32 summation order; each gradient to 1e-3 of
-# its tensor's largest magnitude, since the cascade amplifies summation
-# noise through the warps and the correlation (the inference test holds
-# the flow to 1e-3 for the same reason).
+# Loss and EPE agree to float32 summation order.  The gradients are held at
+# two levels: each sub-net's tensors together in relative L2 at 1e-3, and
+# each single tensor in relative L2 at 0.1, which a missing, doubled or
+# sign-flipped term (0.5 and more) cannot pass.
+#
+# A tight per-tensor gate sits on the noise line.  The two packages'
+# forwards differ in the last bit (another summation order in the
+# convolutions and the correlation), and the gradient is discontinuous in
+# the forward's values (floor() in the warps, the LeakyReLU kinks), so a few
+# pixels take another branch.  That error does not scale with the tensor: a
+# tensor whose gradient cancels to a small total moves by percents.  The
+# first gate here, 1e-3 of each tensor's largest |g|, passed on one machine
+# and read 1.27e-3 (flownets_d.conv4.0.weight) up to 1.05e-2
+# (flownets_d.predict_flow5.bias, max |g| 1e-6) on another, every time:
+# FlowNetSD's near-zero flow sits on the warp's integer coordinates, and it
+# gets 0.1% of the gradient's norm.  Its tensors together read 1.5e-4 there,
+# the other sub-nets 1e-6 to 1.1e-4.  On the card the same step read 2.3e-2
+# in flownetc.predict_flow6.bias (two elements) against the CPU, and at
+# full size up to 5e-2 between two runs of one model and 8e-2 against the
+# plain-op model: PERF.md, Findings ("Gradients on the card", "Gates on the
+# noise line").
 LOSS_TOL = 1e-4
-GRAD_TOL = 1e-3
+GRAD_SUBNET_TOL = 1e-3
+GRAD_TENSOR_TOL = 0.1
 
 
 def _rand(shape, seed, scale=1.0):
@@ -144,6 +166,28 @@ def _batch(batch, seed):
 ROUTES = ("grad_flow", "tangents")
 
 
+def _sq(x) -> float:
+    return float((np.asarray(x, dtype=np.float64) ** 2).sum())
+
+
+def assert_grads_close(got: dict, want: dict) -> None:
+    """The gradients ``got`` against ``want`` (numpy arrays by parameter
+    name, the sub-net's name first) at the gate above; the two must differ
+    somewhere, or the comparison compared a thing with itself."""
+    assert set(got) == set(want)
+    diffs = {name: got[name].astype(np.float64) - w
+             for name, w in want.items()}
+    for subnet in sorted({name.split(".")[0] for name in want}):
+        names = [n for n in want if n.split(".")[0] == subnet]
+        rel = np.sqrt(sum(_sq(diffs[n]) for n in names)
+                      / max(sum(_sq(want[n]) for n in names), 1e-60))
+        assert rel <= GRAD_SUBNET_TOL, f"{subnet}: {rel:.2e} in relative L2"
+    for name, w in want.items():
+        rel = np.sqrt(_sq(diffs[name]) / max(_sq(w), 1e-60))
+        assert rel <= GRAD_TENSOR_TOL, f"{name}: {rel:.2e} in relative L2"
+    assert any(np.any(d != 0) for d in diffs.values())
+
+
 @pytest.fixture(scope="module")
 def slice_run():
     """One train step of the JAX package and, per training warp route, of
@@ -190,15 +234,8 @@ def test_flownet2_train_step_matches_jax(slice_run, route):
     np.testing.assert_allclose(metrics["epe"].item(), j_epe, rtol=LOSS_TOL)
     params = dict(model.named_parameters())
     assert set(params) == set(want_grads)
-    worst = 0.0
-    for name, p in params.items():
-        want = want_grads[name].numpy()
-        got = p.grad.numpy()
-        scale = max(np.abs(want).max(), 1e-30)
-        err = np.abs(got - want).max() / scale
-        worst = max(worst, err)
-        assert err <= GRAD_TOL, f"{name}: {err:.2e} of max |g| {scale:.2e}"
-    assert worst > 0.0
+    assert_grads_close({name: p.grad.numpy() for name, p in params.items()},
+                       {name: g.numpy() for name, g in want_grads.items()})
 
 
 def test_train_step_takes_plain_versions_and_updates_in_place(slice_run):
