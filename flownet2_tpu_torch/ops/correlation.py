@@ -51,6 +51,11 @@ from . import _cuda, sharding_hints
 # device index and the stream.  ctypes checks nothing against the
 # ``extern "C"`` signatures, so the two change together.
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ENTRY_POINTS = {
+    "correlation_fwd": ("correlation_fwd", "correlation_fwd_rows"),
+    "correlation_bwd": ("correlation_bwd_f1", "correlation_bwd_f2",
+                        "correlation_bwd_f1_rows", "correlation_bwd_f2_rows"),
+}
 _MAX_GRID_YZ = 65535
 
 

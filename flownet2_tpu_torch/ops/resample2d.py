@@ -227,14 +227,27 @@ def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor, off: int):
             (batch, nflows, channels, out_h, width))
 
 
+# The tensors each entry point takes (``csrc/<name>.cu`` defines the entry
+# point ``<name>``); B, F, C, H, W, Ho, off, the device index and the stream
+# follow.  The argument types and the ``extern "C"`` signatures change
+# together: ctypes checks neither.
+_POINTERS = {"resample2d_fwd": 3, "resample2d_tangents": 5,
+             "resample2d_grad_flow": 4}
+
+
+def _argtypes(lib: str) -> list:
+    return ([ctypes.c_void_p] * _POINTERS[lib] + [ctypes.c_int] * 8
+            + [ctypes.c_void_p])
+
+
 def _launch(lib: str, name: str, pointers, dims, device) -> None:
     """Run the C entry point ``lib`` of ``csrc/<lib>.cu`` on ``pointers``
-    (tensors) and ``dims`` (B, F, C, H, W, Ho, off) on the current stream.
-    The argument types and the ``extern "C"`` signatures change together:
-    ctypes checks neither."""
-    argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 8
-                + [ctypes.c_void_p])
-    fn = _cuda.function(lib, lib, argtypes)
+    (tensors) and ``dims`` (B, F, C, H, W, Ho, off) on the current stream,
+    and count the launch under ``name``."""
+    if len(pointers) != _POINTERS[lib]:
+        raise TypeError(f"{lib} takes {_POINTERS[lib]} tensors, got "
+                        f"{len(pointers)}")
+    fn = _cuda.function(lib, lib, _argtypes(lib))
     err = fn(*(t.data_ptr() for t in pointers), *dims, device.index,
              _cuda.stream_ptr(device))
     _cuda.LAUNCHES[name] += 1

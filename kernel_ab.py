@@ -4,10 +4,18 @@
     python3 kernel_ab.py <checkout root> <tag>
 
 Builds the kernels of ``<root>/flownet2_tpu_torch`` and prints one line:
-the tag, the milliseconds per launch of K1 at (8, 256, 48, 64), of K5 and K6
-at (8, 256, 48, 56) and of the two-flow K2 at (8, 3, 384, 512), float32,
-CUDA events over 300 launches after 20, and ptxas's register counts (none
-for libraries an earlier run in that checkout has built).
+the tag, the milliseconds per launch of K1 at (8, 256, 48, 64), of K7
+forward at one band of two, (8, 256, 24, 64) against its (8, 256, 64, 64)
+slab, of K5 and K6 at (8, 256, 48, 56), of the two-flow and the one-flow K2
+at (8, 3, 384, 512) and of ``F.grid_sample`` on the one-flow K2's inputs (the
+library call that computes the same warp; timed here, used nowhere in the
+port), float32, CUDA events over 300 launches after 20 that the host queues
+while the card is kept busy (and, for the one-flow K2, also without that
+head start: a 0.04 ms kernel then reads as the wrapper's time on the host),
+the first 12 hex digits of the sha1 of K1's and K7 forward's output bytes
+(the inputs come from a fixed seed, so two checkouts that print the same
+digest computed the same bits), and ptxas's register counts (none for
+libraries an earlier run in that checkout has built).
 
 Two commits are compared on one card in one call, in turns, since two calls
 may land on two cards: unpack the parent with ``git archive <commit>
@@ -20,16 +28,26 @@ flownet2_tpu_torch | tar -x -C build/parent`` and run
 
 from __future__ import annotations
 
+import hashlib
 import sys
 
 import torch
+import torch.nn.functional as F
 
 
-def time_ms(fn, iters: int = 300, warmup: int = 20) -> float:
+def time_ms(fn, iters: int = 300, warmup: int = 20,
+            head_start: bool = True) -> float:
+    """Milliseconds of device time per call of ``fn``.  With ``head_start``
+    the card first spins for some 30 ms, so that the host has queued the
+    launches before the card reaches them and the events read the kernels
+    back to back; without it a kernel shorter than its wrapper's time on
+    the host reads as the host's launch rate."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if head_start:
+        torch.cuda._sleep(60_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -45,6 +63,7 @@ def main(root: str, tag: str) -> int:
     sys.path.insert(0, root)
     from flownet2_tpu_torch.ops import _cuda
     from flownet2_tpu_torch.ops import correlation as corr
+    from flownet2_tpu_torch.ops import correlation_spatial as corr_sp
     from flownet2_tpu_torch.ops import resample2d as r2d
 
     logs = _cuda.build()
@@ -57,21 +76,40 @@ def main(root: str, tag: str) -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
+    def digest(t):
+        return hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()[:12]
+
     f1, f2 = randn(8, 256, 48, 64), randn(8, 256, 48, 64)
+    sf1, slab = randn(8, 256, 24, 64), randn(8, 256, 64, 64)
     tf1, tf2 = randn(8, 256, 48, 56), randn(8, 256, 48, 56)
     tg = randn(8, 441, 48, 56)
     img = randn(8, 3, 384, 512)
     flows = randn(8, 2, 2, 384, 512) * 4.0
+    flow = flows[:, 0].contiguous()
+    xs = torch.arange(512, device=dev).view(1, 1, -1)
+    ys = torch.arange(384, device=dev).view(1, -1, 1)
+    grid = torch.stack([(xs + flow[:, 0]) * (2.0 / 511) - 1.0,
+                        (ys + flow[:, 1]) * (2.0 / 383) - 1.0], dim=-1)
     times = {
         "K1": time_ms(lambda: corr.correlation_cuda(f1, f2)),
+        "K7 fwd": time_ms(lambda: corr_sp.corr_slab_cuda(sf1, slab)),
         "K5": time_ms(lambda: corr.correlation_bwd_cuda(
             tg, tf1, tf2, needs=(True, False))),
         "K6": time_ms(lambda: corr.correlation_bwd_cuda(
             tg, tf1, tf2, needs=(False, True))),
         "K2, two flows": time_ms(lambda: r2d.resample2d_multi_cuda(img,
                                                                    flows)),
+        "K2, one flow": time_ms(lambda: r2d.resample2d_cuda(img, flow)),
+        "K2, one flow, no head start": time_ms(
+            lambda: r2d.resample2d_cuda(img, flow), head_start=False),
+        "grid_sample, one flow": time_ms(lambda: F.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)),
     }
+    digests = {"K1": digest(corr.correlation_cuda(f1, f2)),
+               "K7 fwd": digest(corr_sp.corr_slab_cuda(sf1, slab))}
     print(tag, "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
+          "| sha1:", ", ".join(f"{k} {v}" for k, v in digests.items()),
           "| registers:", ", ".join(registers))
     return 0
 
