@@ -11,9 +11,10 @@ Phases (any failure raises and the script exits non-zero):
    correlation (K1) and its gradient (K5 d_f1, K6 d_f2) at
    (8, 256, 48, 64), at the wide (4, 256, 48, 128), at a ragged
    (2, 40, 20, 152) and at an odd-width ragged (2, 40, 20, 75), atol/rtol
-   1e-4 (K5/K6 also at the training shape (8, 256, 48, 56)); K1 at two
-   configurations its register-tiled body does not cover (maxd 8, s2 1 and
-   maxd 4, s2 2, at (2, 40, 20, 75)), which its general body runs, 1e-4; the
+   1e-4 (K5/K6 also at the training shape (8, 256, 48, 56)); K1, K5 and K6
+   at two configurations the register-tiled bodies of K1 and K5 do not
+   cover (maxd 8, s2 1 and maxd 4, s2 2, at (2, 40, 20, 75)), which their
+   general bodies run, 1e-4; the
    warp (K2) for one flow of +-8 px and of +-200 px
    and for two flows over one (8, 3, 384, 512) image, and the warp with
    tangents (K3, one and two flows) and its flow gradient (K4) over one
@@ -65,11 +66,15 @@ Phases (any failure raises and the script exits non-zero):
    are finite and within 1e-4 of the plain-op model's.
 6. Each kernel's time, its plain version's time, the card's bound for the
    same work and, where one PyTorch call computes the same function, that
-   call's time, at the main-path shapes (K7 at one band of two).
+   call's time, at the main-path shapes (K7 at one band of two), each beside
+   the SM clock; then the one-flow K2 and K4 and their library calls with a
+   cold L2 cache (six input sets of 31-44 MB taken in turn).
 7. Where the device time goes: the phase 3 model and pair, 5 forwards, and
    the phase 4 train step, 3 steps, under torch.profiler, the device time
    summed by kernel family and the device's idle share of the profiled
-   window.  Raises if no device time is recorded.
+   window; the forward's convolution kernels by name, marked where one
+   forward with cudnn.deterministic does not run them.  Raises if no device
+   time is recorded.
 8. One JSON line listing the kernels; the last line is the result.
 
 Uses one card, the first the environment lists.  Exits non-zero, printing
@@ -124,6 +129,7 @@ TRAIN_FAMILIES = (
     ("other PyTorch kernels", re.compile(r".")),
 )
 PROFILED_FORWARDS = 5
+COLD_SETS = 6          # input sets a cold-cache timing takes in turn
 PROFILED_STEPS = 3
 
 # Published peaks: (memory bytes/s, float32 FLOP/s outside the tensor
@@ -155,6 +161,19 @@ def bound_ms(nbytes: float, flops: float, peaks):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def corr_flops(b: int, c: int, h: int, w: int, slab: bool = False,
+               maxd: int = 20, s2: int = 2) -> int:
+    """Flops of the correlation (forward, d_f1 and d_f2 alike) that touch
+    data: a shift's multiply-add counts only where its f2 row and column lie
+    inside the map (the kernels skip or zero-pad the rest).  A slab holds
+    every row it is read at, so with ``slab`` all row shifts count."""
+    shifts = range(-(maxd // s2), maxd // s2 + 1)
+    rows = (len(shifts) * h if slab
+            else sum(max(0, h - s2 * abs(t)) for t in shifts))
+    cols = sum(max(0, w - s2 * abs(t)) for t in shifts)
+    return 2 * b * c * rows * cols
+
+
 def time_ms(fn, iters: int, warmup: int = 3,
             head_start: bool = False) -> float:
     """Milliseconds per call of ``fn`` by CUDA events.  With ``head_start``
@@ -173,6 +192,24 @@ def time_ms(fn, iters: int, warmup: int = 3,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_ms(fns, iters: int) -> float:
+    """Milliseconds per call, with the head start, of calls that take the
+    functions in ``fns`` in turn: each works on buffers of its own, and
+    together they hold several times the 50 MB L2 cache, so that every call
+    finds its inputs in device memory, as a warp finds a fresh image in a
+    model."""
+    return time_ms(lambda it=iter(range(1 << 62)): fns[next(it) % len(fns)](),
+                   iters, warmup=len(fns), head_start=True)
+
+
+def sm_clock() -> str:
+    """The SM clock and its maximum, as nvidia-smi reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor, rtol: float,
@@ -246,6 +283,7 @@ def profile_families(run, n: int, families, smi: str, unit: str):
     print("  top kernels:")
     for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3 / n:9.3f} ms/{unit}  {key[:100]}")
+    return per_kernel
 
 
 def main() -> int:
@@ -353,8 +391,8 @@ def main() -> int:
                 errs.setdefault(name, []).append(max_err(
                     got[k], want[k], 1e-4, 1e-4,
                     f"K{5 + k} correlation d_f{1 + k} {shape}"))
-        # K1's general body: configurations the register-tiled one does
-        # not cover
+        # K1's and K5's general bodies: configurations the register-tiled
+        # ones do not cover (K6 has one body for all)
         for maxd, s2 in ((8, 1), (4, 2)):
             f1, f2 = (randn(*odd_shape, gen=odd_gen) for _ in range(2))
             other_args = (maxd, 1, maxd, 1, s2)
@@ -362,6 +400,17 @@ def main() -> int:
                 corr.correlation_cuda(f1, f2, *other_args),
                 corr.correlation_plain(f1, f2, *other_args), 1e-4, 1e-4,
                 f"K1 correlation {odd_shape}, maxd {maxd}, s2 {s2}"))
+            other_disp = 2 * (maxd // s2) + 1
+            g = randn(odd_shape[0], other_disp ** 2, *odd_shape[2:],
+                      gen=odd_gen)
+            got = corr.correlation_bwd_cuda(g, f1, f2, maxd, s2)
+            want = corr.correlation_bwd_plain(g, f1, f2, maxd, s2)
+            for k, name in enumerate(("correlation_bwd_f1",
+                                      "correlation_bwd_f2")):
+                errs[name].append(max_err(
+                    got[k], want[k], 1e-4, 1e-4,
+                    f"K{5 + k} correlation d_f{1 + k} {odd_shape}, maxd "
+                    f"{maxd}, s2 {s2}"))
         img = randn(BATCH, 3, HEIGHT, WIDTH)
         flow8 = uniform(BATCH, 2, HEIGHT, WIDTH, scale=8.0)
         flow200 = uniform(BATCH, 2, HEIGHT, WIDTH, scale=200.0)
@@ -835,7 +884,7 @@ def main() -> int:
         b, c, h, w = BATCH, 256, HEIGHT // 8, WIDTH // 8
         f1, f2 = randn(b, c, h, w), randn(b, c, h, w)
         k1_bytes = 4 * (2 * b * c * h * w + b * disp * disp * h * w)
-        k1_flops = 2 * b * disp * disp * h * w * c
+        k1_flops = corr_flops(b, c, h, w)
         rows.append(("correlation_fwd", "correlation_pallas.py:83",
                      "correlation_fwd.cu",
                      lambda: corr.correlation_cuda(f1, f2, *corr_args),
@@ -878,7 +927,7 @@ def main() -> int:
         tf1, tf2 = randn(b, c, h, w), randn(b, c, h, w)
         tg = randn(b, disp * disp, h, w)
         bwd_bytes = 4 * (2 * b * c * h * w + b * disp * disp * h * w)
-        bwd_flops = 2 * b * disp * disp * h * w * c
+        bwd_flops = corr_flops(b, c, h, w)
         for name, needs, replaces in (
                 ("correlation_bwd_f1", (True, False),
                  "correlation_pallas.py:449"),
@@ -958,7 +1007,7 @@ def main() -> int:
                                                      needs=needs))
             rows.append((name, replaces, src, fn, plain, None,
                          4 * sum(t.numel() for t in sizes),
-                         2 * b * disp * disp * h * w * c))
+                         corr_flops(b, c, h, w, slab=True)))
 
         kernels = []
         for name, replaces, src, fn, plain, lib, nbytes, flops in rows:
@@ -970,7 +1019,8 @@ def main() -> int:
             print(f"  {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
                   f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
                   f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-                  f"{flops / 1e9:.3f} GFLOP)  [{smi}]")
+                  f"{flops / 1e9:.3f} GFLOP)  [{smi}; SM clock, max: "
+                  f"{sm_clock()}]")
             if name in launches:      # over the phase 3 forwards
                 count = launches[name]
             elif name == "correlation_fwd_rows":   # over the phase 5 forwards
@@ -994,6 +1044,42 @@ def main() -> int:
                 "bound_by": b_by, "library_ms": l_ms})
         del sampled, grid_leaf
 
+        # cold L2: the one-flow K2 and K4 and their library calls, each call
+        # on input buffers of its own, COLD_SETS sets of them in turn
+        cold = {"K2": [], "grid_sample": [], "K4": [], "grid_sample grad": []}
+        for _ in range(COLD_SETS):
+            im = randn(BATCH, 3, HEIGHT, WIDTH)
+            fl = uniform(BATCH, 2, HEIGHT, WIDTH, scale=8.0)
+            gr = grid_of(fl)
+            cold["K2"].append(lambda im=im, fl=fl: r2d.resample2d_cuda(im, fl))
+            cold["grid_sample"].append(lambda im=im, gr=gr: F.grid_sample(
+                im, gr, mode="bilinear", padding_mode="border",
+                align_corners=True))
+            th, tw = TRAIN_HEIGHT, TRAIN_WIDTH
+            im = randn(TRAIN_BATCH, 3, th, tw)
+            fl = uniform(TRAIN_BATCH, 1, 2, th, tw, scale=8.0)
+            gt = randn(TRAIN_BATCH, 1, 3, th, tw)
+            cold["K4"].append(lambda im=im, fl=fl, gt=gt:
+                              r2d.resample2d_grad_flow_cuda(gt, im, fl))
+            with torch.enable_grad():
+                leaf = grid_of(fl[:, 0], xs=torch.arange(tw, device=dev).view(
+                    1, 1, -1), ys=torch.arange(th, device=dev).view(1, -1, 1),
+                    h=th, w=tw).requires_grad_()
+                out = F.grid_sample(im, leaf, mode="bilinear",
+                                    padding_mode="border", align_corners=True)
+            cold["grid_sample grad"].append(
+                lambda out=out, leaf=leaf, gt=gt: torch.autograd.grad(
+                    out, leaf, gt[:, 0], retain_graph=True))
+        by_name = {k["name"]: k for k in kernels}
+        k2, k4 = by_name["resample2d_fwd"], by_name["resample2d_grad_flow"]
+        warm = {"K2": k2["ms"], "grid_sample": k2["library_ms"],
+                "K4": k4["ms"], "grid_sample grad": k4["library_ms"]}
+        for what, fns in cold.items():
+            print(f"  cold L2, {what} (one flow, {COLD_SETS} input sets in "
+                  f"turn): {cold_ms(fns, 60):.4f} ms, warm {warm[what]:.4f} "
+                  f"ms  [{smi}; SM clock, max: {sm_clock()}]")
+        del cold
+
     # -- 7. where the device time goes --------------------------------------
     print(f"phase 7: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, "
           f"{PROFILED_FORWARDS} forwards under torch.profiler")
@@ -1004,7 +1090,28 @@ def main() -> int:
             for _ in range(PROFILED_FORWARDS):
                 model(pairs[0])
 
-        profile_families(forwards, PROFILED_FORWARDS, FAMILIES, smi, "batch")
+        by_kernel = profile_families(forwards, PROFILED_FORWARDS, FAMILIES,
+                                     smi, "batch")
+        # which convolution kernels cuDNN's default algorithms run, and which
+        # of them a deterministic cuDNN does not (the one forward that
+        # differs from run to run, phase 5)
+        torch.backends.cudnn.deterministic = True
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model(pairs[0])
+            torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        deterministic = {ev.key for ev in prof.key_averages()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA}
+        print("  convolution kernels of the forward, cuDNN's defaults "
+              "('*': not run with cudnn.deterministic):")
+        for key, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+            if CONV.search(key):
+                mark = " " if key in deterministic else "*"
+                print(f"   {mark}{us / 1e3 / PROFILED_FORWARDS:9.3f} ms/batch"
+                      f"  {key[:160]}")
+        for key in sorted(deterministic - set(by_kernel)):
+            if CONV.search(key):
+                print(f"    only with cudnn.deterministic: {key[:160]}")
     print(f"  FlowNet2 train step b{TRAIN_BATCH} {TRAIN_HEIGHT}x{TRAIN_WIDTH}, "
           f"{PROFILED_STEPS} steps under torch.profiler "
           f"({stage_glue.TRAIN_WARP} route)")

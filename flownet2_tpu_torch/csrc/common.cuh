@@ -17,6 +17,36 @@ static inline int fnet_set_device(int device) {
   return static_cast<int>(cudaSetDevice(device));
 }
 
+// Asynchronous copies into shared memory (the correlation kernels' staging).
+// cp_async copies kBytes (4 or 16) from device to shared memory, or writes
+// zeros (and reads nothing) where ``valid`` is false; cp_async_commit closes
+// a group of copies and cp_async_wait<n> waits until at most n groups are
+// still in flight.
+template <int kBytes>
+static __device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                                bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? kBytes : 0;
+  if (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  }
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // The bilinear warp's sample point for output pixel p = r*W + x of one flow
 // over Ho rows (dx at flow[p], dy at flow[Ho*W + p]), as the JAX package's
 // ops/resample2d.py defines it: xf = x + dx, x0 = floor(xf), a = xf - x0

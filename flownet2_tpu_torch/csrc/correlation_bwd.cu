@@ -43,25 +43,334 @@
 // (~24.5 us).  The TPU kernels fed bf16 operands to the matrix unit; here
 // operands and sums stay f32.
 //
-// Design: both kernels are gathers.  A block owns one output row, 64
-// output columns and 32 channels, and loops over the D row shifts; every
-// output element is summed by one thread in a fixed order, so there are no
-// atomics and the result does not depend on the run (a scatter of d_f2
-// with atomicAdd would).  For each row shift the block stages in shared
-// memory the D cotangent channels of that shift and the one feature row it
-// needs (64 + 2*maxd columns, 32 channels); thread (tx, grp) owns output
-// column tx and the channels grp, grp+4, ..., grp+28, kept in registers
-// across all shifts.  Per column shift a thread reads one cotangent value
-// and reuses it for its 8 channels.  A warp reads 32 consecutive
-// shared-memory words per step (no bank conflicts), and outputs are written
-// as coalesced rows.  A row shift that falls wholly outside the image is
-// skipped (the whole block agrees, so the barriers stay uniform).
+// Design: both kernels are gathers: every output element is summed by one
+// thread in a fixed order, so there are no atomics and the result does not
+// depend on the run (a scatter of d_f2 with atomicAdd would).  Each output
+// is one fmaf chain over the row shifts in ascending order (a row shift whose
+// second-operand row lies outside the map skipped), inside it the column
+// shifts in ascending order, then a division by C, in every body and form
+// below, so a band's rows carry the bits of the whole-map call.
+//
+// K5 (and K7 d_f1) has two bodies, chosen by configuration in launch_f1():
+//
+// * correlation_bwd_f1_tile_kernel, for maxd 20, s2 2 (FlowNetC's, D = 21),
+//   the one the models run.  See the note above it.
+// * correlation_bwd_f1_kernel, for every other (maxd, s2), and K6 (and K7
+//   d_slab) in correlation_bwd_f2_kernel: a block owns one output row, 64
+//   output columns and 32 channels, and loops over the D row shifts staging
+//   the cotangent channels of that shift and the one feature row it needs
+//   (64 + 2*maxd columns, 32 channels) in shared memory; thread (tx, grp)
+//   owns output column tx and the channels grp, grp+4, ..., grp+28, kept in
+//   registers across all shifts.  Per column shift a thread reads one
+//   cotangent value and reuses it for its 8 channels: about one 4-byte
+//   shared-memory load per FMA, which holds K6 at 5.2% of the bound of
+//   its in-map FMAs (NVIDIA H100 80GB HBM3, 700 W).  Outputs are written as
+//   coalesced rows.  A row shift that falls wholly outside the image is
+//   skipped (the whole block agrees, so the barriers stay uniform).
 
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The register-tiled d_f1 body for maxd 20, s2 2 (K5 and K7 d_f1).
+//
+// A thread owns 16 neighbouring pixels x .. x+15 of one output row and 4
+// channels: 64 sums in registers, kept across all 21 x 21 shifts.  At one
+// row shift, the cotangent of (pixel, column shift) does not depend on the
+// channel, and pixel k at column shift t reads f2 at span column
+// x - 20 + k + 2t: from one column shift to the next a pixel group's f2
+// window moves by 2 columns.  So per column shift a thread reads 16
+// cotangent words (four 16-byte loads, shared by its 4 channels) and, per
+// channel, the 2 new words of its window (one 16-byte load every other
+// shift), for 64 FMAs: 96 bytes of shared memory per 64 FMAs, where the
+// general body reads 4 bytes per FMA.  The 21 column shifts are unrolled,
+// so the window is registers.
+//
+// Rows lie in shared memory as they lie in device memory (one 104-column
+// span of f2 per channel, a row of the 64-column tile per cotangent
+// channel), staged by 16-byte cp.async where W % 4 == 0 and the tensors are
+// 16-byte aligned (kVec), else 4 bytes a copy.  f2 columns outside the map
+// are written as zeros, and add exact zeros to the sums as in the general
+// body; cotangent columns outside the map are not staged, since they feed
+// only pixels outside it, which are not stored.
+// A warp is one output row: lanes are 4 pixel groups x 8 channel groups,
+// thread cg owning channels cg, cg+8, cg+16, cg+24 of the block's 32.  A
+// quarter warp is 2 pixel groups (16 words apart) x 4 channel groups, and
+// the channel rows lie 108 words apart (12 banks), so its 16-byte f2 loads
+// cover the 32 banks once; its cotangent loads read 2 addresses.
+//
+// A block is (batch, 64-column tile, 32 channels, kRows output rows of one
+// parity).  Output row ybase + 2r at row shift tj reads f2 row
+// ybase + 2(tj + r) - 20 (+ 20 in the slab form): the rows of consecutive
+// shifts are shared, so the block keeps a ring of kRows + 1 staged f2 rows
+// and stages one new row and the kRows x 21 cotangent rows per row shift,
+// while the previous shift is summed (two stages, one barrier a shift).  A
+// warp whose f2 row lies outside the map skips that shift, as the general
+// body does, and its rows are not staged.  Barriers stay uniform.
+//
+// Eight rows a block take 210 KB of shared memory, one block of 256 threads
+// an SM, and stage (20 + 8) / 8 = 3.5 f2 rows per output row; four rows (two
+// blocks an SM) stage 6.  On an NVIDIA H100 80GB HBM3 at 700 W, K5 at
+// (8, 256, 48, 56) read 0.186 ms with 8 rows, 0.197-0.201 with 4, 0.201 with
+// 64 channels a block (16 channel groups over two warps a row), 0.23-0.30
+// with 2 rows or 8 pixels x 8 channels a thread; with 4 rows its sums alone
+// took 0.153 ms and its staging alone 0.089.  The general body reads 0.661
+// at that shape: this body is 3.6x faster, at 39% of the FMA bound.
+// ---------------------------------------------------------------------------
+
+namespace tiled {
+
+constexpr int kMaxd = 20;                  // the tiled body's configuration
+constexpr int kS2 = 2;
+constexpr int kD = 2 * (kMaxd / kS2) + 1;  // 21
+constexpr int kTileW = 64;                 // output columns per block
+constexpr int kPix = 16;                   // pixels per thread
+constexpr int kQ = 4;                      // channels per thread
+constexpr int kCg = 8;                     // channel groups (a warp's lanes)
+constexpr int kChunk = kQ * kCg;           // channels per block: 32
+constexpr int kRows = 8;                   // output rows (warps) per block
+constexpr int kThreads = 32 * kRows;
+constexpr int kSpan = kTileW + 2 * kMaxd;  // f2 columns a tile reads: 104
+constexpr int kStride = 108;               // floats between channel rows
+constexpr int kWin = kPix + kS2 * (kD - 1);   // f2 words a thread reads: 56
+constexpr int kRing = kRows + 1;           // staged f2 rows
+constexpr int kRowFloats = kChunk * kStride;
+constexpr int kGFloats = kRows * kD * kTileW;   // one shift's cotangent
+constexpr size_t kSmem = sizeof(float) * (kRing * kRowFloats + 2 * kGFloats);
+static_assert(kSmem > 48 * 1024 && kSmem <= 227 * 1024,
+              "above the default limit, within an SM's 227 KB");
+static_assert(kTileW == 4 * kPix && kCg * 4 == 32, "a warp is one row");
+static_assert(kStride >= kSpan && kStride % 4 == 0 && kStride % 32 == 12,
+              "16-byte rows whose quarter-warp loads miss no bank");
+static_assert(kWin % 4 == 0 && kPix % 4 == 0 && kMaxd % 4 == 0,
+              "16-byte loads");
+
+// One row shift of a thread's sums: cotangent rows at ``gp`` (column shift
+// t at gp + t*kTileW), f2 spans of its channels at ``fp`` (channel j at
+// fp + j*kCg*kStride), both at the thread's first pixel.
+__device__ __forceinline__ void shift_sums(float (&acc)[kQ][kPix],
+                                           const float* gp, const float* fp) {
+  float w[kQ][kWin];
+#pragma unroll
+  for (int t = 0; t < kD; ++t) {
+    // the window's 16-byte pieces that column shift t is the first to read
+#pragma unroll
+    for (int i = 0; i < kWin / 4; ++i) {
+      const int last = kS2 * t + kPix - 1;
+      if (4 * i <= last && (t == 0 || 4 * i > last - kS2)) {
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(fp + j * kCg * kStride + 4 * i);
+          w[j][4 * i] = v.x;
+          w[j][4 * i + 1] = v.y;
+          w[j][4 * i + 2] = v.z;
+          w[j][4 * i + 3] = v.w;
+        }
+      }
+    }
+    float gv[kPix];
+#pragma unroll
+    for (int i = 0; i < kPix / 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(gp + t * kTileW + 4 * i);
+      gv[4 * i] = v.x;
+      gv[4 * i + 1] = v.y;
+      gv[4 * i + 2] = v.z;
+      gv[4 * i + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k)
+        acc[j][k] = fmaf(gv[k], w[j][kS2 * t + k], acc[j][k]);
+    }
+  }
+}
+
+template <bool kSlab, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+correlation_bwd_f1_tile_kernel(const float* __restrict__ g,
+                               const float* __restrict__ f2,
+                               float* __restrict__ d_f1, int C, int H, int W) {
+  extern __shared__ __align__(16) float smem[];
+  float* fs = smem;                        // [kRing][kChunk][kStride]
+  float* gs = smem + kRing * kRowFloats;   // [2][kRows][kD][kTileW]
+  const int H2 = kSlab ? H + 2 * kMaxd : H;   // rows of f2
+  const int shift = kSlab ? kMaxd : 0;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r = tid >> 5;                           // output row (warp)
+  const int q = (lane & 1) | ((lane >> 2) & 2);     // pixel group
+  const int cg = ((lane >> 1) & 3) | ((lane >> 2) & 4);   // channel group
+  const int tiles = (W + kTileW - 1) / kTileW;
+  const int x0 = (blockIdx.x % tiles) * kTileW;
+  const int c0 = (blockIdx.x / tiles) * kChunk;
+  // blocks alternate row parity: rows ybase, ybase + 2, ...
+  const int ybase = (blockIdx.y >> 1) * (2 * kRows) + (blockIdx.y & 1);
+  const int b = blockIdx.z;
+  const int y = ybase + 2 * r;
+  const bool owns = y < H;
+  // staged f2 row rho is row row0 + 2*rho of f2; warp r at row shift n
+  // reads rho = n + r
+  const int row0 = ybase + shift - kMaxd;
+
+  const int64_t plane = static_cast<int64_t>(H) * W;
+  const int64_t plane2 = static_cast<int64_t>(H2) * W;
+  const float* f2b = f2 + (static_cast<int64_t>(b) * C + c0) * plane2;
+  const float* gb = g + static_cast<int64_t>(b) * kD * kD * plane;
+
+  // Staging, kPiece floats a copy.  f2: thread tid copies channel
+  // tid / kPerCh of the chunk, the pieces tid % kPerCh, + kPerCh, ... of its
+  // span.  The cotangent: thread tid copies one piece of a row of the tile
+  // (kReps of them where the rows hold more pieces than the block has
+  // threads) for the column shifts s_ti, s_ti + kTiStep, ...  The addresses
+  // are worked out once; a row shift adds one offset.
+  constexpr int kPiece = kVec ? 4 : 1;
+  constexpr int kSpanPieces = kSpan / kPiece;
+  constexpr int kTilePieces = kTileW / kPiece;
+  constexpr int kPerCh = kThreads / kChunk;
+  constexpr int kRowCol = kRows * kTilePieces;   // one column shift's pieces
+  constexpr int kTiStep = kThreads >= kRowCol ? kThreads / kRowCol : 1;
+  constexpr int kReps = kThreads >= kRowCol ? 1 : kRowCol / kThreads;
+  static_assert(kThreads % kChunk == 0 &&
+                (kThreads % kRowCol == 0 || kRowCol % kThreads == 0),
+                "every thread copies the same number of pieces");
+  const int sc = tid / kPerCh;
+  const bool sc_ok = c0 + sc < C;
+  const float* f2_src = f2b + sc * plane2 + (x0 - kMaxd);
+  float* f2_dst = fs + sc * kStride;
+  const int s_ti = kThreads >= kRowCol ? tid / kRowCol : 0;
+  auto stage_f2 = [&](int rho) {
+    const int row = row0 + 2 * rho;
+    if (row < 0 || row >= H2) return;      // no warp reads it
+    float* dst = f2_dst + (rho % kRing) * kRowFloats;
+    const float* src = f2_src + static_cast<int64_t>(row) * W;
+#pragma unroll
+    for (int k = 0; k < (kSpanPieces + kPerCh - 1) / kPerCh; ++k) {
+      const int col = (tid % kPerCh + k * kPerCh) * kPiece;   // span column
+      if (col >= kSpan) break;
+      const int x = x0 - kMaxd + col;
+      const bool ok = sc_ok && x >= 0 && x < W;
+      cp_async<4 * kPiece>(dst + col, ok ? src + col : f2, ok);
+    }
+  };
+  auto stage_g = [&](int n) {
+    float* dst0 = gs + (n & 1) * kGFloats;
+#pragma unroll
+    for (int m = 0; m < kReps; ++m) {
+      const int rc = tid % kRowCol + m * kThreads;
+      const int rr = rc / kTilePieces;
+      const int col = rc % kTilePieces * kPiece;
+      const int yy = ybase + 2 * rr;
+      const int y2 = row0 + 2 * (n + rr);
+      // not staged: a row whose warp skips this shift, and columns outside
+      // the map (they feed only pixels outside it, which are not stored)
+      if (yy >= H || y2 < 0 || y2 >= H2 || x0 + col >= W) continue;
+      float* dst = dst0 + (rr * kD + s_ti) * kTileW + col;
+      const float* src = gb + static_cast<int64_t>(n * kD + s_ti) * plane +
+                         static_cast<int64_t>(yy) * W + x0 + col;
+#pragma unroll
+      for (int k = 0; k < (kD + kTiStep - 1) / kTiStep; ++k) {
+        if (s_ti + k * kTiStep >= kD) break;
+        cp_async<4 * kPiece>(dst + k * kTiStep * kTileW,
+                             src + k * kTiStep * plane, true);
+      }
+    }
+  };
+
+  float acc[kQ][kPix];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) acc[j][k] = 0.f;
+  }
+
+  for (int rho = 0; rho < kRows; ++rho) stage_f2(rho);
+  stage_g(0);
+  cp_async_commit();
+  const float* g_at = gs + r * kD * kTileW + kPix * q;
+  const float* f_at = fs + cg * kStride + kPix * q;
+  for (int n = 0; n < kD; ++n) {
+    cp_async_wait<0>();
+    __syncthreads();     // shift n has landed; shift n - 1 is summed
+    if (n + 1 < kD) {
+      stage_f2(n + kRows);
+      stage_g(n + 1);
+    }
+    cp_async_commit();
+    const int y2 = row0 + 2 * (n + r);
+    if (owns && y2 >= 0 && y2 < H2)
+      shift_sums(acc, g_at + (n & 1) * kGFloats,
+                 f_at + (n + r) % kRing * kRowFloats);
+  }
+
+  if (owns) {
+    const float cf = static_cast<float>(C);
+    const int x = x0 + kPix * q;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int c = c0 + cg + j * kCg;
+      if (c >= C) continue;
+      float* o = d_f1 + (static_cast<int64_t>(b) * C + c) * plane +
+                 static_cast<int64_t>(y) * W + x;
+      if (kVec) {
+#pragma unroll
+        for (int k = 0; k < kPix; k += 4) {
+          if (x + k < W)
+            *reinterpret_cast<float4*>(o + k) =
+                make_float4(acc[j][k] / cf, acc[j][k + 1] / cf,
+                            acc[j][k + 2] / cf, acc[j][k + 3] / cf);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          if (x + k < W) o[k] = acc[j][k] / cf;
+        }
+      }
+    }
+  }
+}
+
+template <bool kSlab, bool kVec>
+int launch_as(const float* g, const float* f2, float* d_f1, int B, int C,
+              int H, int W, cudaStream_t stream) {
+  // the attribute belongs to the current device, so it is set on every
+  // launch (one host call) rather than once per process
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      correlation_bwd_f1_tile_kernel<kSlab, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem)));
+  if (err) return err;
+  // row blocks with a first row inside the map: two (one per parity) for
+  // every 2*kRows rows
+  const int rest = H % (2 * kRows);
+  const int ny = H / (2 * kRows) * 2 + (rest < 2 ? rest : 2);
+  const dim3 grid((W + kTileW - 1) / kTileW * ((C + kChunk - 1) / kChunk), ny,
+                  B);
+  correlation_bwd_f1_tile_kernel<kSlab, kVec>
+      <<<grid, kThreads, kSmem, stream>>>(g, f2, d_f1, C, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSlab>
+int launch(const float* g, const float* f2, float* d_f1, int B, int C, int H,
+           int W, cudaStream_t stream) {
+  const bool vec = W % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(g) |
+                    reinterpret_cast<uintptr_t>(f2) |
+                    reinterpret_cast<uintptr_t>(d_f1)) % 16 == 0;
+  return vec ? launch_as<kSlab, true>(g, f2, d_f1, B, C, H, W, stream)
+             : launch_as<kSlab, false>(g, f2, d_f1, B, C, H, W, stream);
+}
+
+}  // namespace tiled
+
+// ---------------------------------------------------------------------------
+// The general bodies: d_f1 for every other (maxd, s2), and d_f2.
+// ---------------------------------------------------------------------------
 
 constexpr int kTileW = 64;                   // output columns per block
 constexpr int kGroups = 4;                   // thread groups over channels
@@ -264,6 +573,21 @@ size_t smem_f2(int maxd, int s2) {
   return sizeof(float) * (D + kChunkC) * (kTileW + 2 * maxd);
 }
 
+// d_f1: the tiled body where the configuration is the one it is written
+// for, the general body for any other; both are kernels.
+template <bool kSlab>
+int launch_f1(const float* g, const float* f2, float* d_f1, int B, int C,
+              int H, int W, int maxd, int s2, int device, void* stream) {
+  if (maxd == tiled::kMaxd && s2 == tiled::kS2) {
+    const int err = fnet_set_device(device);
+    if (err) return err;
+    return tiled::launch<kSlab>(g, f2, d_f1, B, C, H, W,
+                                static_cast<cudaStream_t>(stream));
+  }
+  return launch(correlation_bwd_f1_kernel<kSlab>, smem_f1(maxd, s2), g, f2,
+                d_f1, B, C, H, W, H, maxd, s2, device, stream);
+}
+
 }  // namespace
 
 // K5.  g: (B, D*D, H, W); f2, d_f1: (B, C, H, W); all float32 and
@@ -271,8 +595,7 @@ size_t smem_f2(int maxd, int s2) {
 extern "C" int correlation_bwd_f1(const float* g, const float* f2, float* d_f1,
                                   int B, int C, int H, int W, int maxd, int s2,
                                   int device, void* stream) {
-  return launch(correlation_bwd_f1_kernel<false>, smem_f1(maxd, s2), g, f2,
-                d_f1, B, C, H, W, H, maxd, s2, device, stream);
+  return launch_f1<false>(g, f2, d_f1, B, C, H, W, maxd, s2, device, stream);
 }
 
 // K6.  g: (B, D*D, H, W); f1, d_f2: (B, C, H, W); all float32 and contiguous.
@@ -289,8 +612,8 @@ extern "C" int correlation_bwd_f1_rows(const float* g, const float* slab,
                                        float* d_f1, int B, int C, int Hloc,
                                        int W, int maxd, int s2, int device,
                                        void* stream) {
-  return launch(correlation_bwd_f1_kernel<true>, smem_f1(maxd, s2), g, slab,
-                d_f1, B, C, Hloc, W, Hloc, maxd, s2, device, stream);
+  return launch_f1<true>(g, slab, d_f1, B, C, Hloc, W, maxd, s2, device,
+                        stream);
 }
 
 // K7 backward, d_slab.  g: (B, D*D, Hloc, W); f1: (B, C, Hloc, W); d_slab:

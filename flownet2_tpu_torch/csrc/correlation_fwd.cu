@@ -145,33 +145,6 @@ static_assert(kStages >= 2, "the ring needs two stages");
 static_assert(kWords % 4 == 0 && kPix % 4 == 0 && kMaxd % 4 == 0 &&
               kSpan % 4 == 0, "16-byte loads");
 
-// Copies kBytes (4 or 16) from device to shared memory, or writes zeros
-// (and reads nothing) where ``valid`` is false.
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? kBytes : 0;
-  if (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(bytes)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(bytes)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
 // One channel of a thread's sums: its 8 f1 values at ``a_ptr`` and its 28 f2
 // values at ``w_ptr`` (16-byte aligned shared memory), 88 FMAs.
 __device__ __forceinline__ void tile_sums(float (&acc)[kPix][kT],

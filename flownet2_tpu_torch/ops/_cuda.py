@@ -2,8 +2,12 @@
 
 Every ``csrc/<name>.cu`` is a kernel with a plain C interface.  At the
 first CUDA call, ``nvcc`` compiles each source into its own shared library
-under ``build/flownet2_tpu_torch/<source hash>/`` (all compilers started
-together), and the library is loaded with ``ctypes``.  The hash covers the
+under ``<build root>/<source hash>/`` (all compilers started together), and
+the library is loaded with ``ctypes``.  The build root is the directory
+that the environment variable ``FLOWNET2_TORCH_BUILD_DIR`` names, read at
+each build, or else ``build/flownet2_tpu_torch/`` beside the package
+(inside a checkout, the repository's ``build/``).  Importing the package
+builds nothing.  The hash covers the
 sources, the headers and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  A missing ``nvcc`` or a failed build raises:
 there is no fallback.
@@ -31,7 +35,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "flownet2_tpu_torch"
+BUILD_DIR_ENV = "FLOWNET2_TORCH_BUILD_DIR"
+DEFAULT_BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
+                      / "flownet2_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -50,6 +56,12 @@ def reset_counts() -> None:
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def build_root() -> Path:
+    """Where the libraries are built: ``$FLOWNET2_TORCH_BUILD_DIR`` if it is
+    set and not empty, else ``DEFAULT_BUILD_ROOT``."""
+    return Path(os.environ.get(BUILD_DIR_ENV) or DEFAULT_BUILD_ROOT)
 
 
 def source_hash() -> str:
@@ -74,7 +86,7 @@ def build() -> dict[str, str]:
     hash, one ``nvcc`` per source, all running at once.  Returns each
     source's compiler output ("" for a library already built); raises if
     any compile fails, after every compiler has exited."""
-    out_dir = BUILD_ROOT / source_hash()
+    out_dir = build_root() / source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
     logs = {}
@@ -104,7 +116,8 @@ def _library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             build()
-            lib = ctypes.CDLL(str(BUILD_ROOT / source_hash() / f"lib{name}.so"))
+            lib = ctypes.CDLL(str(build_root() / source_hash()
+                                  / f"lib{name}.so"))
             lib.fnet_error_string.argtypes = [ctypes.c_int]
             lib.fnet_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -1,4 +1,5 @@
-"""The train and eval steps (counterpart of flownet2_tpu/train/state.py).
+"""The train, eval and inference steps (counterpart of
+flownet2_tpu/train/state.py).
 
 ``StepFactory(model, loss_fn, optimizer)`` binds the optimizer to the
 model's parameters and hands out the steps.  The train step runs the model
@@ -21,7 +22,7 @@ from .optim import Optimizer
 
 @dataclasses.dataclass
 class StepFactory:
-    """Train and eval steps for (model, loss, optimizer).  ``loss_scale``
+    """Train, eval and inference steps for (model, loss, optimizer).  ``loss_scale``
     multiplies the loss before the backward and divides the gradients
     after it (fp16 parity experiments); ``skip_nonfinite_updates`` leaves
     the parameters and the optimizer untouched when any gradient is not
@@ -66,11 +67,33 @@ class StepFactory:
 
     def _eval_step(self, images: torch.Tensor, flow: torch.Tensor,
                    n_valid: int):
-        self.model.eval()
-        with torch.inference_mode():
-            return self._metric_sums(self.model(images), flow, n_valid)
+        return self._infer_metrics(images, flow, n_valid)[1]
 
     def eval_step(self) -> Callable:
         """``(images, flow, n_valid) -> {"loss_sum", "epe_sum", "count"}``
         in ``eval()`` mode, without gradients."""
         return self._eval_step
+
+    def _infer(self, images: torch.Tensor):
+        self.model.eval()
+        with torch.inference_mode():
+            return self.model(images)
+
+    def infer_step(self) -> Callable:
+        """``images -> flow`` in ``eval()`` mode, without gradients: flow
+        only, no targets."""
+        return self._infer
+
+    def _infer_metrics(self, images: torch.Tensor, flow: torch.Tensor,
+                       n_valid: int):
+        self.model.eval()
+        with torch.inference_mode():
+            pred = self.model(images)
+            return pred, self._metric_sums(pred, flow, n_valid)
+
+    def infer_metrics_step(self) -> Callable:
+        """``(images, flow, n_valid) -> (flow, {"loss_sum", "epe_sum",
+        "count"})``: the flow and the masked sums of the eval step (the
+        reference's inference loop reports per-batch losses, against zero
+        targets where the dataset has no ground truth)."""
+        return self._infer_metrics

@@ -6,16 +6,19 @@
 Builds the kernels of ``<root>/flownet2_tpu_torch`` and prints one line:
 the tag, the milliseconds per launch of K1 at (8, 256, 48, 64), of K7
 forward at one band of two, (8, 256, 24, 64) against its (8, 256, 64, 64)
-slab, of K5 and K6 at (8, 256, 48, 56), of the two-flow and the one-flow K2
-at (8, 3, 384, 512) and of ``F.grid_sample`` on the one-flow K2's inputs (the
-library call that computes the same warp; timed here, used nowhere in the
-port), float32, CUDA events over 300 launches after 20 that the host queues
-while the card is kept busy (and, for the one-flow K2, also without that
-head start: a 0.04 ms kernel then reads as the wrapper's time on the host),
-the first 12 hex digits of the sha1 of K1's and K7 forward's output bytes
-(the inputs come from a fixed seed, so two checkouts that print the same
-digest computed the same bits), and ptxas's register counts (none for
-libraries an earlier run in that checkout has built).
+slab, of K5 and K6 at (8, 256, 48, 56), of K7 d_f1 at one band of two,
+(8, 441, 24, 56) against its (8, 256, 64, 56) slab, of the two-flow and the
+one-flow K2 at (8, 3, 384, 512) and of ``F.grid_sample`` on the one-flow
+K2's inputs (the library call that computes the same warp; timed here, used
+nowhere in the port), float32, CUDA events over 300 launches after 20 that
+the host queues while the card is kept busy (and, for the one-flow K2, also
+without that head start: a 0.04 ms kernel then reads as the wrapper's time
+on the host), the first 12 hex digits of the sha1 of the output bytes of
+K1, K7 forward, K5 and K7 d_f1 (the inputs come from a fixed seed, so two
+checkouts that print the same digest computed the same bits), the SM clock
+and its maximum as nvidia-smi reads them after the timings, and ptxas's
+register counts (none for libraries an earlier run in that checkout has
+built).
 
 Two commits are compared on one card in one call, in turns, since two calls
 may land on two cards: unpack the parent with ``git archive <commit>
@@ -29,6 +32,7 @@ flownet2_tpu_torch | tar -x -C build/parent`` and run
 from __future__ import annotations
 
 import hashlib
+import subprocess
 import sys
 
 import torch
@@ -54,6 +58,14 @@ def time_ms(fn, iters: int = 300, warmup: int = 20,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sm_clock() -> str:
+    """The SM clock and its maximum, as nvidia-smi reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 def main(root: str, tag: str) -> int:
@@ -83,6 +95,8 @@ def main(root: str, tag: str) -> int:
     sf1, slab = randn(8, 256, 24, 64), randn(8, 256, 64, 64)
     tf1, tf2 = randn(8, 256, 48, 56), randn(8, 256, 48, 56)
     tg = randn(8, 441, 48, 56)
+    bg, bslab = randn(8, 441, 24, 56), randn(8, 256, 64, 56)
+    bf1 = tf1[:, :, :24].contiguous()
     img = randn(8, 3, 384, 512)
     flows = randn(8, 2, 2, 384, 512) * 4.0
     flow = flows[:, 0].contiguous()
@@ -95,6 +109,8 @@ def main(root: str, tag: str) -> int:
         "K7 fwd": time_ms(lambda: corr_sp.corr_slab_cuda(sf1, slab)),
         "K5": time_ms(lambda: corr.correlation_bwd_cuda(
             tg, tf1, tf2, needs=(True, False))),
+        "K7 d_f1": time_ms(lambda: corr_sp.corr_slab_bwd_cuda(
+            bg, bf1, bslab, needs=(True, False))),
         "K6": time_ms(lambda: corr.correlation_bwd_cuda(
             tg, tf1, tf2, needs=(False, True))),
         "K2, two flows": time_ms(lambda: r2d.resample2d_multi_cuda(img,
@@ -106,10 +122,16 @@ def main(root: str, tag: str) -> int:
             img, grid, mode="bilinear", padding_mode="border",
             align_corners=True)),
     }
+    clock = sm_clock()
     digests = {"K1": digest(corr.correlation_cuda(f1, f2)),
-               "K7 fwd": digest(corr_sp.corr_slab_cuda(sf1, slab))}
+               "K7 fwd": digest(corr_sp.corr_slab_cuda(sf1, slab)),
+               "K5": digest(corr.correlation_bwd_cuda(
+                   tg, tf1, tf2, needs=(True, False))[0]),
+               "K7 d_f1": digest(corr_sp.corr_slab_bwd_cuda(
+                   bg, bf1, bslab, needs=(True, False))[0])}
     print(tag, "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
           "| sha1:", ", ".join(f"{k} {v}" for k, v in digests.items()),
+          "| SM clock, max:", clock,
           "| registers:", ", ".join(registers))
     return 0
 

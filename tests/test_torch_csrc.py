@@ -5,8 +5,12 @@ ctypes.  ctypes checks nothing against the C signatures, so a kernel change
 that moves an argument would otherwise show only on the card."""
 
 import ctypes
+import os
 import pathlib
 import re
+import subprocess
+import sys
+from unittest import mock
 
 import pytest
 import torch
@@ -79,3 +83,45 @@ def test_every_source_has_a_wrapped_entry_point_and_none_is_unbound():
             defined[name] = path.stem
     # every entry point is bound by a wrapper, to the source that defines it
     assert defined == {name: lib for name, (lib, _) in WRAPPED.items()}
+
+
+def test_build_directory_follows_the_environment(tmp_path, monkeypatch):
+    """FLOWNET2_TORCH_BUILD_DIR moves the build; unset or empty, the build
+    stays in the default directory.  nvcc is not here, so it is stood in
+    for by a compiler that writes each requested library."""
+    monkeypatch.delenv(_cuda.BUILD_DIR_ENV, raising=False)
+    assert _cuda.build_root() == _cuda.DEFAULT_BUILD_ROOT
+    monkeypatch.setenv(_cuda.BUILD_DIR_ENV, "")
+    assert _cuda.build_root() == _cuda.DEFAULT_BUILD_ROOT
+    root = tmp_path / "kernels"
+    monkeypatch.setenv(_cuda.BUILD_DIR_ENV, str(root))
+    assert _cuda.build_root() == root
+
+    def fake_nvcc(cmd, **kwargs):
+        pathlib.Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return mock.Mock(returncode=0, communicate=lambda: ("built", None))
+
+    with mock.patch.object(_cuda, "_nvcc", return_value="nvcc"), \
+            mock.patch.object(_cuda.subprocess, "Popen", fake_nvcc):
+        logs = _cuda.build()
+        assert set(logs) == {p.stem for p in CSRC.glob("*.cu")}
+        assert set(logs.values()) == {"built"}
+        built = sorted(p.name for p in (root / _cuda.source_hash()).iterdir())
+        assert built == sorted(f"lib{p.stem}.so" for p in CSRC.glob("*.cu"))
+        # a second build finds them and compiles nothing
+        assert set(_cuda.build().values()) == {""}
+
+
+def test_importing_the_port_builds_nothing(tmp_path):
+    """Every module of the port imports without creating the build
+    directory: kernels are built at their first CUDA call only."""
+    root = tmp_path / "kernels"
+    env = dict(os.environ, **{_cuda.BUILD_DIR_ENV: str(root)})
+    code = ("import flownet2_tpu_torch, flownet2_tpu_torch.models, "
+            "flownet2_tpu_torch.ops.correlation_spatial, "
+            "flownet2_tpu_torch.ops.resample2d_spatial, "
+            "flownet2_tpu_torch.train")
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=pathlib.Path(__file__).resolve().parents[1],
+                   timeout=300)
+    assert not root.exists()

@@ -21,6 +21,8 @@ from flownet2_tpu import losses as jax_losses
 from flownet2_tpu.checkpoints.torch_import import state_dict_to_variables
 from flownet2_tpu.models import FlowNet2 as JaxFlowNet2
 from flownet2_tpu.train import optim as jax_optim
+from flownet2_tpu.train.state import StepFactory as JaxStepFactory
+from flownet2_tpu.train.state import TrainState as JaxTrainState
 
 from flownet2_tpu_torch import losses, ops
 from flownet2_tpu_torch.checkpoints import from_jax_variables
@@ -309,3 +311,46 @@ def test_step_factory_options_and_eval_step():
     loss_ps, epe_ps = losses.L1Loss().per_sample(pred, flow)
     torch.testing.assert_close(sums["loss_sum"], loss_ps[:2].sum())
     torch.testing.assert_close(sums["epe_sum"], epe_ps[:2].sum())
+
+
+def test_infer_steps_match_jax():
+    """infer_step and infer_metrics_step against the JAX package's on the
+    same weights and batch at 64x128: the flow of FlowNet2 in eval mode,
+    and the MultiScale loss and EPE summed over the first n_valid samples
+    (a padded tail batch); the model is left in eval mode."""
+    made = get_model("FlowNet2", device="cpu", seed=1)
+    variables = state_dict_to_variables(
+        {k: v.numpy() for k, v in made.state_dict().items()}, "FlowNet2")
+    images, flow = _batch(2, 5)
+    j_factory = JaxStepFactory(JaxFlowNet2(), jax_losses.MultiScale(),
+                               optax.adam(1e-4))
+    state = JaxTrainState.create(variables, j_factory.tx)
+    j_flow = np.asarray(j_factory.infer_step()(state, jnp.asarray(images)))
+    j_pred, j_sums = j_factory.infer_metrics_step()(
+        state, jnp.asarray(images), jnp.asarray(flow), 1)
+
+    model = FlowNet2()
+    model.load_state_dict(from_jax_variables(variables, "FlowNet2"),
+                          strict=True)
+    model.train()
+    factory = StepFactory(model, losses.MultiScale(),
+                          get_optimizer("Adam", 1e-4))
+    got = factory.infer_step()(torch.from_numpy(images))
+    assert not model.training and not got.requires_grad
+    assert got.shape == (2, H, W, 2)
+    np.testing.assert_allclose(got.numpy(), j_flow, rtol=1e-4, atol=1e-4)
+    pred, sums = factory.infer_metrics_step()(torch.from_numpy(images),
+                                              torch.from_numpy(flow), 1)
+    assert torch.equal(pred, got)
+    np.testing.assert_allclose(pred.numpy(), np.asarray(j_pred), rtol=1e-4,
+                               atol=1e-4)
+    assert sums["count"] == int(j_sums["count"]) == 1
+    for key in ("loss_sum", "epe_sum"):
+        np.testing.assert_allclose(sums[key].item(), float(j_sums[key]),
+                                   rtol=LOSS_TOL)
+    # the second sample is padding: its metrics are not in the sums
+    loss_ps, epe_ps = losses.MultiScale().per_sample(pred,
+                                                     torch.from_numpy(flow))
+    torch.testing.assert_close(sums["loss_sum"], loss_ps[0])
+    torch.testing.assert_close(sums["epe_sum"], epe_ps[0])
+    assert loss_ps[1] != 0
