@@ -391,8 +391,8 @@ def main() -> int:
                 errs.setdefault(name, []).append(max_err(
                     got[k], want[k], 1e-4, 1e-4,
                     f"K{5 + k} correlation d_f{1 + k} {shape}"))
-        # K1's and K5's general bodies: configurations the register-tiled
-        # ones do not cover (K6 has one body for all)
+        # K1's, K5's and K6's general bodies: configurations the
+        # register-tiled ones do not cover
         for maxd, s2 in ((8, 1), (4, 2)):
             f1, f2 = (randn(*odd_shape, gen=odd_gen) for _ in range(2))
             other_args = (maxd, 1, maxd, 1, s2)
@@ -459,8 +459,9 @@ def main() -> int:
             max_err(k4, tangent_grad, 1e-5, 1e-5,
                     f"K4 against the tangent route's d_flow, {what}")
 
-        # K7 on bands of the main paths', the wide and the ragged maps: the
-        # top, a middle and the bottom band (12 rows < maxd 20 at 4 bands)
+        # K7 on bands of the main paths', the wide and the ragged maps: one
+        # band (whose d_slab rows [20, 20 + H) are K6's bits), and the top, a
+        # middle and the bottom band of 2 and 4 (12 rows < maxd 20 at 4)
         slab_names = ("correlation_fwd_rows", "correlation_bwd_f1_rows",
                       "correlation_bwd_f2_rows")
         for shape in ((BATCH, 256, HEIGHT // 8, WIDTH // 8),
@@ -472,7 +473,7 @@ def main() -> int:
             whole = (corr.correlation_cuda(f1, f2, *corr_args),
                      *corr.correlation_bwd_cuda(g, f1, f2, 20, 2))
             f2p = F.pad(f2, (0, 0, 20, 20))
-            for shards in (2, 4):
+            for shards in (1, 2, 4):
                 local_h = shape[2] // shards
                 d_f2p = torch.zeros_like(f2p)
                 for band in range(shards):
@@ -499,6 +500,12 @@ def main() -> int:
                         errs.setdefault(name, []).append(max_err(
                             a, b, 1e-5, 1e-5, f"K7 {name} {shape}, band "
                             f"{band} of {shards}"))
+                if shards == 1:
+                    if not torch.equal(d_f2p[:, :, 20:-20], whole[2]):
+                        raise AssertionError(
+                            f"{slab_names[2]} {shape}, one band: rows "
+                            "[20, 20 + H) not the whole-map kernel's bits")
+                    continue
                 max_err(d_f2p[:, :, 20:-20], whole[2], 1e-5, 1e-5,
                         f"K7 d_slab summed over {shards} bands against K6 "
                         f"{shape} (forward and d_f1 bit-equal to K1, K5)")

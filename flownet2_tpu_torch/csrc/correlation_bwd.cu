@@ -51,22 +51,25 @@
 // shifts in ascending order, then a division by C, in every body and form
 // below, so a band's rows carry the bits of the whole-map call.
 //
-// K5 (and K7 d_f1) has two bodies, chosen by configuration in launch_f1():
+// K5 and K6 (and their K7 forms) each have two bodies, chosen by
+// configuration in launch_f1() and launch_f2():
 //
-// * correlation_bwd_f1_tile_kernel, for maxd 20, s2 2 (FlowNetC's, D = 21),
-//   the one the models run.  See the note above it.
-// * correlation_bwd_f1_kernel, for every other (maxd, s2), and K6 (and K7
-//   d_slab) in correlation_bwd_f2_kernel: a block owns one output row, 64
-//   output columns and 32 channels, and loops over the D row shifts staging
-//   the cotangent channels of that shift and the one feature row it needs
-//   (64 + 2*maxd columns, 32 channels) in shared memory; thread (tx, grp)
-//   owns output column tx and the channels grp, grp+4, ..., grp+28, kept in
-//   registers across all shifts.  Per column shift a thread reads one
-//   cotangent value and reuses it for its 8 channels: about one 4-byte
-//   shared-memory load per FMA, which holds K6 at 5.2% of the bound of
-//   its in-map FMAs (NVIDIA H100 80GB HBM3, 700 W).  Outputs are written as
-//   coalesced rows.  A row shift that falls wholly outside the image is
-//   skipped (the whole block agrees, so the barriers stay uniform).
+// * correlation_bwd_f1_tile_kernel and correlation_bwd_f2_tile_kernel, for
+//   maxd 20, s2 2 (FlowNetC's, D = 21), the ones the models run.  See the
+//   notes above them.
+// * correlation_bwd_f1_kernel and correlation_bwd_f2_kernel, for every
+//   other (maxd, s2): a block owns one output row, 64 output columns and 32
+//   channels, and loops over the D row shifts staging the cotangent
+//   channels of that shift and the one feature row it needs (64 + 2*maxd
+//   columns, 32 channels) in shared memory; thread (tx, grp) owns output
+//   column tx and the channels grp, grp+4, ..., grp+28, kept in registers
+//   across all shifts.  Per column shift a thread reads one cotangent value
+//   and reuses it for its 8 channels: about one 4-byte shared-memory load
+//   per FMA, which held K6 at 5.2% of the bound of its in-map FMAs (0.888
+//   ms at the shape above on an NVIDIA H100 80GB HBM3, 700 W).  Outputs are
+//   written as coalesced rows.  A row shift that falls wholly outside the
+//   image is skipped (the whole block agrees, so the barriers stay
+//   uniform).
 
 #include <cstdint>
 
@@ -366,6 +369,292 @@ int launch(const float* g, const float* f2, float* d_f1, int B, int C, int H,
              : launch_as<kSlab, false>(g, f2, d_f1, B, C, H, W, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The register-tiled d_f2 body for maxd 20, s2 2 (K6 and K7 d_slab): the
+// d_f1 body above, mirrored.
+//
+// Output pixel x2 at column shift ti reads the cotangent and f1 at source
+// column x2 + 20 - 2ti, so pixel k of a thread's 16 reads f1 at span column
+// xq - 20 + k + 40 - 2ti: the f1 window is the d_f1 body's, sliding left by
+// 2 columns a shift where f2's slides right (a new 16-byte piece every other
+// shift, the 21 shifts unrolled).  The cotangent is read at the source
+// column too, not at the output pixel: the block's 64 pixels read columns
+// x0 + 20 - 2ti .. + 63 of plane (tj, ti), 16-byte aligned only for even
+// ti.  So each cotangent row is staged from the aligned column at or below
+// that one, 68 columns, and a thread reads its 16 words at word offset 0
+// (even ti, four 16-byte loads) or 2 (odd ti, five 16-byte loads of which
+// it uses 16).  Cotangent columns outside the map feed pixels inside it
+// (multiplied by f1's zero padding), so they are staged as zeros, as f1's
+// are: the sums then add 0 * 0, as the general body does.
+//
+// Output row y2 at row shift tj reads source row y2 + 20 - 2tj (y2 - 2tj
+// in the slab form, where y2 runs over the Hloc + 40 slab rows): warp r of
+// a block reads staged f1 row rho = r + 20 - tj, so the ring of kRows + 1
+// rows is filled in descending row order while each output's chain still
+// runs tj ascending.  A warp whose source row lies outside [0, H) skips that
+// shift; rows and cotangent rows no warp reads are not staged; barriers
+// stay uniform.  The grid covers the output's rows (H2), by parity.
+//
+// Shared memory: 9 f1 rows (124.4 KB) and two stages of 8 x 21 cotangent
+// rows of 68 columns (91.4 KB), 215.8 KB, one block of 256 threads an SM;
+// 196-207 registers, no spills.  On an NVIDIA H100 80GB HBM3 at 700 W, K6
+// at (8, 256, 48, 56) reads 0.238 ms (the general body 0.888: 3.7x, at 19%
+// of the bound of its in-map FMAs) and K7 d_slab at one band of two, g
+// (8, 441, 24, 56), 0.217 ms (0.602); its sums alone take 0.157 ms and its
+// staging alone 0.132.  Staging the cotangent rows 64 columns wide by 8-byte
+// cp.async read 0.293 / 0.275 ms; 4 rows a block (two blocks an SM) 0.241 /
+// 0.206.
+// ---------------------------------------------------------------------------
+
+constexpr int kGStride = kTileW + 4;   // cotangent columns staged per row
+constexpr int kGFloatsF2 = kRows * kD * kGStride;
+constexpr size_t kSmemF2 =
+    sizeof(float) * (kRing * kRowFloats + 2 * kGFloatsF2);
+static_assert(kSmemF2 > 48 * 1024 && kSmemF2 <= 227 * 1024,
+              "above the default limit, within an SM's 227 KB");
+static_assert(kGStride % 4 == 0 && kMaxd % 4 == 0 && kS2 == 2,
+              "16-byte cotangent rows at word offset 0 or 2");
+
+// One row shift of a thread's d_f2 sums: cotangent rows at ``gp`` (column
+// shift t at gp + t*kGStride, the thread's words from offset 2 for odd t),
+// f1 spans of its channels at ``fp`` (channel j at fp + j*kCg*kStride),
+// both at the thread's first pixel.
+__device__ __forceinline__ void shift_sums_f2(float (&acc)[kQ][kPix],
+                                              const float* gp,
+                                              const float* fp) {
+  float w[kQ][kWin];
+#pragma unroll
+  for (int t = 0; t < kD; ++t) {
+    const int first = kS2 * (kD - 1 - t);   // pixel k reads word first + k
+    // the window's 16-byte pieces that column shift t is the first to read
+#pragma unroll
+    for (int i = 0; i < kWin / 4; ++i) {
+      if (4 * i + 3 >= first && (t == 0 || 4 * i + 3 < first + kS2)) {
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(fp + j * kCg * kStride + 4 * i);
+          w[j][4 * i] = v.x;
+          w[j][4 * i + 1] = v.y;
+          w[j][4 * i + 2] = v.z;
+          w[j][4 * i + 3] = v.w;
+        }
+      }
+    }
+    constexpr int kLead = 2;                // odd t's word offset
+    float u[kPix + 4];
+    const float* gt = gp + t * kGStride;
+#pragma unroll
+    for (int i = 0; i < kPix / 4 + 1; ++i) {
+      if (i == kPix / 4 && t % 2 == 0) break;
+      const float4 v = *reinterpret_cast<const float4*>(gt + 4 * i);
+      u[4 * i] = v.x;
+      u[4 * i + 1] = v.y;
+      u[4 * i + 2] = v.z;
+      u[4 * i + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k)
+        acc[j][k] = fmaf(u[(t % 2 ? kLead : 0) + k], w[j][first + k],
+                         acc[j][k]);
+    }
+  }
+}
+
+template <bool kSlab, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+correlation_bwd_f2_tile_kernel(const float* __restrict__ g,
+                               const float* __restrict__ f1,
+                               float* __restrict__ d_f2, int C, int H, int W) {
+  extern __shared__ __align__(16) float smem[];
+  float* fs = smem;                        // [kRing][kChunk][kStride]
+  float* gs = smem + kRing * kRowFloats;   // [2][kRows][kD][kGStride]
+  const int H2 = kSlab ? H + 2 * kMaxd : H;   // rows of d_f2
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r = tid >> 5;                           // output row (warp)
+  const int q = (lane & 1) | ((lane >> 2) & 2);     // pixel group
+  const int cg = ((lane >> 1) & 3) | ((lane >> 2) & 4);   // channel group
+  const int tiles = (W + kTileW - 1) / kTileW;
+  const int x0 = (blockIdx.x % tiles) * kTileW;
+  const int c0 = (blockIdx.x / tiles) * kChunk;
+  // blocks alternate row parity: rows ybase, ybase + 2, ...
+  const int ybase = (blockIdx.y >> 1) * (2 * kRows) + (blockIdx.y & 1);
+  const int b = blockIdx.z;
+  const int y2 = ybase + 2 * r;
+  const bool owns = y2 < H2;
+  // staged f1 row rho is row row0 + 2*rho of f1; warp r at row shift n
+  // reads rho = r + kD - 1 - n
+  const int row0 = ybase - (kSlab ? 2 * kMaxd : kMaxd);
+
+  const int64_t plane = static_cast<int64_t>(H) * W;
+  const int64_t plane2 = static_cast<int64_t>(H2) * W;
+  const float* f1b = f1 + (static_cast<int64_t>(b) * C + c0) * plane;
+  const float* gb = g + static_cast<int64_t>(b) * kD * kD * plane;
+
+  // Staging, kPiece floats a copy, as in the d_f1 body.  f1: thread tid
+  // copies channel tid / kPerCh of the chunk, the pieces tid % kPerCh,
+  // + kPerCh, ... of its span.  The cotangent: thread tid copies one piece
+  // of the first 64 columns of a row (kReps of them where the rows hold more
+  // pieces than the block has threads) for the column shifts s_ti,
+  // s_ti + kTiStep, ...; the last 4 columns of every row are shared out
+  // over the threads apart.  Column shift ti's row starts at column
+  // x0 + lead(ti), lead(ti) = 20 - 2ti rounded down to a multiple of 4.
+  constexpr int kPiece = kVec ? 4 : 1;
+  constexpr int kSpanPieces = kSpan / kPiece;
+  constexpr int kTilePieces = kTileW / kPiece;
+  constexpr int kTailPieces = (kGStride - kTileW) / kPiece;
+  constexpr int kPerCh = kThreads / kChunk;
+  constexpr int kRowCol = kRows * kTilePieces;   // one column shift's pieces
+  constexpr int kTiStep = kThreads >= kRowCol ? kThreads / kRowCol : 1;
+  constexpr int kReps = kThreads >= kRowCol ? 1 : kRowCol / kThreads;
+  constexpr int kTails = kRows * kD * kTailPieces;
+  static_assert(kThreads % kChunk == 0 &&
+                (kThreads % kRowCol == 0 || kRowCol % kThreads == 0),
+                "every thread copies the same number of pieces");
+  const int sc = tid / kPerCh;
+  const bool sc_ok = c0 + sc < C;
+  const float* f1_src = f1b + sc * plane + (x0 - kMaxd);
+  float* f1_dst = fs + sc * kStride;
+  const int s_ti = kThreads >= kRowCol ? tid / kRowCol : 0;
+  auto lead = [](int ti) { return kMaxd - 4 * ((ti + 1) >> 1); };
+  auto stage_f1 = [&](int rho) {
+    const int row = row0 + 2 * rho;
+    if (row < 0 || row >= H) return;       // no warp reads it
+    float* dst = f1_dst + (rho % kRing) * kRowFloats;
+    const float* src = f1_src + static_cast<int64_t>(row) * W;
+#pragma unroll
+    for (int k = 0; k < (kSpanPieces + kPerCh - 1) / kPerCh; ++k) {
+      const int col = (tid % kPerCh + k * kPerCh) * kPiece;   // span column
+      if (col >= kSpan) break;
+      const int x = x0 - kMaxd + col;
+      const bool ok = sc_ok && x >= 0 && x < W;
+      cp_async<4 * kPiece>(dst + col, ok ? src + col : f1, ok);
+    }
+  };
+  // one piece: cotangent row (rr, ti) of row shift n, staged column col
+  auto stage_g_piece = [&](float* dst0, int n, int rr, int ti, int col) {
+    const int y = row0 + 2 * (rr + kD - 1 - n);   // source row
+    // not staged: a row whose warp skips this shift
+    if (ybase + 2 * rr >= H2 || y < 0 || y >= H) return;
+    const int x = x0 + lead(ti) + col;
+    const bool ok = x >= 0 && x < W;   // else zeros: they meet f1's padding
+    cp_async<4 * kPiece>(
+        dst0 + (rr * kD + ti) * kGStride + col,
+        ok ? gb + static_cast<int64_t>(n * kD + ti) * plane +
+                 static_cast<int64_t>(y) * W + x
+           : g,
+        ok);
+  };
+  auto stage_g = [&](int n) {
+    float* dst0 = gs + (n & 1) * kGFloatsF2;
+#pragma unroll
+    for (int m = 0; m < kReps; ++m) {
+      const int rc = tid % kRowCol + m * kThreads;
+      const int rr = rc / kTilePieces;
+      const int col = rc % kTilePieces * kPiece;
+#pragma unroll
+      for (int k = 0; k < (kD + kTiStep - 1) / kTiStep; ++k) {
+        if (s_ti + k * kTiStep >= kD) break;
+        stage_g_piece(dst0, n, rr, s_ti + k * kTiStep, col);
+      }
+    }
+#pragma unroll
+    for (int e0 = 0; e0 < kTails; e0 += kThreads) {
+      const int e = e0 + tid;
+      if (e >= kTails) break;
+      stage_g_piece(dst0, n, e / (kD * kTailPieces), e / kTailPieces % kD,
+                    kTileW + e % kTailPieces * kPiece);
+    }
+  };
+
+  float acc[kQ][kPix];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) acc[j][k] = 0.f;
+  }
+
+  for (int rho = kD - 1; rho < kD - 1 + kRows; ++rho) stage_f1(rho);
+  stage_g(0);
+  cp_async_commit();
+  const float* g_at = gs + r * kD * kGStride + kPix * q;
+  const float* f_at = fs + cg * kStride + kPix * q;
+  for (int n = 0; n < kD; ++n) {
+    cp_async_wait<0>();
+    __syncthreads();     // shift n has landed; shift n - 1 is summed
+    if (n + 1 < kD) {
+      stage_f1(kD - 2 - n);
+      stage_g(n + 1);
+    }
+    cp_async_commit();
+    const int rho = r + kD - 1 - n;
+    const int y = row0 + 2 * rho;
+    if (owns && y >= 0 && y < H)
+      shift_sums_f2(acc, g_at + (n & 1) * kGFloatsF2,
+                    f_at + rho % kRing * kRowFloats);
+  }
+
+  if (owns) {
+    const float cf = static_cast<float>(C);
+    const int x = x0 + kPix * q;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int c = c0 + cg + j * kCg;
+      if (c >= C) continue;
+      float* o = d_f2 + (static_cast<int64_t>(b) * C + c) * plane2 +
+                 static_cast<int64_t>(y2) * W + x;
+      if (kVec) {
+#pragma unroll
+        for (int k = 0; k < kPix; k += 4) {
+          if (x + k < W)
+            *reinterpret_cast<float4*>(o + k) =
+                make_float4(acc[j][k] / cf, acc[j][k + 1] / cf,
+                            acc[j][k + 2] / cf, acc[j][k + 3] / cf);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          if (x + k < W) o[k] = acc[j][k] / cf;
+        }
+      }
+    }
+  }
+}
+
+template <bool kSlab, bool kVec>
+int launch_f2_as(const float* g, const float* f1, float* d_f2, int B, int C,
+                 int H, int W, cudaStream_t stream) {
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      correlation_bwd_f2_tile_kernel<kSlab, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemF2)));
+  if (err) return err;
+  // row blocks with a first row inside the output: two (one per parity) for
+  // every 2*kRows of its H2 rows
+  const int H2 = kSlab ? H + 2 * kMaxd : H;
+  const int rest = H2 % (2 * kRows);
+  const int ny = H2 / (2 * kRows) * 2 + (rest < 2 ? rest : 2);
+  const dim3 grid((W + kTileW - 1) / kTileW * ((C + kChunk - 1) / kChunk), ny,
+                  B);
+  correlation_bwd_f2_tile_kernel<kSlab, kVec>
+      <<<grid, kThreads, kSmemF2, stream>>>(g, f1, d_f2, C, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSlab>
+int launch_f2(const float* g, const float* f1, float* d_f2, int B, int C,
+              int H, int W, cudaStream_t stream) {
+  const bool vec = W % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(g) |
+                    reinterpret_cast<uintptr_t>(f1) |
+                    reinterpret_cast<uintptr_t>(d_f2)) % 16 == 0;
+  return vec ? launch_f2_as<kSlab, true>(g, f1, d_f2, B, C, H, W, stream)
+             : launch_f2_as<kSlab, false>(g, f1, d_f2, B, C, H, W, stream);
+}
+
 }  // namespace tiled
 
 // ---------------------------------------------------------------------------
@@ -588,6 +877,21 @@ int launch_f1(const float* g, const float* f2, float* d_f1, int B, int C,
                 d_f1, B, C, H, W, H, maxd, s2, device, stream);
 }
 
+// d_f2 (and d_slab, whose H2 = H + 2*maxd rows the grid covers): likewise.
+template <bool kSlab>
+int launch_f2(const float* g, const float* f1, float* d_f2, int B, int C,
+              int H, int W, int maxd, int s2, int device, void* stream) {
+  if (maxd == tiled::kMaxd && s2 == tiled::kS2) {
+    const int err = fnet_set_device(device);
+    if (err) return err;
+    return tiled::launch_f2<kSlab>(g, f1, d_f2, B, C, H, W,
+                                   static_cast<cudaStream_t>(stream));
+  }
+  return launch(correlation_bwd_f2_kernel<kSlab>, smem_f2(maxd, s2), g, f1,
+                d_f2, B, C, H, W, kSlab ? H + 2 * maxd : H, maxd, s2, device,
+                stream);
+}
+
 }  // namespace
 
 // K5.  g: (B, D*D, H, W); f2, d_f1: (B, C, H, W); all float32 and
@@ -602,8 +906,7 @@ extern "C" int correlation_bwd_f1(const float* g, const float* f2, float* d_f1,
 extern "C" int correlation_bwd_f2(const float* g, const float* f1, float* d_f2,
                                   int B, int C, int H, int W, int maxd, int s2,
                                   int device, void* stream) {
-  return launch(correlation_bwd_f2_kernel<false>, smem_f2(maxd, s2), g, f1,
-                d_f2, B, C, H, W, H, maxd, s2, device, stream);
+  return launch_f2<false>(g, f1, d_f2, B, C, H, W, maxd, s2, device, stream);
 }
 
 // K7 backward, d_f1.  g: (B, D*D, Hloc, W); slab: (B, C, Hloc + 2*maxd, W);
@@ -622,7 +925,6 @@ extern "C" int correlation_bwd_f2_rows(const float* g, const float* f1,
                                        float* d_slab, int B, int C, int Hloc,
                                        int W, int maxd, int s2, int device,
                                        void* stream) {
-  return launch(correlation_bwd_f2_kernel<true>, smem_f2(maxd, s2), g, f1,
-                d_slab, B, C, Hloc, W, Hloc + 2 * maxd, maxd, s2, device,
-                stream);
+  return launch_f2<true>(g, f1, d_slab, B, C, Hloc, W, maxd, s2, device,
+                         stream);
 }

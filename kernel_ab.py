@@ -6,19 +6,19 @@
 Builds the kernels of ``<root>/flownet2_tpu_torch`` and prints one line:
 the tag, the milliseconds per launch of K1 at (8, 256, 48, 64), of K7
 forward at one band of two, (8, 256, 24, 64) against its (8, 256, 64, 64)
-slab, of K5 and K6 at (8, 256, 48, 56), of K7 d_f1 at one band of two,
-(8, 441, 24, 56) against its (8, 256, 64, 56) slab, of the two-flow and the
-one-flow K2 at (8, 3, 384, 512) and of ``F.grid_sample`` on the one-flow
-K2's inputs (the library call that computes the same warp; timed here, used
-nowhere in the port), float32, CUDA events over 300 launches after 20 that
-the host queues while the card is kept busy (and, for the one-flow K2, also
-without that head start: a 0.04 ms kernel then reads as the wrapper's time
-on the host), the first 12 hex digits of the sha1 of the output bytes of
-K1, K7 forward, K5 and K7 d_f1 (the inputs come from a fixed seed, so two
-checkouts that print the same digest computed the same bits), the SM clock
-and its maximum as nvidia-smi reads them after the timings, and ptxas's
-register counts (none for libraries an earlier run in that checkout has
-built).
+slab, of K5 and K6 at (8, 256, 48, 56), of K7 d_f1 and K7 d_slab at one
+band of two, (8, 441, 24, 56) against its (8, 256, 64, 56) slab, of the
+two-flow and the one-flow K2 at (8, 3, 384, 512) and of ``F.grid_sample``
+on the one-flow K2's inputs (the library call that computes the same warp;
+timed here, used nowhere in the port), float32, CUDA events over 300
+launches after 20 that the host queues while the card is kept busy (and,
+for the one-flow K2, also without that head start: a 0.04 ms kernel then
+reads as the wrapper's time on the host), the first 12 hex digits of the
+sha1 of the output bytes of K1, K7 forward, K5, K7 d_f1, K6 and K7 d_slab
+(the inputs come from a fixed seed, so two checkouts that print the same
+digest computed the same bits), the SM clock and its maximum as nvidia-smi
+reads them after the timings, and ptxas's register counts (none for
+libraries an earlier run in that checkout has built).
 
 Two commits are compared on one card in one call, in turns, since two calls
 may land on two cards: unpack the parent with ``git archive <commit>
@@ -113,6 +113,8 @@ def main(root: str, tag: str) -> int:
             bg, bf1, bslab, needs=(True, False))),
         "K6": time_ms(lambda: corr.correlation_bwd_cuda(
             tg, tf1, tf2, needs=(False, True))),
+        "K7 d_slab": time_ms(lambda: corr_sp.corr_slab_bwd_cuda(
+            bg, bf1, bslab, needs=(False, True))),
         "K2, two flows": time_ms(lambda: r2d.resample2d_multi_cuda(img,
                                                                    flows)),
         "K2, one flow": time_ms(lambda: r2d.resample2d_cuda(img, flow)),
@@ -128,7 +130,11 @@ def main(root: str, tag: str) -> int:
                "K5": digest(corr.correlation_bwd_cuda(
                    tg, tf1, tf2, needs=(True, False))[0]),
                "K7 d_f1": digest(corr_sp.corr_slab_bwd_cuda(
-                   bg, bf1, bslab, needs=(True, False))[0])}
+                   bg, bf1, bslab, needs=(True, False))[0]),
+               "K6": digest(corr.correlation_bwd_cuda(
+                   tg, tf1, tf2, needs=(False, True))[1]),
+               "K7 d_slab": digest(corr_sp.corr_slab_bwd_cuda(
+                   bg, bf1, bslab, needs=(False, True))[1])}
     print(tag, "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
           "| sha1:", ", ".join(f"{k} {v}" for k, v in digests.items()),
           "| SM clock, max:", clock,

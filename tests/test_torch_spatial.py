@@ -130,6 +130,29 @@ def test_corr_slab_needs_only_what_is_asked():
     assert only[1] is None and torch.equal(only[0], both[0])
 
 
+@pytest.mark.parametrize("maxd,s2", [(20, 2), (4, 1)])
+def test_one_band_slab_grads_are_whole_map_grads(maxd, s2):
+    """One band that spans the whole map (a ragged 10x27 one, below maxd
+    20), against its f2 padded by maxd rows: d_slab's rows [maxd, maxd + H)
+    are ``correlation_bwd_plain``'s d_f2 and its d_f1 is the whole map's,
+    f32.  The two plain versions slice differently padded tensors, so they
+    are held to 1e-6 here; on the card the kernels are held bit for bit."""
+    height, width, chans = 10, 27, 6
+    f1 = torch.from_numpy(_rand((2, chans, height, width), 6))
+    f2 = torch.from_numpy(_rand((2, chans, height, width), 7))
+    disp = 2 * (maxd // s2) + 1
+    g = torch.from_numpy(_rand((2, disp * disp, height, width), 8))
+    slab = torch.nn.functional.pad(f2, (0, 0, maxd, maxd))
+    d_f1, d_slab = correlation_spatial.corr_slab_bwd_plain(g, f1, slab, maxd,
+                                                           s2)
+    want_f1, want_f2 = correlation.correlation_bwd_plain(g, f1, f2, maxd, s2)
+    assert d_slab.shape == (2, chans, height + 2 * maxd, width)
+    torch.testing.assert_close(d_slab[:, :, maxd:maxd + height], want_f2,
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(d_f1, want_f1, rtol=1e-6, atol=1e-6)
+    assert want_f2.abs().max() > 0.1
+
+
 # -------------------------------------------------- the band compositions
 
 @pytest.mark.parametrize("shards", [2, 4])
