@@ -27,13 +27,33 @@ Phases (any failure raises and the script exits non-zero):
    against the same rows of K1 and K5, and the bands' d_slab summed
    against K6 at 1e-5.  The local-rows forms of K2, K3 and K4 (one and two
    flows, +-8 px and +-200 px) on the bands of 2 and of 4: bit-equal to
-   the same rows of the whole-image kernels' output.
+   the same rows of the whole-image kernels' output.  The bf16 forms:
+   K1 at the main-path, the wide and the two ragged maps, K2 for one flow
+   of +-8 px and of +-200 px and for two flows over the (8, 3, 384, 512)
+   image and the ragged (2, 3, 100, 150) one, each element within one bf16
+   ulp (rtol 2^-7, atol 1e-6 of the largest |out|) of the plain version
+   and at most 1% of them not bit-equal; K3, K4, K5/K6, K7 and the
+   local-rows K2 each raise TypeError on bf16 CUDA tensors, launching
+   nothing and calling no plain version.
 3. FlowNet2 inference, seeded random weights, b8 384x512 fp32: warm-up,
    then 10 timed batches with CUDA events, with the launch counters set to
    0 just before and read just after (1 K1 and 3 K2 launches per forward,
    no plain-op call).  The output must be finite, (8, 384, 512, 2), agree
    with the same model run with the plain ops on the card, and agree on a
    small pair with the model run on the CPU, at rtol/atol 1e-3.
+3b. FlowNet2 bf16 inference (``get_model(..., dtype=torch.bfloat16)``), the
+   same weights and pairs: 10 timed batches counted as in phase 3 (1
+   correlation_fwd_bf16, 2 resample2d_fwd_bf16 and 1
+   resample2d_fwd_multi_bf16 launch per forward, nothing else, no plain-op
+   call); the output finite, (8, 384, 512, 2) and bf16, and within the JAX
+   package's bf16 contract (mean |d| < 0.05 (mean |ref| + 1e-3) + 5e-3) of
+   the plain-op bf16 model on the card, of the fp32 model and, on the small
+   pair, of the bf16 model on the CPU; under two row bands it raises
+   TypeError.  Printed beside: the host's time to enqueue a forward, the
+   model against itself with cuDNN's default algorithms, and against the
+   plain-op model with deterministic ones.  The bf16 model is then freed
+   (phase 7 builds it again), so that phase 4 runs beside the one fp32
+   model, as it did before.
 4. FlowNet2 training through StepFactory, b8 384x448 fp32, MultiScale,
    Adam 1e-4, seeded weights, random images x255 and flow x5: the first
    step's loss and every parameter's gradient against the plain-op model
@@ -66,16 +86,21 @@ Phases (any failure raises and the script exits non-zero):
    are finite and within 1e-4 of the plain-op model's.
 6. Each kernel's time, its plain version's time, the card's bound for the
    same work and, where one PyTorch call computes the same function, that
-   call's time, at the main-path shapes (K7 at one band of two), each beside
+   call's time, at the main-path shapes (K7 at one band of two; the bf16
+   forms' operations at the bf16 tensor-core rate, the bf16 K1's also at
+   the f32 rate its body sums at), each beside
    the SM clock; then the one-flow K2 and K4 and their library calls with a
    cold L2 cache (six input sets of 31-44 MB taken in turn).
-7. Where the device time goes: the phase 3 model and pair, 5 forwards, and
-   the phase 4 train step, 3 steps, under torch.profiler, the device time
-   summed by kernel family and the device's idle share of the profiled
-   window; the forward's convolution kernels by name, marked where one
-   forward with cudnn.deterministic does not run them.  Raises if no device
-   time is recorded.
-8. One JSON line listing the kernels; the last line is the result.
+7. Where the device time goes: the phase 3 model and pair, 5 forwards, the
+   phase 3b bf16 model, 5 forwards, and the phase 4 train step, 3 steps,
+   under torch.profiler, the device time summed by kernel family and the
+   device's idle share of the profiled window; the fp32 forward's
+   convolution kernels by name, marked where one forward with
+   cudnn.deterministic does not run them; the bf16 forward's convolution
+   and NCHW<->NHWC layout-conversion kernels by name with their launches.
+   Raises if no device time is recorded.
+8. The readings of phases 3 to 7 again, one JSON line listing the kernels;
+   the last line is the result.
 
 Uses one card, the first the environment lists.  Exits non-zero, printing
 no result, where no CUDA device is available or the package is not beside
@@ -116,6 +141,20 @@ FAMILIES = (
     ("convolution", CONV),
     ("other PyTorch kernels", re.compile(r".")),
 )
+# The bf16 forward's families: cuDNN's NCHW <-> NHWC layout conversions
+# (its bf16 kernels are NHWC; a channels_last model would not run them;
+# tensorTransformGeneric is its generic layout transform) and the copies,
+# the dtype casts of the parameters at each call among them, apart from
+# the rest.
+BF16_FAMILIES = (
+    ("correlation_fwd (K1 bf16)", re.compile(r"correlation_fwd")),
+    ("resample2d_fwd (K2 bf16)", re.compile(r"resample2d_fwd")),
+    ("layout conversions NCHW<->NHWC",
+     re.compile(r"nchwToNhwc|nhwcToNchw|tensorTransform", re.I)),
+    ("convolution", CONV),
+    ("copies and dtype casts", re.compile(r"copy", re.I)),
+    ("other PyTorch kernels", re.compile(r".")),
+)
 TRAIN_FAMILIES = (
     ("correlation_fwd (K1)", re.compile(r"correlation_fwd")),
     ("correlation_bwd (K5, K6)", re.compile(r"correlation_bwd")),
@@ -133,10 +172,11 @@ COLD_SETS = 6          # input sets a cold-cache timing takes in turn
 PROFILED_STEPS = 3
 
 # Published peaks: (memory bytes/s, float32 FLOP/s outside the tensor
-# cores), from NVIDIA's data sheets; the first name that the card's name
-# contains is taken.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12)}
+# cores, dense bf16 tensor-core FLOP/s), from NVIDIA's data sheets; the
+# first name that the card's name contains is taken.
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12),
+         "H100": (3.35e12, 67e12, 989e12)}
 
 DEVICE = "cuda"
 BATCH, HEIGHT, WIDTH = 8, 384, 512
@@ -148,6 +188,17 @@ ROUTE_ROUNDS = 1
 SHARDS = 2
 
 
+# The readings of the timed phases, printed where they are taken and again
+# before the kernels line, so that the end of the output carries them
+SUMMARY: list = []
+
+
+def note(line: str) -> None:
+    """Print ``line`` and keep it for the summary at the end."""
+    print(line)
+    SUMMARY.append(line)
+
+
 def card_peaks(name: str):
     for key, peaks in PEAKS.items():
         if key in name:
@@ -155,9 +206,14 @@ def card_peaks(name: str):
     raise RuntimeError(f"no published peaks for {name!r}")
 
 
-def bound_ms(nbytes: float, flops: float, peaks):
-    bw, f32 = peaks
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / f32 * 1e3
+def bound_ms(nbytes: float, flops: float, peaks,
+             tensor_cores: bool = False):
+    """The larger of the bytes' time at the memory rate and the operations'
+    at the float32 rate outside the tensor cores (or, with
+    ``tensor_cores``, at the dense bf16 tensor-core rate), and which."""
+    bw, f32, bf16_tc = peaks
+    t_bytes = nbytes / bw * 1e3
+    t_ops = flops / (bf16_tc if tensor_cores else f32) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -224,6 +280,52 @@ def max_err(got: torch.Tensor, want: torch.Tensor, rtol: float,
     return err
 
 
+def ulp_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """A bfloat16 kernel against its plain version: every element within
+    one bf16 ulp (rtol 2**-7, atol 1e-6 of the largest |want|) and at most
+    1% of the elements not bit-equal."""
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"{what}: {got.dtype} and {want.dtype}, not "
+                             "bfloat16")
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    flips = (got != want).float().mean().item()
+    atol = 1e-6 * w.abs().max().item()
+    print(f"  {what}: max abs diff {err:.3e}, not bit-equal {flips:.4%} "
+          f"(rtol 2^-7, atol {atol:.2e}; at most 1%)")
+    if got.shape != want.shape or not torch.allclose(
+            g, w, rtol=2.0 ** -7, atol=atol) or flips > 0.01:
+        raise AssertionError(f"{what}: bf16 kernel disagrees with its plain "
+                             "version")
+    return err
+
+
+def expect_type_error(what: str, fn) -> None:
+    """``fn`` must raise TypeError: a bfloat16 CUDA tensor on a path that
+    has no bfloat16 kernel."""
+    try:
+        fn()
+    except TypeError as e:
+        print(f"  {what}: TypeError ({str(e)[:110]})")
+        return
+    raise AssertionError(f"{what}: did not raise TypeError")
+
+
+def bf16_contract(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """The JAX package's bf16 contract (tests/test_models.py,
+    TestBf16Precision): mean |got - want| < 0.05 (mean |want| + 1e-3)
+    + 5e-3, with the relative L2 printed."""
+    g, w = got.double().cpu(), want.double().cpu()
+    err = (g - w).abs().mean().item()
+    limit = 0.05 * (w.abs().mean().item() + 1e-3) + 5e-3
+    rel = ((g - w).norm() / w.norm()).item()
+    note(f"  {what}: mean error {err:.4g} against {limit:.4g}, relative L2 "
+         f"{rel:.3e}")
+    if not (torch.isfinite(g).all() and err < limit):
+        raise AssertionError(f"{what}: outside the bf16 contract")
+
+
 def grad_errors(got: dict, want: dict):
     """(worst ratio of a tensor's max |difference| to its max |g|, that
     tensor's name, |all differences| / |all gradients| in L2)."""
@@ -251,9 +353,12 @@ def grads_close(got: dict, want: dict, tol: float, what: str,
                              f"{'per tensor' if per_tensor else 'in L2'}")
 
 
-def profile_families(run, n: int, families, smi: str, unit: str):
-    """Profile ``run()`` (n repetitions of the work) and print the device
-    time by kernel family and the idle share of the window."""
+def profile_families(run, n: int, families, smi: str, unit: str,
+                     say=print):
+    """Profile ``run()`` (n repetitions of the work) and print (by ``say``)
+    the device time by kernel family and the idle share of the window.
+    Returns each kernel's device microseconds and its launch count over the
+    window."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -262,28 +367,29 @@ def profile_families(run, n: int, families, smi: str, unit: str):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernel events only: their self device time is the kernel's own time
-    per_kernel = {}
+    per_kernel, counts = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
         # (a user annotation's device range spans the kernels inside it)
         if (us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(ev, "is_user_annotation", False)):
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
     busy_ms = sum(per_kernel.values()) / 1e3
     if busy_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
     totals = {name: 0.0 for name, _ in families}
     for key, us in per_kernel.items():
         totals[next(n for n, rx in families if rx.search(key))] += us / 1e3
-    print(f"  wall {wall_ms / n:.3f} ms/{unit}, device busy {busy_ms / n:.3f} "
-          f"ms/{unit}, idle share {1 - busy_ms / wall_ms:.4f}  [{smi}]")
+    say(f"  wall {wall_ms / n:.3f} ms/{unit}, device busy {busy_ms / n:.3f} "
+        f"ms/{unit}, idle share {1 - busy_ms / wall_ms:.4f}  [{smi}]")
     for name, fam_ms in sorted(totals.items(), key=lambda kv: -kv[1]):
-        print(f"  {name:38s} {fam_ms / n:9.3f} ms/{unit}  "
-              f"{fam_ms / busy_ms:7.2%}")
+        say(f"  {name:38s} {fam_ms / n:9.3f} ms/{unit}  "
+            f"{fam_ms / busy_ms:7.2%}")
     print("  top kernels:")
     for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3 / n:9.3f} ms/{unit}  {key[:100]}")
-    return per_kernel
+    return per_kernel, counts
 
 
 def main() -> int:
@@ -333,7 +439,8 @@ def main() -> int:
     peak_name, peaks = card_peaks(kind)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"peaks taken for {peak_name}: {peaks[0] / 1e12:g} TB/s, "
-          f"{peaks[1] / 1e12:g} TFLOP/s f32")
+          f"{peaks[1] / 1e12:g} TFLOP/s f32, {peaks[2] / 1e12:g} TFLOP/s "
+          "bf16 tensor cores")
     t0 = time.perf_counter()
     logs = _cuda.build()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -541,6 +648,65 @@ def main() -> int:
             print(f"  K2, K3, K4 on the bands of 2 and of 4, {what}: bit-equal "
                   "to the whole-image kernels' rows")
 
+        # the bf16 forms of K1 and K2 against their plain versions (which
+        # upcast, compute in f32 and round once), on inputs of their own
+        # generator: the other phases' inputs stay the ones they had
+        print("  bf16 kernels against their plain versions, one bf16 ulp")
+        bf16_gen = torch.Generator(device=dev).manual_seed(13)
+        for shape in ((BATCH, 256, HEIGHT // 8, WIDTH // 8), (4, 256, 48, 128),
+                      (2, 40, 20, 152), odd_shape):
+            f1, f2 = (randn(*shape, gen=bf16_gen).bfloat16() for _ in range(2))
+            errs.setdefault("correlation_fwd_bf16", []).append(ulp_err(
+                corr.correlation_cuda(f1, f2, *corr_args),
+                corr.correlation_plain(f1, f2, *corr_args),
+                f"K1 bf16 correlation {shape}"))
+        img16, ragged16 = img.bfloat16(), ragged_img.bfloat16()
+        for what, im, fl in (("one flow of +-8 px", img16, flow8),
+                             ("one flow of +-200 px", img16, flow200),
+                             ("one flow, (2, 3, 100, 150)", ragged16,
+                              ragged_flow)):
+            fl = fl.bfloat16()
+            errs.setdefault("resample2d_fwd_bf16", []).append(ulp_err(
+                r2d.resample2d_cuda(im, fl), r2d.resample2d_plain(im, fl),
+                f"K2 bf16 warp, {what}"))
+        ragged_flows = torch.stack(
+            [ragged_flow, randn(2, 2, 100, 150, gen=bf16_gen) * 200.0], dim=1)
+        for what, im, fl in (("two flows", img16, flows),
+                             ("two flows, (2, 3, 100, 150)", ragged16,
+                              ragged_flows)):
+            fl = fl.bfloat16()
+            errs.setdefault("resample2d_fwd_multi_bf16", []).append(ulp_err(
+                r2d.resample2d_multi_cuda(im, fl),
+                r2d.resample2d_multi_plain(im, fl), f"K2 bf16 warp, {what}"))
+
+        # no bf16 kernel yet: K3, K4, K5/K6, the row bands (K7 and the
+        # local-rows K2) raise on a bf16 CUDA tensor; none casts it
+        f1, f2 = (t.bfloat16() for t in (randn(*odd_shape, gen=bf16_gen),
+                                          randn(*odd_shape, gen=bf16_gen)))
+        g16 = randn(odd_shape[0], disp * disp, *odd_shape[2:],
+                    gen=bf16_gen).bfloat16()
+        t_img16, fl16 = t_img.bfloat16(), t_flows[:, :1].bfloat16()
+        g4 = torch.zeros((TRAIN_BATCH, 1, 3, TRAIN_HEIGHT, TRAIN_WIDTH),
+                         dtype=torch.bfloat16, device=dev)
+        ops.reset_counts()
+        for what, fn in (
+                ("K3 warp tangents", lambda: r2d.resample2d_tangents_cuda(
+                    t_img16, fl16)),
+                ("K4 warp flow gradient",
+                 lambda: r2d.resample2d_grad_flow_cuda(g4, t_img16, fl16)),
+                ("K5/K6 correlation backward",
+                 lambda: corr.correlation_bwd_cuda(g16, f1, f2, 20, 2)),
+                ("K7 row-band correlation", lambda: corr_sp.corr_slab_cuda(
+                    f1, F.pad(f2, (0, 0, 20, 20)).contiguous(), 20, 2)),
+                ("K2 local rows", lambda: r2d.resample2d_multi_cuda(
+                    t_img16, fl16[:, :, :, :TRAIN_HEIGHT // 2].contiguous(),
+                    TRAIN_HEIGHT // 2))):
+            expect_type_error(f"{what}, bf16", fn)
+        if ops.LAUNCHES or ops.PLAIN_CALLS:
+            raise AssertionError(f"a refused bf16 call launched or fell back: "
+                                 f"{dict(ops.LAUNCHES)}, "
+                                 f"{dict(ops.PLAIN_CALLS)}")
+
     # -- 3. FlowNet2 inference ----------------------------------------------
     print(f"phase 3: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, TF32 off")
     model = get_model("FlowNet2", device=DEVICE, seed=0)
@@ -574,8 +740,9 @@ def main() -> int:
                 or not torch.isfinite(flow).all():
             raise AssertionError(f"bad flow: {tuple(flow.shape)}, finite="
                                  f"{torch.isfinite(flow).all().item()}")
-        print(f"  {ms:.3f} ms/batch, {BATCH / ms * 1e3:.2f} frames/s, peak "
-              f"{peak_gib:.2f} GiB allocated  [{smi}]")
+        note(f"  phase 3, fp32 inference: {ms:.3f} ms/batch, "
+             f"{BATCH / ms * 1e3:.2f} frames/s, peak {peak_gib:.2f} GiB "
+             f"allocated  [{smi}]")
 
         flow = model(pairs[0])
         with plain_ops():
@@ -596,6 +763,94 @@ def main() -> int:
               f"{err_cpu:.3e}")
         if not torch.allclose(on_card, on_cpu, rtol=1e-3, atol=1e-3):
             raise AssertionError("card and CPU disagree on the small pair")
+
+    # -- 3b. FlowNet2 bf16 inference ------------------------------------------
+    print(f"phase 3b: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} bf16 (float32 "
+          "parameters, bf16 convolutions, glue and warps)")
+    model16 = get_model("FlowNet2", device=DEVICE, seed=0,
+                        dtype=torch.bfloat16)
+    with torch.inference_mode():
+        for pair in pairs:
+            model16(pair)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        ops.reset_counts()
+        start.record()
+        for i in range(TIMED_BATCHES):
+            flow16 = model16(pairs[i % 2])
+        end.record()
+        torch.cuda.synchronize()
+        launches16, plain16 = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        ms16 = start.elapsed_time(end) / TIMED_BATCHES
+        peak16_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {"correlation_fwd_bf16": TIMED_BATCHES,
+                "resample2d_fwd_bf16": 2 * TIMED_BATCHES,
+                "resample2d_fwd_multi_bf16": TIMED_BATCHES}
+        print(f"  launches over {TIMED_BATCHES} forwards: {launches16}; "
+              f"plain-op calls: {plain16}")
+        if launches16 != want or plain16:
+            raise AssertionError(f"bf16 path launches {launches16} / plain "
+                                 f"calls {plain16}; expected {want} / {{}}")
+        if flow16.shape != (BATCH, HEIGHT, WIDTH, 2) \
+                or flow16.dtype != torch.bfloat16 \
+                or not torch.isfinite(flow16).all():
+            raise AssertionError(f"bad bf16 flow: {tuple(flow16.shape)} "
+                                 f"{flow16.dtype}, finite="
+                                 f"{torch.isfinite(flow16).all().item()}")
+        note(f"  phase 3b, bf16 inference: {ms16:.3f} ms/batch, "
+             f"{BATCH / ms16 * 1e3:.2f} frames/s, peak {peak16_gib:.2f} GiB "
+             f"allocated; launches over {TIMED_BATCHES} forwards "
+             f"{launches16}  [{smi}]")
+
+        # how far the host holds the card back: the host's time to enqueue
+        # a forward against the card's time for one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TIMED_BATCHES):
+            model16(pairs[i % 2])
+        host_ms = (time.perf_counter() - t0) * 1e3 / TIMED_BATCHES
+        torch.cuda.synchronize()
+        note(f"  the host enqueues a bf16 forward in {host_ms:.3f} ms, the "
+             f"card runs one in {ms16:.3f} ms (CUDA events above)")
+
+        flow16 = model16(pairs[0])
+        with plain_ops():
+            bf16_contract(flow16, model16(pairs[0]),
+                          "against the plain-op bf16 model on the card")
+        def rel_l2(a, b):
+            return ((a - b).float().norm() / b.float().norm()).item()
+
+        # what of that is the kernels' and what cuDNN's: the model against
+        # itself with cuDNN's default algorithms, and the two with
+        # deterministic ones
+        again = model16(pairs[0])
+        print(f"  the bf16 model against itself, cuDNN's defaults: relative "
+              f"L2 {rel_l2(again, flow16):.3e}")
+        torch.backends.cudnn.deterministic = True
+        again = model16(pairs[0])
+        with plain_ops():
+            plain_again = model16(pairs[0])
+        torch.backends.cudnn.deterministic = False
+        print(f"  against the plain-op bf16 model, cuDNN deterministic: "
+              f"relative L2 {rel_l2(again, plain_again):.3e}, not bit-equal "
+              f"{(again != plain_again).float().mean().item():.4%}")
+        del again, plain_again
+        bf16_contract(flow16, model(pairs[0]),
+                      "against the fp32 model of the same weights")
+        small16 = model16(small)
+        bf16_contract(small16, get_model(
+            "FlowNet2", device="cpu", seed=0, dtype=torch.bfloat16)(
+                small.cpu()), "small pair against the bf16 model on the CPU")
+        # the row bands have no bf16 kernels yet: the model raises
+        with sharding_hints.scoped_spatial_shards(SHARDS):
+            expect_type_error(f"bf16 model under {SHARDS} row bands",
+                              lambda: model16(pairs[0]))
+        del flow16, small16
+    # phase 4 runs as it did before phase 3b: no second model beside it
+    del model16
+    torch.cuda.empty_cache()
 
     # -- 4. FlowNet2 training -------------------------------------------------
     print(f"phase 4: FlowNet2 train step b{TRAIN_BATCH} {TRAIN_HEIGHT}x"
@@ -732,9 +987,9 @@ def main() -> int:
     for route in ROUTES:
         times = route_ms[route]
         mean = sum(times) / len(times)
-        print(f"  {route} route: {mean:.3f} ms/step "
-              f"({', '.join(f'{t:.3f}' for t in times)}), "
-              f"{TRAIN_BATCH / mean * 1e3:.2f} frames/s  [{smi}]")
+        note(f"  phase 4, {route} route: {mean:.3f} ms/step "
+             f"({', '.join(f'{t:.3f}' for t in times)}), "
+             f"{TRAIN_BATCH / mean * 1e3:.2f} frames/s  [{smi}]")
     print(f"  last loss {metrics[-1]['loss'].item():.6f}, EPE "
           f"{metrics[-1]['epe'].item():.6f}; peak {peak_train_gib:.2f} GiB "
           f"allocated")
@@ -1016,20 +1271,57 @@ def main() -> int:
                          4 * sum(t.numel() for t in sizes),
                          corr_flops(b, c, h, w, slab=True)))
 
+        # the bf16 forms at the bf16 path's shapes, 2 bytes a value; the
+        # operations at the card's rate for bf16 (its tensor cores), the
+        # correlation's also at the f32 rate that its body, which upcasts and
+        # sums in f32, can reach (bound_ms_f32_body).  No library
+        # call: F.grid_sample wants its grid in the image's dtype, and a bf16
+        # grid moves the sample point 2-4 px at 512 columns
+        b, c, h, w = BATCH, 256, HEIGHT // 8, WIDTH // 8
+        f1_16 = randn(b, c, h, w).bfloat16()
+        f2_16 = randn(b, c, h, w).bfloat16()
+        rows.append(("correlation_fwd_bf16", "correlation_pallas.py:83",
+                     "correlation_fwd.cu",
+                     lambda: corr.correlation_cuda(f1_16, f2_16, *corr_args),
+                     lambda: corr.correlation_plain(f1_16, f2_16, *corr_args),
+                     None, k1_bytes // 2, k1_flops))
+        b, h, w, ch = BATCH, HEIGHT, WIDTH, 3
+        img16, flow16, flows16 = (t.bfloat16() for t in (img, flow8, flows))
+        for name, nflows, fn, plain in (
+                ("resample2d_fwd_bf16", 1,
+                 lambda: r2d.resample2d_cuda(img16, flow16),
+                 lambda: r2d.resample2d_plain(img16, flow16)),
+                ("resample2d_fwd_multi_bf16", 2,
+                 lambda: r2d.resample2d_multi_cuda(img16, flows16),
+                 lambda: r2d.resample2d_multi_plain(img16, flows16))):
+            rows.append((name, "resample2d_pallas.py:239", "resample2d_fwd.cu",
+                         fn, plain, None,
+                         2 * b * h * w * (ch + nflows * (2 + ch)),
+                         b * nflows * h * w * (10 + 7 * ch)))
+
         kernels = []
         for name, replaces, src, fn, plain, lib, nbytes, flops in rows:
             k_ms = time_ms(fn, 50, head_start=True)
             p_ms = time_ms(plain, 5)
             l_ms = (time_ms(lib, 50, head_start=True) if lib is not None
                     else None)
-            b_ms, b_by = bound_ms(nbytes, flops, peaks)
-            print(f"  {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-                  f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
-                  f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-                  f"{flops / 1e9:.3f} GFLOP)  [{smi}; SM clock, max: "
-                  f"{sm_clock()}]")
+            bf16 = name.endswith("_bf16")
+            b_ms, b_by = bound_ms(nbytes, flops, peaks, tensor_cores=bf16)
+            say = note if bf16 else print
+            say(f"  {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
+                f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.3f} GFLOP)  [{smi}; SM clock, max: "
+                f"{sm_clock()}]")
+            extra = {}
+            if name == "correlation_fwd_bf16":
+                extra["bound_ms_f32_body"] = bound_ms(nbytes, flops, peaks)[0]
+                say(f"  {name}: bound at the f32 rate of its body "
+                    f"{extra['bound_ms_f32_body']:.4f} ms")
             if name in launches:      # over the phase 3 forwards
                 count = launches[name]
+            elif name in launches16:  # over the phase 3b forwards
+                count = launches16[name]
             elif name == "correlation_fwd_rows":   # over the phase 5 forwards
                 count = band_fwd_launches[name]
             elif name.endswith("_rows"):           # per phase 5 train step
@@ -1048,7 +1340,7 @@ def main() -> int:
                 "replaces": f"flownet2_tpu/ops/{replaces}",
                 "launches": count, "max_abs_err": max(errs[name]),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": l_ms})
+                "bound_by": b_by, "library_ms": l_ms, **extra})
         del sampled, grid_leaf
 
         # cold L2: the one-flow K2 and K4 and their library calls, each call
@@ -1098,7 +1390,7 @@ def main() -> int:
                 model(pairs[0])
 
         by_kernel = profile_families(forwards, PROFILED_FORWARDS, FAMILIES,
-                                     smi, "batch")
+                                     smi, "batch")[0]
         # which convolution kernels cuDNN's default algorithms run, and which
         # of them a deterministic cuDNN does not (the one forward that
         # differs from run to run, phase 5)
@@ -1119,6 +1411,32 @@ def main() -> int:
         for key in sorted(deterministic - set(by_kernel)):
             if CONV.search(key):
                 print(f"    only with cudnn.deterministic: {key[:160]}")
+    note(f"  phase 7, FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} bf16, "
+         f"{PROFILED_FORWARDS} forwards under torch.profiler")
+    model16 = get_model("FlowNet2", device=DEVICE, seed=0,
+                        dtype=torch.bfloat16)
+    with torch.inference_mode():
+        model16(pairs[0])
+
+        def forwards16():
+            for _ in range(PROFILED_FORWARDS):
+                model16(pairs[0])
+
+        by_kernel16, counts16 = profile_families(
+            forwards16, PROFILED_FORWARDS, BF16_FAMILIES, smi, "batch",
+            say=note)
+    layout = BF16_FAMILIES[2][1]
+    n_layout = sum(n for key, n in counts16.items()
+                   if layout.search(key)) / PROFILED_FORWARDS
+    note(f"  phase 7, bf16 forward: {n_layout:g} layout-conversion launches "
+         "a forward")
+    print("  the "
+          "convolution and layout-conversion kernels of the bf16 forward "
+          "(launches a forward):")
+    for key, us in sorted(by_kernel16.items(), key=lambda kv: -kv[1]):
+        if layout.search(key) or CONV.search(key):
+            print(f"    {us / 1e3 / PROFILED_FORWARDS:9.3f} ms/batch "
+                  f"{counts16[key] / PROFILED_FORWARDS:6g}x  {key[:150]}")
     print(f"  FlowNet2 train step b{TRAIN_BATCH} {TRAIN_HEIGHT}x{TRAIN_WIDTH}, "
           f"{PROFILED_STEPS} steps under torch.profiler "
           f"({stage_glue.TRAIN_WARP} route)")
@@ -1131,6 +1449,9 @@ def main() -> int:
     profile_families(steps, PROFILED_STEPS, TRAIN_FAMILIES, smi, "step")
 
     # -- 8. result ------------------------------------------------------------
+    print("summary of the timed phases:")
+    for line in SUMMARY:
+        print(line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

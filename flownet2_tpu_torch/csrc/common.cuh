@@ -5,6 +5,7 @@
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 extern "C" const char* fnet_error_string(int err) {
@@ -47,6 +48,30 @@ static __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// Element types.  A kernel templated on its element type T loads with
+// fnet_load (bfloat16 upcast exactly to float) and stores with fnet_store
+// (float rounded to bfloat16 to nearest, ties to even, as torch's
+// .to(torch.bfloat16) and JAX's astype round; never truncated).  For float
+// both are the plain load and store, so a float instantiation compiles to
+// the code it had before it was a template.
+static __device__ __forceinline__ float fnet_load(
+    const float* __restrict__ p) {
+  return *p;
+}
+
+static __device__ __forceinline__ float fnet_load(
+    const __nv_bfloat16* __restrict__ p) {
+  return __bfloat162float(*p);
+}
+
+static __device__ __forceinline__ void fnet_store(float* p, float v) {
+  *p = v;
+}
+
+static __device__ __forceinline__ void fnet_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // The bilinear warp's sample point for output pixel p = r*W + x of one flow
 // over Ho rows (dx at flow[p], dy at flow[Ho*W + p]), as the JAX package's
 // ops/resample2d.py defines it: xf = x + dx, x0 = floor(xf), a = xf - x0
@@ -65,13 +90,15 @@ struct FnetBilinear {
   int64_t tl, tr, bl, br;    // corner offsets in an H x W plane
 };
 
+// A bfloat16 flow is upcast to float before it joins the coordinates.
+template <typename TF = float>
 static __device__ __forceinline__ FnetBilinear fnet_bilinear(
-    const float* __restrict__ flow, int64_t p, int H, int W, int Ho, int off) {
+    const TF* __restrict__ flow, int64_t p, int H, int W, int Ho, int off) {
   const int64_t plane = static_cast<int64_t>(Ho) * W;
   const int x = static_cast<int>(p % W);
   const int y = static_cast<int>(p / W) + off;
-  const float xf = static_cast<float>(x) + flow[p];
-  const float yf = static_cast<float>(y) + flow[plane + p];
+  const float xf = static_cast<float>(x) + fnet_load(flow + p);
+  const float yf = static_cast<float>(y) + fnet_load(flow + plane + p);
   const float x0 = floorf(xf);
   const float y0 = floorf(yf);
   const int xi = static_cast<int>(fminf(fmaxf(x0, -1.f), static_cast<float>(W)));

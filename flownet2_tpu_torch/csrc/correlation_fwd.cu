@@ -35,6 +35,16 @@
 // A tensor-core form (the TPU kernel fed bf16 to its matrix unit) belongs to
 // a bf16 model.
 //
+// bfloat16 f1 and f2 (entry point correlation_fwd_bf16, the bf16 model's K1)
+// run the general body below for every (maxd, s2), FlowNetC's included:
+// the operands are upcast exactly as they are staged into the float shared
+// tiles, the float sums are those of the float body, and out is rounded
+// once to bfloat16 after the division by C (the TPU kernel accumulates in
+// f32 and returns (out / C) in f1's dtype, correlation_pallas.py:643-664).
+// At 2 bytes a value FlowNetC's shape moves ~47 MB; its bound stays the FMA
+// one, and a tensor-core band matmul on the bf16 operands is the Hopper form
+// of the TPU design for it, not written yet.
+//
 // Bound on an H100 SXM at FlowNetC's shape (B 8, C 256, H 48, W 64,
 // maxd 20, s2 2 -> 441 channels): 5.55 GFLOP of f32 multiply-adds against
 // ~94 MB moved, so the FMA rate (~67 TFLOP/s, ~83 us) bounds it, not the
@@ -359,11 +369,14 @@ constexpr int kGenThreads = kTileW * kGenGroups;   // 256
 constexpr int kGenShifts = 8;                  // sums per thread and pass
 constexpr int kGenChunkC = 32;                 // channels staged per step
 
-template <bool kSlab>
+// T is the operands' and the output's element type: bfloat16 operands are
+// upcast exactly while they are staged, the sums are the float ones, and
+// the output is rounded once (fnet_load, fnet_store in common.cuh).
+template <typename T, bool kSlab>
 __global__ void __launch_bounds__(kGenThreads)
-correlation_fwd_general_kernel(const float* __restrict__ f1,
-                               const float* __restrict__ f2,
-                               float* __restrict__ out, int C, int H, int W,
+correlation_fwd_general_kernel(const T* __restrict__ f1,
+                               const T* __restrict__ f2,
+                               T* __restrict__ out, int C, int H, int W,
                                int maxd, int s2, int D) {
   extern __shared__ float smem[];
   const int H2 = kSlab ? H + 2 * maxd : H;   // rows of the second operand
@@ -384,21 +397,22 @@ correlation_fwd_general_kernel(const float* __restrict__ f1,
 
   const int64_t plane = static_cast<int64_t>(H) * W;
   const int64_t plane2 = static_cast<int64_t>(H2) * W;
-  float* out_row = out + static_cast<int64_t>(b) * D * D * plane +
+  T* out_row = out + static_cast<int64_t>(b) * D * D * plane +
                    static_cast<int64_t>(tj) * D * plane +
                    static_cast<int64_t>(y) * W;
 
   if (y2 < 0 || y2 >= H2) {
     if (x < W) {
-      for (int ti = g; ti < D; ti += kGenGroups) out_row[ti * plane + x] = 0.f;
+      for (int ti = g; ti < D; ti += kGenGroups)
+        fnet_store(out_row + ti * plane + x, 0.f);
     }
     return;
   }
 
-  const float* f1_row = f1 + static_cast<int64_t>(b) * C * plane +
-                        static_cast<int64_t>(y) * W;
-  const float* f2_row = f2 + static_cast<int64_t>(b) * C * plane2 +
-                        static_cast<int64_t>(y2) * W;
+  const T* f1_row = f1 + static_cast<int64_t>(b) * C * plane +
+                    static_cast<int64_t>(y) * W;
+  const T* f2_row = f2 + static_cast<int64_t>(b) * C * plane2 +
+                    static_cast<int64_t>(y2) * W;
   const int xs = x0 - maxd;            // first f2 column of the span
   // f2 column of (x, ti) is x + (ti - r)*s2, at span offset
   // tx + ti*s2 + (maxd - r*s2).
@@ -415,14 +429,16 @@ correlation_fwd_general_kernel(const float* __restrict__ f1,
         const int c = i / kTileW;
         const int col = x0 + i % kTileW;
         f1s[i] = (c < nc && col < W)
-                     ? f1_row[static_cast<int64_t>(c0 + c) * plane + col]
+                     ? fnet_load(f1_row + static_cast<int64_t>(c0 + c) * plane
+                                 + col)
                      : 0.f;
       }
       for (int i = threadIdx.x; i < kGenChunkC * span; i += kGenThreads) {
         const int c = i / span;
         const int col = xs + i % span;
         f2s[i] = (c < nc && col >= 0 && col < W)
-                     ? f2_row[static_cast<int64_t>(c0 + c) * plane2 + col]
+                     ? fnet_load(f2_row + static_cast<int64_t>(c0 + c) * plane2
+                                 + col)
                      : 0.f;
       }
       __syncthreads();
@@ -442,28 +458,29 @@ correlation_fwd_general_kernel(const float* __restrict__ f1,
 #pragma unroll
       for (int k = 0; k < kGenShifts; ++k) {
         const int ti = ti0 + g + k * kGenGroups;
-        if (ti < D) out_row[ti * plane + x] = acc[k] / static_cast<float>(C);
+        if (ti < D)
+          fnet_store(out_row + ti * plane + x, acc[k] / static_cast<float>(C));
       }
     }
   }
 }
 
-template <bool kSlab>
-int launch_general(const float* f1, const float* f2, float* out, int B, int C,
-                   int H, int W, int maxd, int s2, cudaStream_t stream) {
+template <typename T, bool kSlab>
+int launch_general(const T* f1, const T* f2, T* out, int B, int C, int H,
+                   int W, int maxd, int s2, cudaStream_t stream) {
   const int D = 2 * (maxd / s2) + 1;
   const int tiles = (W + kTileW - 1) / kTileW;
   const size_t smem = sizeof(float) * kGenChunkC * (2 * kTileW + 2 * maxd);
   if (smem > 48 * 1024) {
     const int err = static_cast<int>(cudaFuncSetAttribute(
-        correlation_fwd_general_kernel<kSlab>,
+        correlation_fwd_general_kernel<T, kSlab>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem)));
     if (err) return err;
   }
   const dim3 grid(tiles * D, H, B);
-  correlation_fwd_general_kernel<kSlab><<<grid, kGenThreads, smem, stream>>>(
-      f1, f2, out, C, H, W, maxd, s2, D);
+  correlation_fwd_general_kernel<T, kSlab>
+      <<<grid, kGenThreads, smem, stream>>>(f1, f2, out, C, H, W, maxd, s2, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,7 +494,7 @@ int launch(const float* f1, const float* f2, float* out, int B, int C, int H,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (maxd == kMaxd && s2 == kS2)
     return launch_tile<kSlab>(f1, f2, out, B, C, H, W, st);
-  return launch_general<kSlab>(f1, f2, out, B, C, H, W, maxd, s2, st);
+  return launch_general<float, kSlab>(f1, f2, out, B, C, H, W, maxd, s2, st);
 }
 
 }  // namespace
@@ -488,6 +505,21 @@ extern "C" int correlation_fwd(const float* f1, const float* f2, float* out,
                                int B, int C, int H, int W, int maxd, int s2,
                                int device, void* stream) {
   return launch<false>(f1, f2, out, B, C, H, W, maxd, s2, device, stream);
+}
+
+// K1 for bfloat16 f1 and f2, any (maxd, s2), on the general body: the float
+// sums of the upcast operands, divided by C and rounded once, so out is
+// (B, D*D, H, W) bfloat16.  The TPU kernel's bf16 form (correlation_pallas.py
+// :70 accepts bf16 and :664 returns (out / C) in f1's dtype).
+extern "C" int correlation_fwd_bf16(const __nv_bfloat16* f1,
+                                    const __nv_bfloat16* f2,
+                                    __nv_bfloat16* out, int B, int C, int H,
+                                    int W, int maxd, int s2, int device,
+                                    void* stream) {
+  const int err = fnet_set_device(device);
+  if (err) return err;
+  return launch_general<__nv_bfloat16, false>(
+      f1, f2, out, B, C, H, W, maxd, s2, static_cast<cudaStream_t>(stream));
 }
 
 // K7 forward.  f1: (B, C, Hloc, W); slab: (B, C, Hloc + 2*maxd, W); out:

@@ -1,4 +1,5 @@
-// K2: bilinear flow warp, forward, float32, for F flows over one image.
+// K2: bilinear flow warp, forward, float32 or bfloat16, for F flows over one
+// image.
 //
 // Replaces flownet2_tpu/ops/resample2d_pallas.py: _fwd_kernel, reached from
 // resample2d_bilinear_pallas (one flow) and resample2d_bilinear_pallas_multi
@@ -20,6 +21,14 @@
 // does ~10 flops per output value, so memory bounds it: ~50 MB moved for one
 // flow (~15 us at 3.35 TB/s), ~82 MB for two (~24 us).
 //
+// bfloat16 (entry point resample2d_fwd_bf16): the TPU kernel's bf16 form
+// (bf16 planes, pair-packed by _planes_pair_packed_bf16,
+// resample2d_pallas.py:359-372, chosen at :385-387).  Its values, not its
+// (L, R) lane packing: the flow is upcast to float for the coordinates, the
+// four corners are upcast after the gather, the weights and the lerp are
+// float, and the output is rounded once to bfloat16 (:239-259, :411).  At 2
+// bytes a value the one-flow warp moves ~25 MB, the two-flow ~41 MB.
+//
 // Design: one thread per output pixel computes the coordinates, weights and
 // the four clamped corner offsets once and loops over the channels.  Flow
 // reads and output writes are coalesced; the corner reads are gathers that
@@ -36,11 +45,13 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kRows>
+// T: the image's and the output's element type; TF: the flows'.  The
+// corners are upcast to float after the gather, the weights and the lerp are
+// float, and the output is rounded once at the store (fnet_load, fnet_store).
+template <typename T, typename TF, bool kRows>
 __global__ void __launch_bounds__(kThreads)
-resample2d_fwd_kernel(const float* __restrict__ img,
-                      const float* __restrict__ flows,
-                      float* __restrict__ out, int F, int C, int H, int W,
+resample2d_fwd_kernel(const T* __restrict__ img, const TF* __restrict__ flows,
+                      T* __restrict__ out, int F, int C, int H, int W,
                       int ho_arg, int off_arg) {
   // whole image: Ho = H and off = 0 folded in, the code the kernel had
   // before it took local rows
@@ -61,13 +72,28 @@ resample2d_fwd_kernel(const float* __restrict__ img,
   const float wBL = (1.f - s.a) * s.b;
   const float wBR = s.a * s.b;
 
-  const float* src = img + static_cast<int64_t>(b) * C * plane;
-  float* dst = out + static_cast<int64_t>(bf) * C * oplane + p;
+  const T* src = img + static_cast<int64_t>(b) * C * plane;
+  T* dst = out + static_cast<int64_t>(bf) * C * oplane + p;
   for (int c = 0; c < C; ++c) {
-    const float* i = src + c * plane;
-    dst[c * oplane] = wTL * i[s.tl] + wTR * i[s.tr] + wBL * i[s.bl] +
-                     wBR * i[s.br];
+    const T* i = src + c * plane;
+    fnet_store(dst + c * oplane,
+               wTL * fnet_load(i + s.tl) + wTR * fnet_load(i + s.tr) +
+                   wBL * fnet_load(i + s.bl) + wBR * fnet_load(i + s.br));
   }
+}
+
+template <typename T, typename TF, bool kRows>
+int launch(const T* img, const TF* flows, T* out, int B, int F, int C, int H,
+           int W, int Ho, int off, int device, void* stream) {
+  const int err = fnet_set_device(device);
+  if (err) return err;
+  const int64_t oplane = static_cast<int64_t>(Ho) * W;
+  const dim3 grid(static_cast<unsigned>((oplane + kThreads - 1) / kThreads),
+                  B * F);
+  resample2d_fwd_kernel<T, TF, kRows>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          img, flows, out, F, C, H, W, Ho, off);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -77,20 +103,24 @@ resample2d_fwd_kernel(const float* __restrict__ img,
 extern "C" int resample2d_fwd(const float* img, const float* flows, float* out,
                               int B, int F, int C, int H, int W, int Ho,
                               int off, int device, void* stream) {
-  const int err = fnet_set_device(device);
-  if (err) return err;
-  const int64_t oplane = static_cast<int64_t>(Ho) * W;
-  const dim3 grid(static_cast<unsigned>((oplane + kThreads - 1) / kThreads),
-                  B * F);
   // a whole-image call keeps the kernel with Ho = H and off = 0 folded in
-  if (Ho == H && off == 0) {
-    resample2d_fwd_kernel<false>
-        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            img, flows, out, F, C, H, W, Ho, off);
-  } else {
-    resample2d_fwd_kernel<true>
-        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            img, flows, out, F, C, H, W, Ho, off);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (Ho == H && off == 0)
+    return launch<float, float, false>(img, flows, out, B, F, C, H, W, Ho,
+                                       off, device, stream);
+  return launch<float, float, true>(img, flows, out, B, F, C, H, W, Ho, off,
+                                    device, stream);
+}
+
+// The same for a bfloat16 image, bfloat16 flows and a bfloat16 output: the
+// float warp of the upcast image by the upcast flows, rounded once.  Whole
+// image only (Ho = H, off = 0, else cudaErrorInvalidValue): the local-rows
+// form comes with the row bands in bfloat16.
+extern "C" int resample2d_fwd_bf16(const __nv_bfloat16* img,
+                                   const __nv_bfloat16* flows,
+                                   __nv_bfloat16* out, int B, int F, int C,
+                                   int H, int W, int Ho, int off, int device,
+                                   void* stream) {
+  if (Ho != H || off != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<__nv_bfloat16, __nv_bfloat16, false>(
+      img, flows, out, B, F, C, H, W, Ho, off, device, stream);
 }

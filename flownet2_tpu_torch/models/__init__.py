@@ -18,16 +18,20 @@ MODELS = {cls.__name__: cls for cls in (FlowNet2, FlowNet2C, FlowNet2S,
 
 
 def get_model(name: str, device: str | torch.device | None = None,
-              seed: int = 0, **kwargs) -> torch.nn.Module:
+              seed: int = 0, dtype: torch.dtype | None = None,
+              **kwargs) -> torch.nn.Module:
     """Build a registered model by name in eval mode on ``device`` (None:
     the CUDA device, which must exist), with the reference's init drawn
-    from a generator seeded with ``seed``."""
+    from a generator seeded with ``seed``.  ``dtype=torch.bfloat16`` is the
+    JAX package's bf16 model: float32 parameters, the frames cast once
+    after normalisation, bfloat16 convolutions, glue and warps, bfloat16
+    flow out (inference only; ``batch_norm=False``)."""
     try:
         cls = MODELS[name]
     except KeyError:
         raise KeyError(
             f"unknown model {name!r}; available: {sorted(MODELS)}") from None
     dev = resolve_device(device)
-    model = cls(**kwargs)
+    model = cls(dtype=dtype, **kwargs)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

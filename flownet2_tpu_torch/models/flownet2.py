@@ -17,6 +17,12 @@ wrappers return their last sub-net's multi-scale tuple ``(flow2, ...,
 flow6)``, each ``(B, h, w, 2)`` and unscaled, which ``losses.MultiScale``
 takes.  The single-net wrappers are their sub-net with a public forward,
 so their modules sit at the root under the reference's state_dict keys.
+
+``dtype=torch.bfloat16`` is the JAX package's bf16 model: ``normalize_pair``
+casts the frames once and everything after it runs in bf16
+(``nn.layers.set_compute_dtype`` makes the convolutions cast their float32
+parameters at each call), so the flow is bf16.  Inference only, without
+BatchNorm.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..nn.layers import compute_dtype, set_compute_dtype
 from ..ops.stage_glue import fusion_glue, stage_glue
 from ..ops.upsample import upsample_bilinear, upsample_nearest
 from .flownet_c import FlowNetC
@@ -31,12 +38,15 @@ from .flownet_s import FlowNetS
 from .flownet_sd import FlowNetFusion, FlowNetSD
 
 
-def normalize_pair(inputs: torch.Tensor, rgb_max: float):
+def normalize_pair(inputs: torch.Tensor, rgb_max: float,
+                   dtype: torch.dtype | None = None):
     """Reference input normalisation: subtract the pair's per-channel mean
-    and divide by ``rgb_max``.
+    and divide by ``rgb_max``, in float32.
 
     inputs: (B, 2, H, W, 3) RGB, H and W multiples of 64.
-    Returns (x1, x2), two (B, 3, H, W) float32 frames.
+    Returns (x1, x2), two (B, 3, H, W) frames, float32 or cast once to
+    ``dtype`` (the bf16 model's one cast: everything after it, the glue and
+    the warps included, runs in that dtype, as in the JAX package).
     """
     if inputs.dim() != 5 or inputs.shape[1] != 2 or inputs.shape[-1] != 3:
         raise ValueError(f"expected frame pairs shaped (B, 2, H, W, 3), got "
@@ -49,13 +59,15 @@ def normalize_pair(inputs: torch.Tensor, rgb_max: float):
     inputs = inputs.float()
     rgb_mean = inputs.mean(dim=(2, 3), keepdim=True).mean(dim=1, keepdim=True)
     x = (inputs - rgb_mean) / rgb_max
+    if dtype is not None:
+        x = x.to(dtype)
     return (x[:, 0].permute(0, 3, 1, 2).contiguous(),
             x[:, 1].permute(0, 3, 1, 2).contiguous())
 
 
 class FlowNet2(nn.Module):
     def __init__(self, batch_norm: bool = False, div_flow: float = 20.0,
-                 rgb_max: float = 255.0):
+                 rgb_max: float = 255.0, dtype: torch.dtype | None = None):
         super().__init__()
         self.div_flow = div_flow
         self.rgb_max = rgb_max
@@ -64,10 +76,11 @@ class FlowNet2(nn.Module):
         self.flownets_2 = FlowNetS(12, batch_norm)
         self.flownets_d = FlowNetSD(batch_norm)
         self.flownetfusion = FlowNetFusion(batch_norm)
+        set_compute_dtype(self, dtype)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         """inputs (B, 2, H, W, 3) -> flow (B, H, W, 2)."""
-        x1, x2 = normalize_pair(inputs, self.rgb_max)
+        x1, x2 = normalize_pair(inputs, self.rgb_max, compute_dtype(self))
         x = torch.cat([x1, x2], dim=1)
         div = self.div_flow
 
@@ -97,13 +110,14 @@ class FlowNet2C(FlowNetC):
     """FlowNetC on frame pairs."""
 
     def __init__(self, batch_norm: bool = False, div_flow: float = 20.0,
-                 rgb_max: float = 255.0):
+                 rgb_max: float = 255.0, dtype: torch.dtype | None = None):
         super().__init__(batch_norm)
         self.div_flow = div_flow
         self.rgb_max = rgb_max
+        set_compute_dtype(self, dtype)
 
     def forward(self, inputs: torch.Tensor):
-        x1, x2 = normalize_pair(inputs, self.rgb_max)
+        x1, x2 = normalize_pair(inputs, self.rgb_max, compute_dtype(self))
         return _wrapper_output(super().forward(x1, x2), self)
 
 
@@ -111,13 +125,15 @@ class FlowNet2S(FlowNetS):
     """FlowNetS on frame pairs (6 input channels)."""
 
     def __init__(self, batch_norm: bool = False, div_flow: float = 20.0,
-                 rgb_max: float = 255.0):
+                 rgb_max: float = 255.0, dtype: torch.dtype | None = None):
         super().__init__(6, batch_norm)
         self.div_flow = div_flow
         self.rgb_max = rgb_max
+        set_compute_dtype(self, dtype)
 
     def forward(self, inputs: torch.Tensor):
-        x = torch.cat(normalize_pair(inputs, self.rgb_max), dim=1)
+        x = torch.cat(normalize_pair(inputs, self.rgb_max,
+                                     compute_dtype(self)), dim=1)
         return _wrapper_output(super().forward(x), self)
 
 
@@ -126,13 +142,15 @@ class FlowNet2SD(FlowNetSD):
     branch inside FlowNet2 divides."""
 
     def __init__(self, batch_norm: bool = False, div_flow: float = 20.0,
-                 rgb_max: float = 255.0):
+                 rgb_max: float = 255.0, dtype: torch.dtype | None = None):
         super().__init__(batch_norm)
         self.div_flow = div_flow
         self.rgb_max = rgb_max
+        set_compute_dtype(self, dtype)
 
     def forward(self, inputs: torch.Tensor):
-        x = torch.cat(normalize_pair(inputs, self.rgb_max), dim=1)
+        x = torch.cat(normalize_pair(inputs, self.rgb_max,
+                                     compute_dtype(self)), dim=1)
         return _wrapper_output(super().forward(x), self)
 
 
@@ -140,15 +158,16 @@ class FlowNet2CS(nn.Module):
     """The C -> S1 cascade."""
 
     def __init__(self, batch_norm: bool = False, div_flow: float = 20.0,
-                 rgb_max: float = 255.0):
+                 rgb_max: float = 255.0, dtype: torch.dtype | None = None):
         super().__init__()
         self.div_flow = div_flow
         self.rgb_max = rgb_max
         self.flownetc = FlowNetC(batch_norm)
         self.flownets_1 = FlowNetS(12, batch_norm)
+        set_compute_dtype(self, dtype)
 
     def forward(self, inputs: torch.Tensor):
-        x1, x2 = normalize_pair(inputs, self.rgb_max)
+        x1, x2 = normalize_pair(inputs, self.rgb_max, compute_dtype(self))
         x = torch.cat([x1, x2], dim=1)
         div = self.div_flow
         flownetc_flow = upsample_bilinear(self.flownetc(x1, x2)[0] * div)
@@ -160,16 +179,17 @@ class FlowNet2CSS(nn.Module):
     """The C -> S1 -> S2 cascade; its last upsample is nearest."""
 
     def __init__(self, batch_norm: bool = False, div_flow: float = 20.0,
-                 rgb_max: float = 255.0):
+                 rgb_max: float = 255.0, dtype: torch.dtype | None = None):
         super().__init__()
         self.div_flow = div_flow
         self.rgb_max = rgb_max
         self.flownetc = FlowNetC(batch_norm)
         self.flownets_1 = FlowNetS(12, batch_norm)
         self.flownets_2 = FlowNetS(12, batch_norm)
+        set_compute_dtype(self, dtype)
 
     def forward(self, inputs: torch.Tensor):
-        x1, x2 = normalize_pair(inputs, self.rgb_max)
+        x1, x2 = normalize_pair(inputs, self.rgb_max, compute_dtype(self))
         x = torch.cat([x1, x2], dim=1)
         div = self.div_flow
         flownetc_flow = upsample_bilinear(self.flownetc(x1, x2)[0] * div)

@@ -149,13 +149,30 @@ def on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+def widened(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as float32 if it is bfloat16, else ``t`` itself: a plain
+    version computes a bfloat16 op in float32 and rounds once at the end,
+    as the bfloat16 kernels do."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def check_operand(op: str, name: str, t: torch.Tensor, ndim: int,
-                  device: torch.device) -> None:
+                  device: torch.device,
+                  dtypes: tuple = (torch.float32,)) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D CUDA tensor on
+    ``device`` of one of ``dtypes``, the element types the entry point
+    ``op`` has kernels for.  A tensor of another type is never cast: a
+    bfloat16 tensor where only float32 kernels exist raises ``TypeError``."""
     if t.device != device or device.type != "cuda":
         raise ValueError(f"{op}: {name} is on {t.device}, expected the CUDA "
                          f"device {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{op}: {name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        later = (" (the bfloat16 forms of the training kernels and of the "
+                 "row bands come with bf16 training, ROADMAP.md)"
+                 if t.dtype == torch.bfloat16 else "")
+        raise TypeError(f"{op}: {name} must be "
+                        f"{' or '.join(str(d) for d in dtypes)}, got "
+                        f"{t.dtype}{later}")
     if t.dim() != ndim:
         raise ValueError(f"{op}: {name} must be {ndim}-D, got "
                          f"{tuple(t.shape)}")

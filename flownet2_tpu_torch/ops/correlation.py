@@ -31,7 +31,8 @@ Other configurations run the plain forward under autograd (CPU only).
 
 Layout: NCHW in, ``(B, D*D, out_h, out_w)`` out.  A CPU tensor takes the
 plain versions; a CUDA tensor launches the kernels (K 1, s1 1,
-pad == maxd, float32) or raises.  With
+pad == maxd, float32; the forward also bfloat16, with a bfloat16 output)
+or raises.  With
 ``sharding_hints.spatial_shards() > 1`` that configuration runs as row
 bands against halo slabs of f2 (``ops/correlation_spatial.py``).
 """
@@ -52,7 +53,8 @@ from . import _cuda, sharding_hints
 # ``extern "C"`` signatures, so the two change together.
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _ENTRY_POINTS = {
-    "correlation_fwd": ("correlation_fwd", "correlation_fwd_rows"),
+    "correlation_fwd": ("correlation_fwd", "correlation_fwd_rows",
+                        "correlation_fwd_bf16"),
     "correlation_bwd": ("correlation_bwd_f1", "correlation_bwd_f2",
                         "correlation_bwd_f1_rows", "correlation_bwd_f2_rows"),
 }
@@ -76,8 +78,12 @@ def _kernel_config(pad_size, kernel_size, max_displacement, stride1,
 def correlation_plain(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
                       kernel_size: int = 1, max_displacement: int = 20,
                       stride1: int = 1, stride2: int = 2) -> torch.Tensor:
-    """The general shifts form, on any device."""
+    """The general shifts form, on any device.  bfloat16 operands are
+    upcast, multiplied and summed in float32, and the output is rounded
+    once to bfloat16, as the kernel and the JAX package do."""
     _cuda.PLAIN_CALLS["correlation"] += 1
+    dtype = f1.dtype
+    f1, f2 = _cuda.widened(f1), _cuda.widened(f2)
     channels, height, width = f1.shape[1:]
     d_rad = max_displacement // stride2
     k_rad = (kernel_size - 1) // 2
@@ -107,7 +113,7 @@ def correlation_plain(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
                     w2 = window(f2p, oy + tj * stride2, ox + ti * stride2)
                     acc = acc + torch.sum(w1 * w2, dim=1)
             outs.append(acc / nelems)
-    return torch.stack(outs, dim=1)
+    return torch.stack(outs, dim=1).to(dtype)
 
 
 def correlation_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
@@ -158,10 +164,12 @@ def _check_config(name, pad_size, kernel_size, max_displacement, stride1,
             f"s1={stride1}, s2={stride2})")
 
 
-def _check_features(name, f1, f2):
+def _check_features(name, f1, f2, dtypes=(torch.float32,)):
     device = f1.device
-    _cuda.check_operand(name, "f1", f1, 4, device)
-    _cuda.check_operand(name, "f2", f2, 4, device)
+    _cuda.check_operand(name, "f1", f1, 4, device, dtypes)
+    _cuda.check_operand(name, "f2", f2, 4, device, dtypes)
+    if f2.dtype != f1.dtype:
+        raise TypeError(f"{name}: f1 is {f1.dtype} and f2 {f2.dtype}")
     if f2.shape != f1.shape:
         raise ValueError(f"{name}: f1 {tuple(f1.shape)} and f2 "
                          f"{tuple(f2.shape)} differ")
@@ -185,12 +193,15 @@ def _launch(lib: str, name: str, tensors, f1: torch.Tensor,
 def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
                      kernel_size: int = 1, max_displacement: int = 20,
                      stride1: int = 1, stride2: int = 2) -> torch.Tensor:
-    """The CUDA cost volume (K1): K 1, s1 1, pad == maxd, float32, any
-    width."""
-    name = "correlation_fwd"
+    """The CUDA cost volume (K1): K 1, s1 1, pad == maxd, any width;
+    float32, or bfloat16 f1 and f2 with a bfloat16 output (entry point
+    ``correlation_fwd_bf16``)."""
+    name = ("correlation_fwd_bf16" if f1.dtype == torch.bfloat16
+            else "correlation_fwd")
     _check_config("correlation", pad_size, kernel_size, max_displacement,
                   stride1, stride2)
-    device = _check_features(name, f1, f2)
+    device = _check_features(name, f1, f2,
+                             (torch.float32, torch.bfloat16))
     batch, channels, height, width = f1.shape
     disp = 2 * (max_displacement // stride2) + 1
     out = torch.empty((batch, disp * disp, height, width),
@@ -206,7 +217,8 @@ def correlation_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
                          needs=(True, True)):
     """The CUDA gradient of the cost volume: d_f1 by K5 and d_f2 by K6
     (``csrc/correlation_bwd.cu``), each launched only where ``needs``
-    asks; float32, any width."""
+    asks; float32, any width (a bfloat16 operand raises ``TypeError``:
+    the bfloat16 backward comes with bf16 training)."""
     _check_config("correlation backward", max_displacement, 1,
                   max_displacement, 1, stride2)
     device = _check_features("correlation_bwd", f1, f2)

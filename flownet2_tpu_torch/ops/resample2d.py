@@ -39,7 +39,10 @@ when the image needs a gradient, which no model's warp does.  Nearest and
 K > 1 are differentiated by autograd through the plain version, on the CPU.
 
 A CPU tensor takes the plain PyTorch versions.  A CUDA tensor launches the
-kernels (bilinear, K=1, float32) or raises.  With
+kernels (bilinear, K=1, float32; K2 also for a bfloat16 image and flow
+over the whole image, with a bfloat16 output) or raises: a bfloat16 tensor
+where no bfloat16 kernel exists (K3, K4, the local rows) raises
+``TypeError``, it is never cast to run a float32 kernel.  With
 ``sharding_hints.spatial_shards() > 1`` the three differentiable entry
 points run as row bands (``ops/resample2d_spatial.py``).
 """
@@ -130,10 +133,12 @@ def resample2d_plain(img: torch.Tensor, flow: torch.Tensor,
                      kernel_size: int = 1, bilinear: bool = True,
                      off: int = 0) -> torch.Tensor:
     """The plain PyTorch warp; any device, any K, bilinear or nearest
-    (``off``: bilinear only)."""
+    (``off``: bilinear only).  A bfloat16 image and flow are upcast, warped
+    in float32 and rounded once, as the kernel and the JAX package do."""
     _cuda.PLAIN_CALLS["resample2d"] += 1
     if bilinear:
-        return _bilinear_plain(img, flow, kernel_size, off)
+        return _bilinear_plain(_cuda.widened(img), flow, kernel_size,
+                               off).to(img.dtype)
     if off:
         raise NotImplementedError("the nearest warp has no local-rows form")
     return _nearest_plain(img, flow)
@@ -141,10 +146,12 @@ def resample2d_plain(img: torch.Tensor, flow: torch.Tensor,
 
 def resample2d_multi_plain(img: torch.Tensor, flows: torch.Tensor,
                            off: int = 0) -> torch.Tensor:
-    """The plain PyTorch F-flow bilinear warp: (B, F, C, Ho, W)."""
+    """The plain PyTorch F-flow bilinear warp: (B, F, C, Ho, W), bfloat16
+    as ``resample2d_plain``."""
     _cuda.PLAIN_CALLS["resample2d_multi"] += 1
-    return torch.stack([_bilinear_plain(img, flows[:, f], 1, off)
-                        for f in range(flows.shape[1])], dim=1)
+    wide = _cuda.widened(img)
+    return torch.stack([_bilinear_plain(wide, flows[:, f], 1, off)
+                        for f in range(flows.shape[1])], dim=1).to(img.dtype)
 
 
 def resample2d_tangents_plain(img: torch.Tensor, flows: torch.Tensor,
@@ -203,14 +210,19 @@ def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
     return d_img.reshape(img.shape)
 
 
-def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor, off: int):
+def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor, off: int,
+                dtypes: tuple = (torch.float32,)):
     """The device, the kernels' integer arguments (B, F, C, H, W, Ho, off)
     and the output shape (B, F, C, Ho, W) of a warp of ``img`` (B, C, H, W)
     by ``flows`` (B, F, 2, Ho, W) whose rows are image rows
-    ``[off, off + Ho)``."""
+    ``[off, off + Ho)``; the image and the flows of one of ``dtypes``, both
+    of the same."""
     device = img.device
-    _cuda.check_operand(name, "img", img, 4, device)
-    _cuda.check_operand(name, "flows", flows, 5, device)
+    _cuda.check_operand(name, "img", img, 4, device, dtypes)
+    _cuda.check_operand(name, "flows", flows, 5, device, dtypes)
+    if flows.dtype != img.dtype:
+        raise TypeError(f"{name}: img is {img.dtype} and flows "
+                        f"{flows.dtype}")
     batch, channels, height, width = img.shape
     nflows, out_h = flows.shape[1], flows.shape[3]
     if flows.shape != (batch, nflows, 2, out_h, width):
@@ -227,12 +239,15 @@ def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor, off: int):
             (batch, nflows, channels, out_h, width))
 
 
-# The tensors each entry point takes (``csrc/<name>.cu`` defines the entry
-# point ``<name>``); B, F, C, H, W, Ho, off, the device index and the stream
-# follow.  The argument types and the ``extern "C"`` signatures change
-# together: ctypes checks neither.
+# The tensors each entry point of ``csrc/<lib>.cu`` takes; B, F, C, H, W,
+# Ho, off, the device index and the stream follow.  The argument types and
+# the ``extern "C"`` signatures change together: ctypes checks neither.
 _POINTERS = {"resample2d_fwd": 3, "resample2d_tangents": 5,
              "resample2d_grad_flow": 4}
+# lib -> the entry points it defines, with the same arguments
+_ENTRY_POINTS = {"resample2d_fwd": ("resample2d_fwd", "resample2d_fwd_bf16"),
+                 "resample2d_tangents": ("resample2d_tangents",),
+                 "resample2d_grad_flow": ("resample2d_grad_flow",)}
 
 
 def _argtypes(lib: str) -> list:
@@ -240,14 +255,16 @@ def _argtypes(lib: str) -> list:
             + [ctypes.c_void_p])
 
 
-def _launch(lib: str, name: str, pointers, dims, device) -> None:
-    """Run the C entry point ``lib`` of ``csrc/<lib>.cu`` on ``pointers``
-    (tensors) and ``dims`` (B, F, C, H, W, Ho, off) on the current stream,
-    and count the launch under ``name``."""
+def _launch(lib: str, name: str, pointers, dims, device,
+            entry: str | None = None) -> None:
+    """Run the C entry point ``entry`` (default ``lib``) of
+    ``csrc/<lib>.cu`` on ``pointers`` (tensors) and ``dims`` (B, F, C, H,
+    W, Ho, off) on the current stream, and count the launch under
+    ``name``."""
     if len(pointers) != _POINTERS[lib]:
         raise TypeError(f"{lib} takes {_POINTERS[lib]} tensors, got "
                         f"{len(pointers)}")
-    fn = _cuda.function(lib, lib, _argtypes(lib))
+    fn = _cuda.function(lib, entry or lib, _argtypes(lib))
     err = fn(*(t.data_ptr() for t in pointers), *dims, device.index,
              _cuda.stream_ptr(device))
     _cuda.LAUNCHES[name] += 1
@@ -255,18 +272,30 @@ def _launch(lib: str, name: str, pointers, dims, device) -> None:
 
 
 def _fwd_cuda(name: str, img: torch.Tensor, flows: torch.Tensor, off: int):
-    """Run K2 (csrc/resample2d_fwd.cu) over flows (B, F, 2, Ho, W)."""
-    device, dims, shape = _check_warp(name, img, flows, off)
+    """Run K2 (csrc/resample2d_fwd.cu) over flows (B, F, 2, Ho, W): float32,
+    or a bfloat16 image and bfloat16 flows over the whole image (entry point
+    ``resample2d_fwd_bf16``, counted under ``<name>_bf16``)."""
+    device, dims, shape = _check_warp(name, img, flows, off,
+                                      (torch.float32, torch.bfloat16))
+    entry = "resample2d_fwd"
+    if img.dtype == torch.bfloat16:
+        if off or flows.shape[3] != img.shape[2]:
+            raise TypeError(f"{name}: the bfloat16 warp covers the whole "
+                            "image; its local-rows form comes with the row "
+                            "bands in bf16 (bf16 training, ROADMAP.md)")
+        entry, name = "resample2d_fwd_bf16", f"{name}_bf16"
     out = torch.empty(shape, dtype=img.dtype, device=device)
     if out.numel():
-        _launch("resample2d_fwd", name, (img, flows, out), dims, device)
+        _launch("resample2d_fwd", name, (img, flows, out), dims, device,
+                entry)
     return out
 
 
 def resample2d_cuda(img: torch.Tensor, flow: torch.Tensor,
                     kernel_size: int = 1, bilinear: bool = True,
                     off: int = 0) -> torch.Tensor:
-    """The CUDA warp of one flow (K2); bilinear K=1 float32 only."""
+    """The CUDA warp of one flow (K2); bilinear K=1, float32 or a
+    bfloat16 image and flow."""
     if kernel_size != 1 or not bilinear:
         raise NotImplementedError(
             "resample2d on CUDA: the kernel covers bilinear, kernel_size=1 "

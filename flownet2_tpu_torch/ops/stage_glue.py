@@ -44,7 +44,10 @@ def stage_glue(x: torch.Tensor, x2: torch.Tensor, flow: torch.Tensor,
     """
     resampled = _warp(x2, flow.unsqueeze(1)).squeeze(1)
     norm = channel_norm(x[:, :3] - resampled)
-    return torch.cat([x, resampled, flow / div_flow, norm], dim=1)
+    # in the activations' dtype, as the JAX glue casts it: torch.cat would
+    # promote a bfloat16 concat with one float32 piece to float32
+    return torch.cat([x, resampled, (flow / div_flow).to(x.dtype), norm],
+                     dim=1)
 
 
 def fusion_glue(x1: torch.Tensor, x2: torch.Tensor, sd_flow: torch.Tensor,

@@ -17,6 +17,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..nn.layers import compute_dtype
 from .optim import Optimizer
 
 
@@ -52,7 +53,15 @@ class StepFactory:
 
     def train_step(self) -> Callable:
         """``(images (B, 2, H, W, 3), flow (B, H, W, 2)) -> {"loss",
-        "epe"}``, one optimizer step; the gradients stay in ``.grad``."""
+        "epe"}``, one optimizer step; the gradients stay in ``.grad``.
+        A bfloat16 model has no train step yet: it raises
+        ``NotImplementedError`` (its inference and eval steps serve)."""
+        dtype = compute_dtype(self.model)
+        if dtype not in (None, torch.float32):
+            raise NotImplementedError(
+                f"train_step on a {dtype} model: bf16 training (the bfloat16 "
+                "backward kernels and float32 master weights) is not ported "
+                "yet (ROADMAP.md); train the float32 model")
         return self._train_step
 
     def _metric_sums(self, pred, flow, n_valid: int):

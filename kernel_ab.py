@@ -8,14 +8,16 @@ the tag, the milliseconds per launch of K1 at (8, 256, 48, 64), of K7
 forward at one band of two, (8, 256, 24, 64) against its (8, 256, 64, 64)
 slab, of K5 and K6 at (8, 256, 48, 56), of K7 d_f1 and K7 d_slab at one
 band of two, (8, 441, 24, 56) against its (8, 256, 64, 56) slab, of the
-two-flow and the one-flow K2 at (8, 3, 384, 512) and of ``F.grid_sample``
+two-flow and the one-flow K2 at (8, 3, 384, 512), of ``F.grid_sample``
 on the one-flow K2's inputs (the library call that computes the same warp;
-timed here, used nowhere in the port), float32, CUDA events over 300
+timed here, used nowhere in the port), of the one-flow and the two-flow K3
+and K4 at (8, 3, 384, 448), float32, CUDA events over 300
 launches after 20 that the host queues while the card is kept busy (and,
 for the one-flow K2, also without that head start: a 0.04 ms kernel then
 reads as the wrapper's time on the host), the first 12 hex digits of the
-sha1 of the output bytes of K1, K7 forward, K5, K7 d_f1, K6 and K7 d_slab
-(the inputs come from a fixed seed, so two checkouts that print the same
+sha1 of the output bytes of K1, K7 forward, K5, K7 d_f1, K6, K7 d_slab,
+the one-flow and the two-flow K2, K3 (its three outputs) and K4 (the
+inputs come from a fixed seed, so two checkouts that print the same
 digest computed the same bits), the SM clock and its maximum as nvidia-smi
 reads them after the timings, and ptxas's register counts (none for
 libraries an earlier run in that checkout has built).
@@ -88,8 +90,11 @@ def main(root: str, tag: str) -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def digest(t):
-        return hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()[:12]
+    def digest(*ts):
+        h = hashlib.sha1()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:12]
 
     f1, f2 = randn(8, 256, 48, 64), randn(8, 256, 48, 64)
     sf1, slab = randn(8, 256, 24, 64), randn(8, 256, 64, 64)
@@ -104,6 +109,11 @@ def main(root: str, tag: str) -> int:
     ys = torch.arange(384, device=dev).view(1, -1, 1)
     grid = torch.stack([(xs + flow[:, 0]) * (2.0 / 511) - 1.0,
                         (ys + flow[:, 1]) * (2.0 / 383) - 1.0], dim=-1)
+    # the training shape of K3 and K4, drawn after every other input
+    t_img = randn(8, 3, 384, 448)
+    t_flows = randn(8, 2, 2, 384, 448) * 4.0
+    t_flow = t_flows[:, :1].contiguous()
+    t_g, t_g2 = randn(8, 1, 3, 384, 448), randn(8, 2, 3, 384, 448)
     times = {
         "K1": time_ms(lambda: corr.correlation_cuda(f1, f2)),
         "K7 fwd": time_ms(lambda: corr_sp.corr_slab_cuda(sf1, slab)),
@@ -123,6 +133,14 @@ def main(root: str, tag: str) -> int:
         "grid_sample, one flow": time_ms(lambda: F.grid_sample(
             img, grid, mode="bilinear", padding_mode="border",
             align_corners=True)),
+        "K3, one flow": time_ms(lambda: r2d.resample2d_tangents_cuda(
+            t_img, t_flow)),
+        "K3, two flows": time_ms(lambda: r2d.resample2d_tangents_cuda(
+            t_img, t_flows)),
+        "K4, one flow": time_ms(lambda: r2d.resample2d_grad_flow_cuda(
+            t_g, t_img, t_flow)),
+        "K4, two flows": time_ms(lambda: r2d.resample2d_grad_flow_cuda(
+            t_g2, t_img, t_flows)),
     }
     clock = sm_clock()
     digests = {"K1": digest(corr.correlation_cuda(f1, f2)),
@@ -134,7 +152,16 @@ def main(root: str, tag: str) -> int:
                "K6": digest(corr.correlation_bwd_cuda(
                    tg, tf1, tf2, needs=(False, True))[1]),
                "K7 d_slab": digest(corr_sp.corr_slab_bwd_cuda(
-                   bg, bf1, bslab, needs=(False, True))[1])}
+                   bg, bf1, bslab, needs=(False, True))[1]),
+               "K2": digest(r2d.resample2d_cuda(img, flow)),
+               "K2 two flows": digest(r2d.resample2d_multi_cuda(img, flows)),
+               "K3": digest(*r2d.resample2d_tangents_cuda(t_img, t_flow)),
+               "K3 two flows": digest(*r2d.resample2d_tangents_cuda(
+                   t_img, t_flows)),
+               "K4": digest(r2d.resample2d_grad_flow_cuda(t_g, t_img,
+                                                          t_flow)),
+               "K4 two flows": digest(r2d.resample2d_grad_flow_cuda(
+                   t_g2, t_img, t_flows))}
     print(tag, "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
           "| sha1:", ", ".join(f"{k} {v}" for k, v in digests.items()),
           "| SM clock, max:", clock,

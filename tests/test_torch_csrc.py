@@ -28,7 +28,8 @@ ENTRY = re.compile(r'extern\s+"C"\s+([\w\s]+?[\s*]+)(\w+)\s*\(([^)]*)\)')
 # entry point -> (source file stem, the argtypes its wrapper passes)
 WRAPPED = {name: (lib, corr._ARGTYPES)
            for lib, names in corr._ENTRY_POINTS.items() for name in names}
-WRAPPED.update({lib: (lib, r2d._argtypes(lib)) for lib in r2d._POINTERS})
+WRAPPED.update({name: (lib, r2d._argtypes(lib))
+                for lib, names in r2d._ENTRY_POINTS.items() for name in names})
 
 
 def _kind(param: str) -> str:

@@ -52,8 +52,9 @@ def test_importing_every_module_pulls_in_no_jax():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                             REPO / "kernel_ab.py"]
+    files = sorted(PACKAGE.rglob("*.py")) + [
+        REPO / name for name in ("chip_smoke.py", "kernel_ab.py",
+                                 "step_ab.py")]
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
