@@ -1,4 +1,5 @@
-// K5, K6 and K7 backward: the correlation cost volume's gradient, float32.
+// K5, K6 and K7 backward: the correlation cost volume's gradient, float32
+// (and, for K5 and K6, bfloat16).
 //
 // Replaces flownet2_tpu/ops/correlation_pallas.py: _bwd_f1_kernel and
 // _bwd_f1_kernel_wide (K5, d_f1) and _bwd_f2_kernel and _bwd_f2_kernel_wide
@@ -70,6 +71,20 @@
 //   written as coalesced rows.  A row shift that falls wholly outside the
 //   image is skipped (the whole block agrees, so the barriers stay
 //   uniform).
+//
+// bfloat16 g, f1 and f2 (entry points correlation_bwd_f1_bf16 and
+// correlation_bwd_f2_bf16, the bf16 model's K5 and K6) run the general
+// bodies for every (maxd, s2), FlowNetC's included: the operands are upcast
+// exactly as they are staged into the float shared tiles, each output is the
+// float fmaf chain of the float body in its order, and it is rounded once to
+// bfloat16 after the division by C.  The TPU kernels feed bf16 operands to
+// the matrix unit, sum in f32 and return f32 (correlation_pallas.py:541-602),
+// which the JAX package casts to f1's dtype (ops/correlation.py:296): the
+// same value, rounded once.  The tiled bodies stay float: their 16-byte
+// cp.async staging copies f32 rows as they lie and cannot upcast.  At 2
+// bytes a value FlowNet2's training shape moves ~41 MB a kernel; the bound
+// stays the FMA one.  Whole map only: K7's bf16 forms come with the row
+// bands in bf16.
 
 #include <cstdint>
 
@@ -670,12 +685,14 @@ constexpr int kPerThread = kChunkC / kGroups;
 // K5: d_f1.  Block (tile * chunks, y, b).  For row shift tj the f2 row (of
 // H2) is y + shift + (tj - r)*s2; column shift ti reads f2 at span offset
 // tx + ti*s2 + (maxd - r*s2), the span starting at column x0 - maxd.
-template <bool kSlab>
+// T is the element type of g, f2 and d_f1: bfloat16 operands are upcast
+// exactly while they are staged, the sums are the float ones, and d_f1 is
+// rounded once (fnet_load, fnet_store in common.cuh).
+template <typename T, bool kSlab>
 __global__ void __launch_bounds__(kThreads)
-correlation_bwd_f1_kernel(const float* __restrict__ g,
-                          const float* __restrict__ f2,
-                          float* __restrict__ d_f1, int C, int H, int W,
-                          int maxd, int s2, int D, int tiles) {
+correlation_bwd_f1_kernel(const T* __restrict__ g, const T* __restrict__ f2,
+                          T* __restrict__ d_f1, int C, int H, int W, int maxd,
+                          int s2, int D, int tiles) {
   extern __shared__ float smem[];
   const int H2 = kSlab ? H + 2 * maxd : H;   // rows of f2
   const int shift = kSlab ? maxd : 0;
@@ -696,9 +713,9 @@ correlation_bwd_f1_kernel(const float* __restrict__ g,
 
   const int64_t plane = static_cast<int64_t>(H) * W;
   const int64_t plane2 = static_cast<int64_t>(H2) * W;
-  const float* g_row = g + static_cast<int64_t>(b) * D * D * plane +
-                       static_cast<int64_t>(y) * W;
-  const float* f2_b = f2 + (static_cast<int64_t>(b) * C + c0) * plane2;
+  const T* g_row = g + static_cast<int64_t>(b) * D * D * plane +
+                   static_cast<int64_t>(y) * W;
+  const T* f2_b = f2 + (static_cast<int64_t>(b) * C + c0) * plane2;
 
   float acc[kPerThread];
 #pragma unroll
@@ -710,15 +727,18 @@ correlation_bwd_f1_kernel(const float* __restrict__ g,
     for (int i = threadIdx.x; i < D * kTileW; i += kThreads) {
       const int ti = i / kTileW;
       const int col = x0 + i % kTileW;
-      gs[i] = col < W ? g_row[static_cast<int64_t>(tj * D + ti) * plane + col]
+      gs[i] = col < W ? fnet_load(g_row +
+                                  static_cast<int64_t>(tj * D + ti) * plane +
+                                  col)
                       : 0.f;
     }
-    const float* f2_row = f2_b + static_cast<int64_t>(y2) * W;
+    const T* f2_row = f2_b + static_cast<int64_t>(y2) * W;
     for (int i = threadIdx.x; i < kChunkC * span; i += kThreads) {
       const int c = i / span;
       const int col = xs + i % span;
       f2s[i] = (c < nc && col >= 0 && col < W)
-                   ? f2_row[static_cast<int64_t>(c) * plane2 + col]
+                   ? fnet_load(f2_row + static_cast<int64_t>(c) * plane2 +
+                               col)
                    : 0.f;
     }
     __syncthreads();
@@ -735,12 +755,12 @@ correlation_bwd_f1_kernel(const float* __restrict__ g,
 
   const int x = x0 + tx;
   if (x < W) {
-    float* out = d_f1 + (static_cast<int64_t>(b) * C + c0) * plane +
-                 static_cast<int64_t>(y) * W + x;
+    T* out = d_f1 + (static_cast<int64_t>(b) * C + c0) * plane +
+             static_cast<int64_t>(y) * W + x;
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const int c = grp + k * kGroups;
-      if (c < nc) out[c * plane] = acc[k] / static_cast<float>(C);
+      if (c < nc) fnet_store(out + c * plane, acc[k] / static_cast<float>(C));
     }
   }
 }
@@ -749,13 +769,12 @@ correlation_bwd_f1_kernel(const float* __restrict__ g,
 // For row shift tj the source row (of H) is y = y2 - shift - (tj - r)*s2;
 // column shift ti reads g and f1 at source column
 // x2 - (ti - r)*s2, at span offset tx + (maxd + r*s2) - ti*s2, the span
-// starting at column x0 - maxd.
-template <bool kSlab>
+// starting at column x0 - maxd.  T as in K5's general body.
+template <typename T, bool kSlab>
 __global__ void __launch_bounds__(kThreads)
-correlation_bwd_f2_kernel(const float* __restrict__ g,
-                          const float* __restrict__ f1,
-                          float* __restrict__ d_f2, int C, int H, int W,
-                          int maxd, int s2, int D, int tiles) {
+correlation_bwd_f2_kernel(const T* __restrict__ g, const T* __restrict__ f1,
+                          T* __restrict__ d_f2, int C, int H, int W, int maxd,
+                          int s2, int D, int tiles) {
   extern __shared__ float smem[];
   const int H2 = kSlab ? H + 2 * maxd : H;   // rows of d_f2
   const int shift = kSlab ? maxd : 0;
@@ -775,8 +794,8 @@ correlation_bwd_f2_kernel(const float* __restrict__ g,
   const int xs = x0 - maxd;
 
   const int64_t plane = static_cast<int64_t>(H) * W;
-  const float* g_b = g + static_cast<int64_t>(b) * D * D * plane;
-  const float* f1_b = f1 + (static_cast<int64_t>(b) * C + c0) * plane;
+  const T* g_b = g + static_cast<int64_t>(b) * D * D * plane;
+  const T* f1_b = f1 + (static_cast<int64_t>(b) * C + c0) * plane;
 
   float acc[kPerThread];
 #pragma unroll
@@ -785,21 +804,21 @@ correlation_bwd_f2_kernel(const float* __restrict__ g,
   for (int tj = 0; tj < D; ++tj) {
     const int y = y2 - shift - (tj - r) * s2;
     if (y < 0 || y >= H) continue;
-    const float* g_row = g_b + static_cast<int64_t>(tj * D) * plane +
-                         static_cast<int64_t>(y) * W;
+    const T* g_row = g_b + static_cast<int64_t>(tj * D) * plane +
+                     static_cast<int64_t>(y) * W;
     for (int i = threadIdx.x; i < D * span; i += kThreads) {
       const int ti = i / span;
       const int col = xs + i % span;
       gs[i] = (col >= 0 && col < W)
-                  ? g_row[static_cast<int64_t>(ti) * plane + col]
+                  ? fnet_load(g_row + static_cast<int64_t>(ti) * plane + col)
                   : 0.f;
     }
-    const float* f1_row = f1_b + static_cast<int64_t>(y) * W;
+    const T* f1_row = f1_b + static_cast<int64_t>(y) * W;
     for (int i = threadIdx.x; i < kChunkC * span; i += kThreads) {
       const int c = i / span;
       const int col = xs + i % span;
       f1s[i] = (c < nc && col >= 0 && col < W)
-                   ? f1_row[static_cast<int64_t>(c) * plane + col]
+                   ? fnet_load(f1_row + static_cast<int64_t>(c) * plane + col)
                    : 0.f;
     }
     __syncthreads();
@@ -818,23 +837,26 @@ correlation_bwd_f2_kernel(const float* __restrict__ g,
   const int x2 = x0 + tx;
   if (x2 < W) {
     const int64_t plane2 = static_cast<int64_t>(H2) * W;
-    float* out = d_f2 + (static_cast<int64_t>(b) * C + c0) * plane2 +
-                 static_cast<int64_t>(y2) * W + x2;
+    T* out = d_f2 + (static_cast<int64_t>(b) * C + c0) * plane2 +
+             static_cast<int64_t>(y2) * W + x2;
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const int c = grp + k * kGroups;
-      if (c < nc) out[c * plane2] = acc[k] / static_cast<float>(C);
+      if (c < nc)
+        fnet_store(out + c * plane2, acc[k] / static_cast<float>(C));
     }
   }
 }
 
-using BwdKernel = void (*)(const float*, const float*, float*, int, int, int,
-                           int, int, int, int);
+template <typename T>
+using BwdKernel = void (*)(const T*, const T*, T*, int, int, int, int, int,
+                           int, int);
 
 // ``rows`` is the output's row count: H for d_f1, H2 for d_f2.
-int launch(BwdKernel kernel, size_t smem, const float* g, const float* src,
-           float* out, int B, int C, int H, int W, int rows, int maxd, int s2,
-           int device, void* stream) {
+template <typename T>
+int launch(BwdKernel<T> kernel, size_t smem, const T* g, const T* src, T* out,
+           int B, int C, int H, int W, int rows, int maxd, int s2, int device,
+           void* stream) {
   int err = fnet_set_device(device);
   if (err) return err;
   const int D = 2 * (maxd / s2) + 1;
@@ -873,8 +895,9 @@ int launch_f1(const float* g, const float* f2, float* d_f1, int B, int C,
     return tiled::launch<kSlab>(g, f2, d_f1, B, C, H, W,
                                 static_cast<cudaStream_t>(stream));
   }
-  return launch(correlation_bwd_f1_kernel<kSlab>, smem_f1(maxd, s2), g, f2,
-                d_f1, B, C, H, W, H, maxd, s2, device, stream);
+  return launch<float>(correlation_bwd_f1_kernel<float, kSlab>,
+                       smem_f1(maxd, s2), g, f2, d_f1, B, C, H, W, H, maxd,
+                       s2, device, stream);
 }
 
 // d_f2 (and d_slab, whose H2 = H + 2*maxd rows the grid covers): likewise.
@@ -887,9 +910,9 @@ int launch_f2(const float* g, const float* f1, float* d_f2, int B, int C,
     return tiled::launch_f2<kSlab>(g, f1, d_f2, B, C, H, W,
                                    static_cast<cudaStream_t>(stream));
   }
-  return launch(correlation_bwd_f2_kernel<kSlab>, smem_f2(maxd, s2), g, f1,
-                d_f2, B, C, H, W, kSlab ? H + 2 * maxd : H, maxd, s2, device,
-                stream);
+  return launch<float>(correlation_bwd_f2_kernel<float, kSlab>,
+                       smem_f2(maxd, s2), g, f1, d_f2, B, C, H, W,
+                       kSlab ? H + 2 * maxd : H, maxd, s2, device, stream);
 }
 
 }  // namespace
@@ -907,6 +930,30 @@ extern "C" int correlation_bwd_f2(const float* g, const float* f1, float* d_f2,
                                   int B, int C, int H, int W, int maxd, int s2,
                                   int device, void* stream) {
   return launch_f2<false>(g, f1, d_f2, B, C, H, W, maxd, s2, device, stream);
+}
+
+// K5 for bfloat16 g and f2, any (maxd, s2), on the general body: the float
+// sums of the upcast operands, divided by C and rounded once, so d_f1 is
+// (B, C, H, W) bfloat16.
+extern "C" int correlation_bwd_f1_bf16(const __nv_bfloat16* g,
+                                       const __nv_bfloat16* f2,
+                                       __nv_bfloat16* d_f1, int B, int C,
+                                       int H, int W, int maxd, int s2,
+                                       int device, void* stream) {
+  return launch<__nv_bfloat16>(
+      correlation_bwd_f1_kernel<__nv_bfloat16, false>, smem_f1(maxd, s2), g,
+      f2, d_f1, B, C, H, W, H, maxd, s2, device, stream);
+}
+
+// K6 for bfloat16 g and f1, likewise: d_f2 (B, C, H, W) bfloat16.
+extern "C" int correlation_bwd_f2_bf16(const __nv_bfloat16* g,
+                                       const __nv_bfloat16* f1,
+                                       __nv_bfloat16* d_f2, int B, int C,
+                                       int H, int W, int maxd, int s2,
+                                       int device, void* stream) {
+  return launch<__nv_bfloat16>(
+      correlation_bwd_f2_kernel<__nv_bfloat16, false>, smem_f2(maxd, s2), g,
+      f1, d_f2, B, C, H, W, H, maxd, s2, device, stream);
 }
 
 // K7 backward, d_f1.  g: (B, D*D, Hloc, W); slab: (B, C, Hloc + 2*maxd, W);

@@ -25,7 +25,8 @@ def get_model(name: str, device: str | torch.device | None = None,
     from a generator seeded with ``seed``.  ``dtype=torch.bfloat16`` is the
     JAX package's bf16 model: float32 parameters, the frames cast once
     after normalisation, bfloat16 convolutions, glue and warps, bfloat16
-    flow out (inference only; ``batch_norm=False``)."""
+    flow out; it serves inference and the train step alike
+    (``batch_norm=False``)."""
     try:
         cls = MODELS[name]
     except KeyError:

@@ -21,8 +21,10 @@ so their modules sit at the root under the reference's state_dict keys.
 ``dtype=torch.bfloat16`` is the JAX package's bf16 model: ``normalize_pair``
 casts the frames once and everything after it runs in bf16
 (``nn.layers.set_compute_dtype`` makes the convolutions cast their float32
-parameters at each call), so the flow is bf16.  Inference only, without
-BatchNorm.
+parameters at each call), so the flow is bf16, in the inference forward
+and in the training tuples alike.  It trains through
+``train.StepFactory``: the parameters stay float32 and their gradients
+come back float32 through the casts.  Without BatchNorm.
 """
 
 from __future__ import annotations

@@ -167,8 +167,8 @@ def check_operand(op: str, name: str, t: torch.Tensor, ndim: int,
         raise ValueError(f"{op}: {name} is on {t.device}, expected the CUDA "
                          f"device {device}")
     if t.dtype not in dtypes:
-        later = (" (the bfloat16 forms of the training kernels and of the "
-                 "row bands come with bf16 training, ROADMAP.md)"
+        later = (" (the bfloat16 forms of the row bands, K7 and the "
+                 "local-rows warps, are not ported yet, ROADMAP.md)"
                  if t.dtype == torch.bfloat16 else "")
         raise TypeError(f"{op}: {name} must be "
                         f"{' or '.join(str(d) for d in dtypes)}, got "

@@ -31,8 +31,7 @@ Other configurations run the plain forward under autograd (CPU only).
 
 Layout: NCHW in, ``(B, D*D, out_h, out_w)`` out.  A CPU tensor takes the
 plain versions; a CUDA tensor launches the kernels (K 1, s1 1,
-pad == maxd, float32; the forward also bfloat16, with a bfloat16 output)
-or raises.  With
+pad == maxd; float32, or bfloat16 with bfloat16 outputs) or raises.  With
 ``sharding_hints.spatial_shards() > 1`` that configuration runs as row
 bands against halo slabs of f2 (``ops/correlation_spatial.py``).
 """
@@ -56,7 +55,8 @@ _ENTRY_POINTS = {
     "correlation_fwd": ("correlation_fwd", "correlation_fwd_rows",
                         "correlation_fwd_bf16"),
     "correlation_bwd": ("correlation_bwd_f1", "correlation_bwd_f2",
-                        "correlation_bwd_f1_rows", "correlation_bwd_f2_rows"),
+                        "correlation_bwd_f1_rows", "correlation_bwd_f2_rows",
+                        "correlation_bwd_f1_bf16", "correlation_bwd_f2_bf16"),
 }
 _MAX_GRID_YZ = 65535
 
@@ -123,8 +123,13 @@ def correlation_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
     cotangent ``g`` (B, D*D, H, W), on any device; an input whose entry in
     ``needs`` is False gets None.  The explicit D*D-step loop of the JAX
     package's ``_corr_bwd``, accumulating in place: autograd of the
-    forward would keep D*D products of the inputs' size alive."""
+    forward would keep D*D products of the inputs' size alive.  bfloat16
+    g, f1 and f2 are upcast, summed in float32, divided by C and rounded
+    once to f1's dtype, as the JAX package's ``_corr_bwd`` and the
+    kernels do."""
     _cuda.PLAIN_CALLS["correlation_bwd"] += 1
+    dtype = f1.dtype
+    g, f1, f2 = (_cuda.widened(t) for t in (g, f1, f2))
     batch, channels, height, width = f1.shape
     maxd = max_displacement
     d_rad = maxd // stride2
@@ -149,8 +154,8 @@ def correlation_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
                 oy, ox = maxd - tj * stride2, maxd - ti * stride2
                 d_f2.addcmul_(gp[:, d:d + 1, oy:oy + height, ox:ox + width],
                               f1p[:, :, oy:oy + height, ox:ox + width])
-    return (None if d_f1 is None else d_f1 / channels,
-            None if d_f2 is None else d_f2 / channels)
+    return (None if d_f1 is None else (d_f1 / channels).to(dtype),
+            None if d_f2 is None else (d_f2 / channels).to(dtype))
 
 
 def _check_config(name, pad_size, kernel_size, max_displacement, stride1,
@@ -217,14 +222,21 @@ def correlation_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
                          needs=(True, True)):
     """The CUDA gradient of the cost volume: d_f1 by K5 and d_f2 by K6
     (``csrc/correlation_bwd.cu``), each launched only where ``needs``
-    asks; float32, any width (a bfloat16 operand raises ``TypeError``:
-    the bfloat16 backward comes with bf16 training)."""
+    asks; any width.  float32, or bfloat16 g, f1 and f2 with bfloat16
+    gradients (entry points ``correlation_bwd_f1_bf16`` and
+    ``correlation_bwd_f2_bf16``: the general bodies on the upcast
+    operands, float32 sums, one rounding)."""
     _check_config("correlation backward", max_displacement, 1,
                   max_displacement, 1, stride2)
-    device = _check_features("correlation_bwd", f1, f2)
+    dtypes = (torch.float32, torch.bfloat16)
+    device = _check_features("correlation_bwd", f1, f2, dtypes)
     batch, channels, height, width = f1.shape
     disp = 2 * (max_displacement // stride2) + 1
-    _cuda.check_operand("correlation_bwd", "g", g, 4, device)
+    _cuda.check_operand("correlation_bwd", "g", g, 4, device, dtypes)
+    if g.dtype != f1.dtype:
+        raise TypeError(f"correlation_bwd: g is {g.dtype} and f1 "
+                        f"{f1.dtype}")
+    suffix = "_bf16" if f1.dtype == torch.bfloat16 else ""
     if g.shape != (batch, disp * disp, height, width):
         raise ValueError(f"correlation_bwd: g {tuple(g.shape)} does not "
                          f"match f1 {tuple(f1.shape)} and D*D = "
@@ -237,7 +249,7 @@ def correlation_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
             continue
         out = torch.empty_like(f1)
         if out.numel():
-            _launch("correlation_bwd", name, (g, src, out), f1,
+            _launch("correlation_bwd", name + suffix, (g, src, out), f1,
                     max_displacement, stride2)
         grads.append(out)
     return tuple(grads)

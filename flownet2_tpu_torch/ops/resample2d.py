@@ -38,11 +38,17 @@ any device (the JAX package leaves it to an XLA scatter), computed only
 when the image needs a gradient, which no model's warp does.  Nearest and
 K > 1 are differentiated by autograd through the plain version, on the CPU.
 
+bfloat16, as the JAX package's Pallas kernels compute it: the image, the
+flow and the cotangent are upcast, the coordinates, weights and sums are
+float32, and each result is rounded once: the warp to the image's dtype,
+the flow gradient to the flow's; K3's tangents d1, d2 stay float32, and
+the tangent route's backward sums ``g * d1`` in float32 and rounds once.
+
 A CPU tensor takes the plain PyTorch versions.  A CUDA tensor launches the
-kernels (bilinear, K=1, float32; K2 also for a bfloat16 image and flow
-over the whole image, with a bfloat16 output) or raises: a bfloat16 tensor
-where no bfloat16 kernel exists (K3, K4, the local rows) raises
-``TypeError``, it is never cast to run a float32 kernel.  With
+kernels (bilinear, K=1; float32, or, over the whole image, a bfloat16
+image, flow and cotangent) or raises: a bfloat16 tensor where no bfloat16
+kernel exists (the local rows) raises ``TypeError``, it is never cast to
+run a float32 kernel.  With
 ``sharding_hints.spatial_shards() > 1`` the three differentiable entry
 points run as row bands (``ops/resample2d_spatial.py``).
 """
@@ -158,16 +164,18 @@ def resample2d_tangents_plain(img: torch.Tensor, flows: torch.Tensor,
                               off: int = 0):
     """The plain version of K3: the bilinear warp of one image (B, C, H, W)
     by F flows (B, F, 2, Ho, W) and its flow tangents d1 = d out/d dx,
-    d2 = d out/d dy, as ``(out, d1, d2)``, each (B, F, C, Ho, W)."""
+    d2 = d out/d dy, as ``(out, d1, d2)``, each (B, F, C, Ho, W): ``out``
+    in the image's dtype, d1 and d2 in float32 (the TPU kernel's)."""
     _cuda.PLAIN_CALLS[_per_flow("resample2d_tangents", flows.shape[1])] += 1
+    wide = _cuda.widened(img)
     outs, d1s, d2s = [], [], []
     for f in range(flows.shape[1]):
-        a, b, i_tl, i_tr, i_bl, i_br = _corners(img, flows[:, f], off)
+        a, b, i_tl, i_tr, i_bl, i_br = _corners(wide, flows[:, f], off)
         outs.append((1 - a) * (1 - b) * i_tl + a * (1 - b) * i_tr
                     + (1 - a) * b * i_bl + a * b * i_br)
         d1s.append((1 - b) * (i_tr - i_tl) + b * (i_br - i_bl))
         d2s.append((1 - a) * (i_bl - i_tl) + a * (i_br - i_tr))
-    return (torch.stack(outs, dim=1), torch.stack(d1s, dim=1),
+    return (torch.stack(outs, dim=1).to(img.dtype), torch.stack(d1s, dim=1),
             torch.stack(d2s, dim=1))
 
 
@@ -176,17 +184,19 @@ def resample2d_grad_flow_plain(g: torch.Tensor, img: torch.Tensor,
                                off: int = 0) -> torch.Tensor:
     """The plain version of K4: the flow gradient (B, F, 2, Ho, W) of the
     bilinear warp of ``img`` by ``flows`` for the cotangent ``g``
-    (B, F, C, Ho, W)."""
+    (B, F, C, Ho, W), in the flows' dtype (bfloat16: summed in float32 and
+    rounded once)."""
     _cuda.PLAIN_CALLS[_per_flow("resample2d_grad_flow", flows.shape[1])] += 1
+    g, wide = _cuda.widened(g), _cuda.widened(img)
     d_flows = []
     for f in range(flows.shape[1]):
-        a, b, i_tl, i_tr, i_bl, i_br = _corners(img, flows[:, f], off)
+        a, b, i_tl, i_tr, i_bl, i_br = _corners(wide, flows[:, f], off)
         gf = g[:, f]
         d_flows.append(torch.stack([
             torch.sum(gf * ((1 - b) * (i_tr - i_tl) + b * (i_br - i_bl)), 1),
             torch.sum(gf * ((1 - a) * (i_bl - i_tl) + a * (i_br - i_tr)), 1),
         ], dim=1))
-    return torch.stack(d_flows, dim=1)
+    return torch.stack(d_flows, dim=1).to(flows.dtype)
 
 
 def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
@@ -194,9 +204,10 @@ def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
     """The image gradient of the bilinear warp: each flow's cotangent
     (B, F, C, Ho, W) scattered back onto its four taps in the full-height
     image, plain PyTorch on any device (the reference's and the JAX
-    package's scatter-add)."""
+    package's scatter-add; bfloat16 summed in float32, rounded once)."""
     batch, channels, height, width = img.shape
-    d_img = torch.zeros_like(img).reshape(batch, channels, -1)
+    g = _cuda.widened(g)
+    d_img = torch.zeros_like(img, dtype=g.dtype).reshape(batch, channels, -1)
     for f in range(flows.shape[1]):
         a, b, x_l, x_r, y_t, y_b = _sample_point(flows[:, f], height, width,
                                                  off)
@@ -207,7 +218,7 @@ def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
                           (y_b, x_l, (1 - a) * b), (y_b, x_r, a * b)):
             idx = (yi * width + xi).reshape(batch, 1, -1).expand_as(gf)
             d_img.scatter_add_(2, idx, w * gf)
-    return d_img.reshape(img.shape)
+    return d_img.reshape(img.shape).to(img.dtype)
 
 
 def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor, off: int,
@@ -245,9 +256,7 @@ def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor, off: int,
 _POINTERS = {"resample2d_fwd": 3, "resample2d_tangents": 5,
              "resample2d_grad_flow": 4}
 # lib -> the entry points it defines, with the same arguments
-_ENTRY_POINTS = {"resample2d_fwd": ("resample2d_fwd", "resample2d_fwd_bf16"),
-                 "resample2d_tangents": ("resample2d_tangents",),
-                 "resample2d_grad_flow": ("resample2d_grad_flow",)}
+_ENTRY_POINTS = {lib: (lib, f"{lib}_bf16") for lib in _POINTERS}
 
 
 def _argtypes(lib: str) -> list:
@@ -256,34 +265,43 @@ def _argtypes(lib: str) -> list:
 
 
 def _launch(lib: str, name: str, pointers, dims, device,
-            entry: str | None = None) -> None:
-    """Run the C entry point ``entry`` (default ``lib``) of
-    ``csrc/<lib>.cu`` on ``pointers`` (tensors) and ``dims`` (B, F, C, H,
-    W, Ho, off) on the current stream, and count the launch under
-    ``name``."""
+            entry: str) -> None:
+    """Run the C entry point ``entry`` of ``csrc/<lib>.cu`` on ``pointers``
+    (tensors) and ``dims`` (B, F, C, H, W, Ho, off) on the current stream,
+    and count the launch under ``name``."""
     if len(pointers) != _POINTERS[lib]:
         raise TypeError(f"{lib} takes {_POINTERS[lib]} tensors, got "
                         f"{len(pointers)}")
-    fn = _cuda.function(lib, entry or lib, _argtypes(lib))
+    fn = _cuda.function(lib, entry, _argtypes(lib))
     err = fn(*(t.data_ptr() for t in pointers), *dims, device.index,
              _cuda.stream_ptr(device))
     _cuda.LAUNCHES[name] += 1
     _cuda.check(lib, name, err)
 
 
+def _check_cuda_warp(lib: str, name: str, img: torch.Tensor,
+                     flows: torch.Tensor, off: int):
+    """``_check_warp`` for the entry points of ``csrc/<lib>.cu``: float32,
+    or a bfloat16 image and bfloat16 flows over the whole image (entry
+    point ``<lib>_bf16``).  Returns the device, the dims, the output shape,
+    the entry point and the counter name (``<name>_bf16`` for bfloat16)."""
+    device, dims, shape = _check_warp(name, img, flows, off,
+                                      (torch.float32, torch.bfloat16))
+    if img.dtype != torch.bfloat16:
+        return device, dims, shape, lib, name
+    if off or flows.shape[3] != img.shape[2]:
+        raise TypeError(f"{name}: the bfloat16 warp covers the whole "
+                        "image; its local-rows form comes with the row "
+                        "bands in bf16 (ROADMAP.md)")
+    return device, dims, shape, f"{lib}_bf16", f"{name}_bf16"
+
+
 def _fwd_cuda(name: str, img: torch.Tensor, flows: torch.Tensor, off: int):
     """Run K2 (csrc/resample2d_fwd.cu) over flows (B, F, 2, Ho, W): float32,
     or a bfloat16 image and bfloat16 flows over the whole image (entry point
     ``resample2d_fwd_bf16``, counted under ``<name>_bf16``)."""
-    device, dims, shape = _check_warp(name, img, flows, off,
-                                      (torch.float32, torch.bfloat16))
-    entry = "resample2d_fwd"
-    if img.dtype == torch.bfloat16:
-        if off or flows.shape[3] != img.shape[2]:
-            raise TypeError(f"{name}: the bfloat16 warp covers the whole "
-                            "image; its local-rows form comes with the row "
-                            "bands in bf16 (bf16 training, ROADMAP.md)")
-        entry, name = "resample2d_fwd_bf16", f"{name}_bf16"
+    device, dims, shape, entry, name = _check_cuda_warp(
+        "resample2d_fwd", name, img, flows, off)
     out = torch.empty(shape, dtype=img.dtype, device=device)
     if out.numel():
         _launch("resample2d_fwd", name, (img, flows, out), dims, device,
@@ -312,14 +330,18 @@ def resample2d_multi_cuda(img: torch.Tensor, flows: torch.Tensor,
 def resample2d_tangents_cuda(img: torch.Tensor, flows: torch.Tensor,
                              off: int = 0):
     """K3: the warp of one image by F flows (B, F, 2, Ho, W) and its flow
-    tangents, ``(out, d1, d2)`` each (B, F, C, Ho, W), in one launch."""
-    name = _per_flow("resample2d_tangents", flows.shape[1])
-    device, dims, shape = _check_warp(name, img, flows, off)
-    outs = tuple(torch.empty(shape, dtype=img.dtype, device=device)
-                 for _ in range(3))
+    tangents, ``(out, d1, d2)`` each (B, F, C, Ho, W), in one launch;
+    ``out`` in the image's dtype, d1 and d2 float32 (a bfloat16 image and
+    flows over the whole image: entry point ``resample2d_tangents_bf16``)."""
+    device, dims, shape, entry, name = _check_cuda_warp(
+        "resample2d_tangents", _per_flow("resample2d_tangents",
+                                         flows.shape[1]), img, flows, off)
+    outs = (torch.empty(shape, dtype=img.dtype, device=device),
+            *(torch.empty(shape, dtype=torch.float32, device=device)
+              for _ in range(2)))
     if outs[0].numel():
         _launch("resample2d_tangents", name, (img, flows, *outs), dims,
-                device)
+                device, entry)
     return outs
 
 
@@ -327,16 +349,19 @@ def resample2d_grad_flow_cuda(g: torch.Tensor, img: torch.Tensor,
                               flows: torch.Tensor,
                               off: int = 0) -> torch.Tensor:
     """K4: the flow gradient (B, F, 2, Ho, W) of the warp of ``img`` by
-    ``flows`` for the cotangent ``g`` (B, F, C, Ho, W), in one launch."""
-    name = _per_flow("resample2d_grad_flow", flows.shape[1])
-    device, dims, shape = _check_warp(name, img, flows, off)
-    _cuda.check_operand(name, "g", g, 5, device)
+    ``flows`` for the cotangent ``g`` (B, F, C, Ho, W), in one launch, in
+    the flows' dtype (a bfloat16 image, flows and g over the whole image:
+    entry point ``resample2d_grad_flow_bf16``)."""
+    device, dims, shape, entry, name = _check_cuda_warp(
+        "resample2d_grad_flow", _per_flow("resample2d_grad_flow",
+                                          flows.shape[1]), img, flows, off)
+    _cuda.check_operand(name, "g", g, 5, device, (img.dtype,))
     if g.shape != shape:
         raise ValueError(f"{name}: g {tuple(g.shape)} is not {shape}")
     d_flows = torch.empty_like(flows)
     if d_flows.numel():
         _launch("resample2d_grad_flow", name, (g, img, flows, d_flows), dims,
-                device)
+                device, entry)
     return d_flows
 
 
@@ -394,8 +419,13 @@ class _WarpTangents(torch.autograd.Function):
                  if ctx.needs_input_grad[0] else None)
         d_flows = None
         if ctx.needs_input_grad[1]:
-            d_flows = torch.stack([torch.sum(g * d1, dim=2),
-                                   torch.sum(g * d2, dim=2)], dim=2)
+            # float32 tangents: a bfloat16 cotangent is upcast, the sums
+            # are float32 and the gradient is rounded once to the flows'
+            # dtype, as the JAX package's _resample2d_bwd does
+            gf = g.float()
+            d_flows = torch.stack([torch.sum(gf * d1, dim=2),
+                                   torch.sum(gf * d2, dim=2)],
+                                  dim=2).to(flows.dtype)
         return d_img, d_flows, None
 
 

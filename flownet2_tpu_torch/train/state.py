@@ -5,7 +5,12 @@ flownet2_tpu/train/state.py).
 model's parameters and hands out the steps.  The train step runs the model
 in ``train()`` mode with the loss inside, as the reference's ModelAndLoss
 does, and updates the parameters and the optimizer's state in place
-(where the JAX step returns a new state: here nothing is copied).  The
+(where the JAX step returns a new state: here nothing is copied).  A
+bfloat16 model (``get_model(..., dtype=torch.bfloat16)``) trains as the
+JAX package's bf16 model does: its parameters stay float32, the master
+weights, and get float32 gradients through the convolutions' casts; the
+loss compares the bf16 flow with the float32 target in float32; the
+optimizer steps in float32.  The
 step number lives in the optimizer (``optimizer.count``), which feeds the
 LR schedule.
 """
@@ -17,7 +22,6 @@ from typing import Any, Callable
 
 import torch
 
-from ..nn.layers import compute_dtype
 from .optim import Optimizer
 
 
@@ -53,15 +57,7 @@ class StepFactory:
 
     def train_step(self) -> Callable:
         """``(images (B, 2, H, W, 3), flow (B, H, W, 2)) -> {"loss",
-        "epe"}``, one optimizer step; the gradients stay in ``.grad``.
-        A bfloat16 model has no train step yet: it raises
-        ``NotImplementedError`` (its inference and eval steps serve)."""
-        dtype = compute_dtype(self.model)
-        if dtype not in (None, torch.float32):
-            raise NotImplementedError(
-                f"train_step on a {dtype} model: bf16 training (the bfloat16 "
-                "backward kernels and float32 master weights) is not ported "
-                "yet (ROADMAP.md); train the float32 model")
+        "epe"}``, one optimizer step; the gradients stay in ``.grad``."""
         return self._train_step
 
     def _metric_sums(self, pred, flow, n_valid: int):

@@ -344,13 +344,21 @@ def test_one_state_dict_loads_into_both_dtypes():
         assert torch.equal(loaded(pair), built(pair))
 
 
-def test_bf16_train_step_raises_and_inference_steps_serve():
+def test_bf16_train_step_and_inference_steps_serve():
+    """A bf16 model's train step runs (float32 parameters and gradients,
+    a float32 loss; tests/test_torch_bf16_train.py holds it against the
+    JAX package), and its inference steps serve bf16 flow."""
     model = get_model("FlowNet2S", device="cpu", dtype=torch.bfloat16)
     factory = StepFactory(model, MultiScale(), get_optimizer("Adam", 1e-4))
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        factory.train_step()
     pair = torch.from_numpy(np.random.RandomState(6).rand(
         2, 2, H, W, 3).astype(np.float32) * 255.0)
+    before = [p.detach().clone() for p in model.parameters()]
+    metrics = factory.train_step()(pair, torch.zeros(2, H, W, 2))
+    assert metrics["loss"].dtype == torch.float32
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["epe"])
+    for p, b in zip(model.parameters(), before):
+        assert p.dtype == p.grad.dtype == torch.float32
+        assert not torch.equal(p.detach(), b)
     flow = factory.infer_step()(pair)
     assert flow.dtype == torch.bfloat16 and flow.shape == (2, H, W, 2)
     pred, sums = factory.infer_metrics_step()(pair, torch.zeros(2, H, W, 2),
