@@ -36,9 +36,15 @@ Phases (any failure raises and the script exits non-zero):
    within one bf16 ulp (rtol 2^-7, atol 1e-6 of the largest |out|) of the
    plain version and at most 1% of them not bit-equal; K3's float32 d1 and
    d2 at 1e-5; K4 bf16 also at one ulp of the tangent route's bf16 flow
-   gradient.  K7 (forward and backward) and the local-rows K2, K3 and K4
-   each raise TypeError on bf16 CUDA tensors, launching nothing and calling
-   no plain version.
+   gradient.  The bf16 row bands: K7 bf16 (forward, d_f1, d_slab) on the
+   bands of 1, 2 and 4 of the maps of K7's f32 checks, every band's forward
+   and d_f1 bit for bit the same rows of K1 bf16 and K5 bf16, one band's
+   d_slab rows [20, 20 + H) K6 bf16's, the top, a middle and the bottom
+   band at one ulp of the plain version; the bf16 local-rows K2, K3 (out;
+   d1, d2 float32) and K4, one and two flows at +-8 px and +-200 px, on
+   the bands of 2 and of 4 (the second band of two of a 384-row image
+   starts at row 192, where a bf16 ulp is 1 px), bit-equal to the same rows
+   of the whole-image bf16 kernels.
 3. FlowNet2 inference, seeded random weights, b8 384x512 fp32: warm-up,
    then 10 timed batches with CUDA events, with the launch counters set to
    0 just before and read just after (1 K1 and 3 K2 launches per forward,
@@ -52,12 +58,13 @@ Phases (any failure raises and the script exits non-zero):
    call); the output finite, (8, 384, 512, 2) and bf16, and within the JAX
    package's bf16 contract (mean |d| < 0.05 (mean |ref| + 1e-3) + 5e-3) of
    the plain-op bf16 model on the card, of the fp32 model and, on the small
-   pair, of the bf16 model on the CPU; under two row bands it raises
-   TypeError.  Printed beside: the host's time to enqueue a forward, the
-   model against itself with cuDNN's default algorithms, and against the
-   plain-op model with deterministic ones.  The bf16 model is then freed
-   (phase 7 builds it again), so that phase 4 runs beside the one fp32
-   model, as it did before.
+   pair, of the bf16 model on the CPU; under two row bands, with cuDNN
+   deterministic, within the same contract of the whole-map output (printed:
+   whether bit-equal).  Printed beside: the host's time to enqueue a
+   forward, the model against itself with cuDNN's default algorithms, and
+   against the plain-op model with deterministic ones.  The bf16 model is
+   then freed (phase 7 builds it again), so that phase 4 runs beside the
+   one fp32 model, as it did before.
 4. FlowNet2 training through StepFactory, b8 384x448 fp32, MultiScale,
    Adam 1e-4, seeded weights, random images x255 and flow x5: the first
    step's loss and every parameter's gradient against the plain-op model
@@ -106,12 +113,26 @@ Phases (any failure raises and the script exits non-zero):
    FlowNet2C, seeded weights, b8 384x512: 10 timed whole-map forwards (1 K1
    each), and one MultiScale train step under two bands whose loss and EPE
    are finite and within 1e-4 of the plain-op model's.
+5b. The row-band path in bf16: the bf16 model of the same weights, built
+   again and freed after.  Inference b8 384x512, 10 timed batches under two
+   bands and over the whole map in turns (whole, bands, bands, whole), the
+   band runs counted (per forward 2 correlation_fwd_rows_bf16, 4
+   resample2d_fwd_bf16, 2 resample2d_fwd_multi_bf16; no plain-op call).
+   One train step b8 384x448 under two bands against the whole map, cuDNN
+   deterministic: loss and EPE within 5e-3 relative, each sub-net's
+   gradients within 5e-2 in relative L2 (flownetc and flownets_1 printed
+   only), every gradient float32 and finite, the launches counted (2 of
+   each K7 bf16 entry point, twice phase 4b's warp launches).  Then 2
+   warm-up and 10 timed steps per warp route, in turns, over the whole map
+   and then under two bands, each counted (the tangent route's K3 bf16 in
+   place of K2 and K4).
 6. Each kernel's time, its plain version's time, the card's bound for the
    same work and, where one PyTorch call computes the same function, that
    call's time, at the main-path shapes (K7 at one band of two; the bf16
    forms of K1, K2 at the bf16 forward's shapes and of K3, K4, K5, K6 at
    the bf16 step's, their operations at the bf16 tensor-core rate and also
-   at the f32 rate their bodies sum at), each beside
+   at the f32 rate their bodies sum at; K7 bf16 at one band of two of the
+   bf16 forward's and step's maps, likewise), each beside
    the SM clock; then the one-flow K2 and K4 and their library calls with a
    cold L2 cache (six input sets of 31-44 MB taken in turn).
 7. Where the device time goes: the phase 3 model and pair, 5 forwards, the
@@ -342,17 +363,6 @@ def ulp_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
         raise AssertionError(f"{what}: bf16 kernel disagrees with its plain "
                              "version")
     return err
-
-
-def expect_type_error(what: str, fn) -> None:
-    """``fn`` must raise TypeError: a bfloat16 CUDA tensor on a path that
-    has no bfloat16 kernel."""
-    try:
-        fn()
-    except TypeError as e:
-        print(f"  {what}: TypeError ({str(e)[:110]})")
-        return
-    raise AssertionError(f"{what}: did not raise TypeError")
 
 
 def bf16_contract(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
@@ -803,34 +813,96 @@ def main() -> int:
             ulp_err(k4, tangent_grad, f"K4 bf16 against the tangent route's "
                     f"bf16 d_flow, {what}")
 
-        # no bf16 kernel yet: the row bands (K7 and the local-rows K2, K3,
-        # K4) raise on a bf16 CUDA tensor; none casts it
-        f1, f2 = (t.bfloat16() for t in (randn(*odd_shape, gen=bf16_gen),
-                                          randn(*odd_shape, gen=bf16_gen)))
-        g16 = randn(odd_shape[0], disp * disp, *odd_shape[2:],
-                    gen=bf16_gen).bfloat16()
-        half = TRAIN_HEIGHT // 2
-        fl16 = t_flows[:, :1, :, :half].bfloat16().contiguous()
-        g4 = torch.zeros((TRAIN_BATCH, 1, 3, half, TRAIN_WIDTH),
-                         dtype=torch.bfloat16, device=dev)
-        slab16 = F.pad(f2, (0, 0, 20, 20)).contiguous()
-        ops.reset_counts()
-        for what, fn in (
-                ("K7 row-band correlation", lambda: corr_sp.corr_slab_cuda(
-                    f1, slab16, 20, 2)),
-                ("K7 row-band correlation backward",
-                 lambda: corr_sp.corr_slab_bwd_cuda(g16, f1, slab16, 20, 2)),
-                ("K2 local rows", lambda: r2d.resample2d_multi_cuda(
-                    t_img16, fl16, half)),
-                ("K3 local rows", lambda: r2d.resample2d_tangents_cuda(
-                    t_img16, fl16, half)),
-                ("K4 local rows", lambda: r2d.resample2d_grad_flow_cuda(
-                    g4, t_img16, fl16, half))):
-            expect_type_error(f"{what}, bf16", fn)
-        if ops.LAUNCHES or ops.PLAIN_CALLS:
-            raise AssertionError(f"a refused bf16 call launched or fell back: "
-                                 f"{dict(ops.LAUNCHES)}, "
-                                 f"{dict(ops.PLAIN_CALLS)}")
+        # the bf16 row bands: K7 bf16 (forward, d_f1, d_slab; the general
+        # bodies) on the bands of the main paths', the wide and the ragged
+        # maps, as the f32 K7 above: every band's forward and d_f1 the same
+        # rows of K1 bf16 and K5 bf16 bit for bit, one band's d_slab rows
+        # [20, 20 + H) K6 bf16's, and the top, a middle and the bottom band
+        # at one ulp of the plain version
+        rows16_names = tuple(n + "_bf16" for n in slab_names)
+        for shape in ((BATCH, 256, HEIGHT // 8, WIDTH // 8),
+                      (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8),
+                      (4, 256, 48, 128), (2, 40, 20, 152), odd_shape):
+            f1, f2 = (randn(*shape, gen=bf16_gen).bfloat16() for _ in range(2))
+            g = randn(shape[0], disp * disp, *shape[2:],
+                      gen=bf16_gen).bfloat16()
+            whole = (corr.correlation_cuda(f1, f2, *corr_args),
+                     *corr.correlation_bwd_cuda(g, f1, f2, 20, 2))
+            f2p = F.pad(f2, (0, 0, 20, 20))
+            for shards in (1, 2, 4):
+                local_h = shape[2] // shards
+                for band in range(shards):
+                    off = band * local_h
+                    rows = slice(off, off + local_h)
+                    f1_loc = f1[:, :, rows].contiguous()
+                    g_loc = g[:, :, rows].contiguous()
+                    slab = f2p[:, :, off:off + local_h + 40].contiguous()
+                    got = (corr_sp.corr_slab_cuda(f1_loc, slab, 20, 2),
+                           *corr_sp.corr_slab_bwd_cuda(g_loc, f1_loc, slab,
+                                                       20, 2))
+                    for k in range(2):
+                        if not torch.equal(got[k], whole[k][:, :, rows]):
+                            raise AssertionError(
+                                f"{rows16_names[k]} {shape}, band {band} of "
+                                f"{shards}: not the whole-map bf16 kernel's "
+                                "bits")
+                    if shards == 1 and not torch.equal(got[2][:, :, 20:-20],
+                                                       whole[2]):
+                        raise AssertionError(
+                            f"{rows16_names[2]} {shape}, one band: rows "
+                            "[20, 20 + H) not K6 bf16's bits")
+                    if 1 < band < shards - 1:
+                        continue   # one middle band is held to the plain op
+                    want = (corr_sp.corr_slab_plain(f1_loc, slab, 20, 2),
+                            *corr_sp.corr_slab_bwd_plain(g_loc, f1_loc, slab,
+                                                         20, 2))
+                    for name, a, b in zip(rows16_names, got, want):
+                        errs.setdefault(name, []).append(ulp_err(
+                            a, b, f"K7 bf16 {name} {shape}, band {band} of "
+                            f"{shards}"))
+            print(f"  K7 bf16 {shape}: one band bit-equal to K1, K5, K6 bf16; "
+                  "the bands of 2 and of 4 bit-equal to K1, K5 bf16's rows")
+
+        # the bf16 local-rows K2, K3, K4 against the same rows of the
+        # whole-image bf16 kernels, at +-8 px and +-200 px, one and two
+        # flows, on the bands of 2 and of 4: the second band of two of a
+        # 384-row image starts at row 192, where a bf16 ulp is 1 px, so a
+        # port that added the offset to the bf16 flow would fail here
+        for what, im, fl in (
+                ("K2 shape, one flow of +-8 px", img16, flow8.unsqueeze(1)),
+                ("K2 shape, one flow of +-200 px", img16,
+                 flow200.unsqueeze(1)),
+                ("K2 shape, two flows", img16, flows),
+                ("K3/K4 shape, one flow of +-8 px", t_img16,
+                 t_flows[:, :1].contiguous()),
+                ("K3/K4 shape, one flow of +-200 px", t_img16,
+                 t_flows[:, 1:].contiguous()),
+                ("K3/K4 shape, two flows", t_img16, t_flows)):
+            fl = fl.bfloat16()
+            g = randn(fl.shape[0], fl.shape[1], 3, *fl.shape[3:],
+                      gen=bf16_gen).bfloat16()
+            whole = (r2d.resample2d_multi_cuda(im, fl),
+                     *r2d.resample2d_tangents_cuda(im, fl),
+                     r2d.resample2d_grad_flow_cuda(g, im, fl))
+            for shards in (2, 4):
+                local_h = im.shape[2] // shards
+                for off in range(0, im.shape[2], local_h):
+                    rows = slice(off, off + local_h)
+                    fl_loc = fl[:, :, :, rows].contiguous()
+                    got = (r2d.resample2d_multi_cuda(im, fl_loc, off),
+                           *r2d.resample2d_tangents_cuda(im, fl_loc, off),
+                           r2d.resample2d_grad_flow_cuda(
+                               g[:, :, :, rows].contiguous(), im, fl_loc, off))
+                    for part, a, b in zip(("K2", "K3 out", "K3 d1", "K3 d2",
+                                           "K4"), got, whole):
+                        if a.dtype != b.dtype or not torch.equal(
+                                a, b[:, :, :, rows]):
+                            raise AssertionError(
+                                f"{part} bf16 local rows [{off}, "
+                                f"{off + local_h}), {what}: not the "
+                                "whole-image bf16 kernel's bits")
+            print(f"  K2, K3, K4 bf16 on the bands of 2 and of 4, {what}: "
+                  "bit-equal to the whole-image bf16 kernels' rows")
 
     # -- 3. FlowNet2 inference ----------------------------------------------
     print(f"phase 3: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, TF32 off")
@@ -968,11 +1040,21 @@ def main() -> int:
         bf16_contract(small16, get_model(
             "FlowNet2", device="cpu", seed=0, dtype=torch.bfloat16)(
                 small.cpu()), "small pair against the bf16 model on the CPU")
-        # the row bands have no bf16 kernels yet: the model raises
+        # the bf16 model under the row bands (K7 bf16 and the bf16
+        # local-rows warps) against the whole map, cuDNN deterministic: the
+        # same general bodies in the same order, the offsets joined first
+        torch.backends.cudnn.deterministic = True
+        flow_whole16 = model16(pairs[0])
         with sharding_hints.scoped_spatial_shards(SHARDS):
-            expect_type_error(f"bf16 model under {SHARDS} row bands",
-                              lambda: model16(pairs[0]))
-        del flow16, small16
+            flow_bands16 = model16(pairs[0])
+        torch.backends.cudnn.deterministic = False
+        note(f"  bf16 model under {SHARDS} row bands against the whole map, "
+             "cuDNN deterministic: bit-equal "
+             f"{torch.equal(flow_bands16, flow_whole16)}, not bit-equal "
+             f"{(flow_bands16 != flow_whole16).float().mean().item():.4%}")
+        bf16_contract(flow_bands16, flow_whole16, f"bf16 model under {SHARDS} "
+                      "row bands against the whole map")
+        del flow16, small16, flow_whole16, flow_bands16
     # phase 4 runs as it did before phase 3b: no second model beside it
     del model16
     torch.cuda.empty_cache()
@@ -1066,18 +1148,20 @@ def main() -> int:
                 per_tensor=False)
     del grads_k, grads_s, grads_c, cpu_model
 
-    def timed_routes(step, phase: str, suffix: str = ""):
+    def timed_routes(step, phase: str, suffix: str = "", shards: int = 1):
         """TRAIN_WARMUP warm-up and TRAIN_STEPS timed steps of ``step`` on
         phase 4's batch per warp route, in turns, each route's launches
         counted over its first timed block and held to the exact counts
-        (kernel names ending in ``suffix``); prints ms/step and frames/s.
-        Returns the times by route, the launches by route and the peak
-        memory in GiB."""
+        (kernel names ending in ``suffix``; with ``shards`` row bands each
+        kernel launched once a band, the correlation's K7 forms); prints
+        ms/step and frames/s.  Returns the times by route, the launches by
+        route and the peak memory in GiB."""
         route_ms = {route: [] for route in ROUTES}
         route_launches = {}
         torch.cuda.reset_peak_memory_stats()
         for route in (ROUTES + ROUTES[::-1]) * ROUTE_ROUNDS:
-            with mock.patch.object(stage_glue, "TRAIN_WARP", route):
+            with mock.patch.object(stage_glue, "TRAIN_WARP", route), \
+                    sharding_hints.scoped_spatial_shards(shards):
                 for _ in range(TRAIN_WARMUP):
                     step(images, target)
                 torch.cuda.synchronize()
@@ -1096,9 +1180,10 @@ def main() -> int:
             if not torch.isfinite(losses).all():
                 raise AssertionError(f"{route}: non-finite loss/EPE {losses}")
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        n = TRAIN_STEPS
-        each = {"correlation_fwd": n, "correlation_bwd_f1": n,
-                "correlation_bwd_f2": n}
+        n = TRAIN_STEPS * shards
+        rows = "_rows" if shards > 1 else ""
+        each = {f"correlation_{k}{rows}": n
+                for k in ("fwd", "bwd_f1", "bwd_f2")}
         want_launches = {
             "tangents": dict(each, resample2d_tangents=2 * n,
                              resample2d_tangents_multi=n),
@@ -1109,8 +1194,8 @@ def main() -> int:
         for route in ROUTES:
             got, plain = route_launches[route]
             want = {k + suffix: v for k, v in want_launches[route].items()}
-            print(f"  {route} route, launches over {n} steps: {got}; "
-                  f"plain-op calls: {plain}")
+            print(f"  {route} route, launches over {TRAIN_STEPS} steps: "
+                  f"{got}; plain-op calls: {plain}")
             if got != want or plain:
                 raise AssertionError(f"{route} route launches {got} / plain "
                                      f"calls {plain}; expected {want} / {{}}")
@@ -1385,6 +1470,76 @@ def main() -> int:
                              f"{c_loss_p}")
     del cmodel, c_step
 
+    # -- 5b. the row-band path in bf16 ----------------------------------------
+    print(f"phase 5b: {SHARDS} row bands in bf16 (K7 bf16 and the bf16 "
+          "local-rows K2, K3, K4)")
+    # the bf16 model of the same weights, built again and freed after, as in
+    # phases 3b and 4b
+    model16 = get_model("FlowNet2", device=DEVICE, seed=0,
+                        dtype=torch.bfloat16)
+    band16_fwd = {f"{k}_bf16": v for k, v in band_fwd.items()}
+    band16_step = {f"{k}_bf16": v for k, v in band_step.items()}
+    fwd16_ms = {1: [], SHARDS: []}
+    with torch.inference_mode():
+        for pair in pairs:
+            model16(pair)
+        # whole map and bands in turns, 10 timed batches each
+        for shards in (1, SHARDS, SHARDS, 1):
+            with sharding_hints.scoped_spatial_shards(shards):
+                model16(pairs[0])
+                sharding_hints.clear_dispatch_log()
+                ops.reset_counts()
+                fwd16_ms[shards].append(time_ms(lambda: model16(pairs[0]),
+                                                TIMED_BATCHES, warmup=0))
+                if shards > 1:
+                    band16_fwd_launches = check_counts(
+                        "FlowNet2 bf16 inference", TIMED_BATCHES, band16_fwd)
+                    check_dispatch("FlowNet2 bf16 inference")
+    whole16, bands16 = (sum(fwd16_ms[k]) / 2 for k in (1, SHARDS))
+    note(f"  phase 5b, bf16 inference b{BATCH} {HEIGHT}x{WIDTH}: "
+         f"{bands16:.3f} ms/batch under {SHARDS} bands "
+         f"({', '.join(f'{t:.3f}' for t in fwd16_ms[SHARDS])}), "
+         f"{BATCH / bands16 * 1e3:.2f} frames/s; whole map {whole16:.3f} "
+         f"({', '.join(f'{t:.3f}' for t in fwd16_ms[1])}) in turns, "
+         f"{ms16:.3f} in phase 3b  [{smi}]")
+
+    # one step whole and under bands, cuDNN deterministic: the forwards are
+    # the same bits, so the gradients differ by d_f2's halo sums only
+    torch.backends.cudnn.deterministic = True
+    loss_w, epe_w, grads_w = bf16_grads(model16, images, target,
+                                        "bf16 whole-map step")
+    with sharding_hints.scoped_spatial_shards(SHARDS):
+        sharding_hints.clear_dispatch_log()
+        ops.reset_counts()
+        loss_b, epe_b, grads_b = bf16_grads(model16, images, target,
+                                            "bf16 band step")
+        check_counts("FlowNet2 bf16 loss and gradients", 1, band16_step)
+        check_dispatch("FlowNet2 bf16 train step")
+    torch.backends.cudnn.deterministic = False
+    for a, b, what in ((loss_b, loss_w, "loss"), (epe_b, epe_w, "EPE")):
+        note(f"  phase 5b, bf16 {what}: {SHARDS} bands {a:.6f}, whole map "
+             f"{b:.6f}, bit-equal {a == b}")
+        if not abs(a - b) <= 5e-3 * abs(b):
+            raise AssertionError(f"bf16 {what}: {SHARDS} bands {a} vs whole "
+                                 f"map {b}")
+    subnets_close(grads_b, grads_w, noise_line, f"bf16 step under {SHARDS} "
+                  "bands against the whole map, cuDNN deterministic")
+    del grads_w, grads_b
+
+    step16 = StepFactory(model16, loss_fn, get_optimizer("Adam", 1e-4)) \
+        .train_step()
+    whole16_step_ms = timed_routes(step16, "5b, bf16, whole map", "_bf16")[0]
+    bands16_step_ms, band16_launches, peak16_bands_gib = timed_routes(
+        step16, f"5b, bf16, {SHARDS} bands", "_bf16", SHARDS)
+    for route in ROUTES:
+        a, b = (sum(t[route]) / len(t[route])
+                for t in (bands16_step_ms, whole16_step_ms))
+        note(f"  phase 5b, bf16 step, {route} route: {a:.3f} ms/step under "
+             f"{SHARDS} bands, {b:.3f} whole map ({a - b:+.3f} ms); peak "
+             f"{peak16_bands_gib:.2f} GiB allocated under bands  [{smi}]")
+    del model16, step16
+    torch.cuda.empty_cache()
+
     # -- 6. kernel times ------------------------------------------------------
     print("phase 6: kernel times at the main-path shapes")
     rows = []
@@ -1481,41 +1636,48 @@ def main() -> int:
                      4 * b * h * w * (2 * ch + 2 + 2),
                      b * h * w * (10 + 12 * ch)))
 
-        # K7 at one band of SHARDS: the forward at the inference map, the
-        # backward at the training map; d_slab does the same multiply-adds
-        # as d_f1 and writes the taller slab
-        for name, replaces, src, (b, c, h, w) in (
-                ("correlation_fwd_rows", "correlation_pallas.py:615",
-                 "correlation_fwd.cu", (BATCH, 256, HEIGHT // 8, WIDTH // 8)),
-                ("correlation_bwd_f1_rows", "correlation_pallas.py:528",
-                 "correlation_bwd.cu",
-                 (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8)),
-                ("correlation_bwd_f2_rows", "correlation_pallas.py:528",
-                 "correlation_bwd.cu",
-                 (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8))):
-            h //= SHARDS
-            sf1, sslab = randn(b, c, h, w), randn(b, c, h + 40, w)
-            sg = randn(b, disp * disp, h, w)
-            sizes = {"correlation_fwd_rows": (sf1, sslab, sg),
-                     "correlation_bwd_f1_rows": (sg, sslab, sf1),
-                     "correlation_bwd_f2_rows": (sg, sf1, sslab)}[name]
-            if name == "correlation_fwd_rows":
-                fn = lambda sf1=sf1, sslab=sslab: corr_sp.corr_slab_cuda(
-                    sf1, sslab, 20, 2)
-                plain = lambda sf1=sf1, sslab=sslab: corr_sp.corr_slab_plain(
-                    sf1, sslab, 20, 2)
-            else:
-                needs = (name == "correlation_bwd_f1_rows",
-                         name == "correlation_bwd_f2_rows")
-                fn = (lambda sf1=sf1, sslab=sslab, sg=sg, needs=needs:
-                      corr_sp.corr_slab_bwd_cuda(sg, sf1, sslab, 20, 2,
-                                                 needs=needs))
-                plain = (lambda sf1=sf1, sslab=sslab, sg=sg, needs=needs:
-                         corr_sp.corr_slab_bwd_plain(sg, sf1, sslab, 20, 2,
+        def k7_rows(dtype=torch.float32):
+            """K7's rows at one band of SHARDS: the forward at the inference
+            map, the backward at the training map; d_slab does the same
+            multiply-adds as d_f1 and writes the taller slab."""
+            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            for base, replaces, src, (b, c, h, w) in (
+                    ("correlation_fwd_rows", "correlation_pallas.py:615",
+                     "correlation_fwd.cu",
+                     (BATCH, 256, HEIGHT // 8, WIDTH // 8)),
+                    ("correlation_bwd_f1_rows", "correlation_pallas.py:528",
+                     "correlation_bwd.cu",
+                     (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8)),
+                    ("correlation_bwd_f2_rows", "correlation_pallas.py:528",
+                     "correlation_bwd.cu",
+                     (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8,
+                      TRAIN_WIDTH // 8))):
+                h //= SHARDS
+                sf1, sslab = (randn(b, c, h, w).to(dtype),
+                              randn(b, c, h + 40, w).to(dtype))
+                sg = randn(b, disp * disp, h, w).to(dtype)
+                sizes = {"correlation_fwd_rows": (sf1, sslab, sg),
+                         "correlation_bwd_f1_rows": (sg, sslab, sf1),
+                         "correlation_bwd_f2_rows": (sg, sf1, sslab)}[base]
+                if base == "correlation_fwd_rows":
+                    fn = lambda sf1=sf1, sslab=sslab: corr_sp.corr_slab_cuda(
+                        sf1, sslab, 20, 2)
+                    plain = (lambda sf1=sf1, sslab=sslab:
+                             corr_sp.corr_slab_plain(sf1, sslab, 20, 2))
+                else:
+                    needs = (base == "correlation_bwd_f1_rows",
+                             base == "correlation_bwd_f2_rows")
+                    fn = (lambda sf1=sf1, sslab=sslab, sg=sg, needs=needs:
+                          corr_sp.corr_slab_bwd_cuda(sg, sf1, sslab, 20, 2,
                                                      needs=needs))
-            rows.append((name, replaces, src, fn, plain, None,
-                         4 * sum(t.numel() for t in sizes),
-                         corr_flops(b, c, h, w, slab=True)))
+                    plain = (lambda sf1=sf1, sslab=sslab, sg=sg, needs=needs:
+                             corr_sp.corr_slab_bwd_plain(sg, sf1, sslab, 20,
+                                                         2, needs=needs))
+                rows.append((base + suffix, replaces, src, fn, plain, None,
+                             sum(t.numel() * t.element_size() for t in sizes),
+                             corr_flops(b, c, h, w, slab=True)))
+
+        k7_rows()
 
         # the bf16 forms at the bf16 path's shapes, 2 bytes a value; the
         # operations at the card's rate for bf16 (its tensor cores), the
@@ -1585,6 +1747,9 @@ def main() -> int:
                                                             one16),
                      None, 2 * b * h * w * (2 * ch + 2 + 2),
                      b * h * w * (10 + 12 * ch)))
+        # K7 bf16 (the general bodies) at one band of the bf16 forward's and
+        # the bf16 step's maps
+        k7_rows(torch.bfloat16)
 
         kernels = []
         for name, replaces, src, fn, plain, lib, nbytes, flops in rows:
@@ -1612,6 +1777,10 @@ def main() -> int:
                 count = launches[name]
             elif name in launches16:  # over the phase 3b forwards
                 count = launches16[name]
+            elif name == "correlation_fwd_rows_bf16":  # phase 5b forwards
+                count = band16_fwd_launches[name]
+            elif name.endswith("_rows_bf16"):      # per phase 5b step
+                count = band16_launches["grad_flow"][0][name] / TRAIN_STEPS
             elif name == "resample2d_grad_flow_bf16":  # one and two flows
                 count = (step16_k[name]
                          + step16_k["resample2d_grad_flow_multi_bf16"]
@@ -1630,6 +1799,11 @@ def main() -> int:
                 count = route_launches["tangents"][0][name] / TRAIN_STEPS
             else:                      # per step of the default route
                 count = train_launches[name] / TRAIN_STEPS
+            if name.endswith("_rows_bf16"):
+                fwd = name == "correlation_fwd_rows_bf16"
+                note(f"  {name}: library none; "
+                     f"{count / TIMED_BATCHES if fwd else count:g} launches "
+                     f"a phase 5b {'forward' if fwd else 'step'}")
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"flownet2_tpu_torch/csrc/{src}",

@@ -1,5 +1,5 @@
 // K5, K6 and K7 backward: the correlation cost volume's gradient, float32
-// (and, for K5 and K6, bfloat16).
+// or bfloat16.
 //
 // Replaces flownet2_tpu/ops/correlation_pallas.py: _bwd_f1_kernel and
 // _bwd_f1_kernel_wide (K5, d_f1) and _bwd_f2_kernel and _bwd_f2_kernel_wide
@@ -73,18 +73,18 @@
 //   uniform).
 //
 // bfloat16 g, f1 and f2 (entry points correlation_bwd_f1_bf16 and
-// correlation_bwd_f2_bf16, the bf16 model's K5 and K6) run the general
-// bodies for every (maxd, s2), FlowNetC's included: the operands are upcast
-// exactly as they are staged into the float shared tiles, each output is the
-// float fmaf chain of the float body in its order, and it is rounded once to
-// bfloat16 after the division by C.  The TPU kernels feed bf16 operands to
-// the matrix unit, sum in f32 and return f32 (correlation_pallas.py:541-602),
-// which the JAX package casts to f1's dtype (ops/correlation.py:296): the
-// same value, rounded once.  The tiled bodies stay float: their 16-byte
-// cp.async staging copies f32 rows as they lie and cannot upcast.  At 2
-// bytes a value FlowNet2's training shape moves ~41 MB a kernel; the bound
-// stays the FMA one.  Whole map only: K7's bf16 forms come with the row
-// bands in bf16.
+// correlation_bwd_f2_bf16, the bf16 model's K5 and K6, and their K7 forms
+// correlation_bwd_f1_rows_bf16 and correlation_bwd_f2_rows_bf16) run the
+// general bodies for every (maxd, s2), FlowNetC's included: the operands are
+// upcast exactly as they are staged into the float shared tiles, each output
+// is the float fmaf chain of the float body in its order, and it is rounded
+// once to bfloat16 after the division by C.  The TPU kernels feed bf16
+// operands to the matrix unit, sum in f32 and return f32
+// (correlation_pallas.py:541-602), which the JAX package casts to f1's dtype
+// (ops/correlation.py:296): the same value, rounded once.  The tiled bodies
+// stay float: their 16-byte cp.async staging copies f32 rows as they lie and
+// cannot upcast.  At 2 bytes a value FlowNet2's training shape moves ~41 MB a
+// kernel; the bound stays the FMA one.
 
 #include <cstdint>
 
@@ -974,4 +974,30 @@ extern "C" int correlation_bwd_f2_rows(const float* g, const float* f1,
                                        void* stream) {
   return launch_f2<true>(g, f1, d_slab, B, C, Hloc, W, maxd, s2, device,
                          stream);
+}
+
+// K7 backward for bfloat16 g, f1 and slab, any (maxd, s2), on the general
+// bodies, as the whole-map bf16 entry points (the TPU kernels' bf16 form,
+// correlation_pallas.py:528, :553-554).  d_f1: (B, C, Hloc, W) bfloat16.
+extern "C" int correlation_bwd_f1_rows_bf16(const __nv_bfloat16* g,
+                                            const __nv_bfloat16* slab,
+                                            __nv_bfloat16* d_f1, int B, int C,
+                                            int Hloc, int W, int maxd, int s2,
+                                            int device, void* stream) {
+  return launch<__nv_bfloat16>(
+      correlation_bwd_f1_kernel<__nv_bfloat16, true>, smem_f1(maxd, s2), g,
+      slab, d_f1, B, C, Hloc, W, Hloc, maxd, s2, device, stream);
+}
+
+// d_slab: (B, C, Hloc + 2*maxd, W) bfloat16, in slab coordinates; the grid
+// covers all Hloc + 2*maxd rows of it, as launch_f2<true> does.
+extern "C" int correlation_bwd_f2_rows_bf16(const __nv_bfloat16* g,
+                                            const __nv_bfloat16* f1,
+                                            __nv_bfloat16* d_slab, int B,
+                                            int C, int Hloc, int W, int maxd,
+                                            int s2, int device,
+                                            void* stream) {
+  return launch<__nv_bfloat16>(
+      correlation_bwd_f2_kernel<__nv_bfloat16, true>, smem_f2(maxd, s2), g,
+      f1, d_slab, B, C, Hloc, W, Hloc + 2 * maxd, maxd, s2, device, stream);
 }

@@ -1,4 +1,4 @@
-// K1 and K7 forward: correlation cost volume, forward, float32.
+// K1 and K7 forward: correlation cost volume, forward, float32 or bfloat16.
 //
 // Replaces flownet2_tpu/ops/correlation_pallas.py: _kernel (narrow case,
 // W + 2*maxd <= 128) and _kernel_wide (64-column chunks), reached from
@@ -35,8 +35,9 @@
 // A tensor-core form (the TPU kernel fed bf16 to its matrix unit) belongs to
 // a bf16 model.
 //
-// bfloat16 f1 and f2 (entry point correlation_fwd_bf16, the bf16 model's K1)
-// run the general body below for every (maxd, s2), FlowNetC's included:
+// bfloat16 f1 and f2 (entry point correlation_fwd_bf16, the bf16 model's K1,
+// and correlation_fwd_rows_bf16, its K7) run the general body below for
+// every (maxd, s2), FlowNetC's included:
 // the operands are upcast exactly as they are staged into the float shared
 // tiles, the float sums are those of the float body, and out is rounded
 // once to bfloat16 after the division by C (the TPU kernel accumulates in
@@ -530,4 +531,20 @@ extern "C" int correlation_fwd_rows(const float* f1, const float* slab,
                                     void* stream) {
   return launch<true>(f1, slab, out, B, C, Hloc, W, maxd, s2, device,
                       stream);
+}
+
+// K7 forward for bfloat16 f1 and slab, any (maxd, s2), on the general body,
+// as correlation_fwd_bf16: out (B, D*D, Hloc, W) bfloat16, the float sums of
+// the upcast operands divided by C and rounded once.  The TPU kernel's bf16
+// form of the row-slab path (correlation_pallas.py:615, :664).
+extern "C" int correlation_fwd_rows_bf16(const __nv_bfloat16* f1,
+                                         const __nv_bfloat16* slab,
+                                         __nv_bfloat16* out, int B, int C,
+                                         int Hloc, int W, int maxd, int s2,
+                                         int device, void* stream) {
+  const int err = fnet_set_device(device);
+  if (err) return err;
+  return launch_general<__nv_bfloat16, true>(
+      f1, slab, out, B, C, Hloc, W, maxd, s2,
+      static_cast<cudaStream_t>(stream));
 }

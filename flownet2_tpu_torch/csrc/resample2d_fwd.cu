@@ -112,15 +112,19 @@ extern "C" int resample2d_fwd(const float* img, const float* flows, float* out,
 }
 
 // The same for a bfloat16 image, bfloat16 flows and a bfloat16 output: the
-// float warp of the upcast image by the upcast flows, rounded once.  Whole
-// image only (Ho = H, off = 0, else cudaErrorInvalidValue): the local-rows
-// form comes with the row bands in bfloat16.
+// float warp of the upcast image by the upcast flows, rounded once, over the
+// whole image or its rows [off, off + Ho).  The offset joins the integer row
+// before the upcast flow is added (fnet_bilinear), so a band's rows are the
+// whole-image call's bits; the TPU band warp's _shift_dy, which adds it to
+// the bf16 flow, would round it to whole rows at an offset of 128 or more.
 extern "C" int resample2d_fwd_bf16(const __nv_bfloat16* img,
                                    const __nv_bfloat16* flows,
                                    __nv_bfloat16* out, int B, int F, int C,
                                    int H, int W, int Ho, int off, int device,
                                    void* stream) {
-  if (Ho != H || off != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<__nv_bfloat16, __nv_bfloat16, false>(
+  if (Ho == H && off == 0)
+    return launch<__nv_bfloat16, __nv_bfloat16, false>(
+        img, flows, out, B, F, C, H, W, Ho, off, device, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16, true>(
       img, flows, out, B, F, C, H, W, Ho, off, device, stream);
 }

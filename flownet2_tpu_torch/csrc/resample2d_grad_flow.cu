@@ -24,8 +24,7 @@
 // sums are float, and d_flow, which the TPU kernel returns in f32 and the
 // JAX package casts to the flow's dtype (ops/resample2d.py:308-309), is
 // rounded once to bfloat16.  At 2 bytes a value it moves ~27.5 MB for one
-// flow.  Whole image only: the local-rows form comes with the row bands in
-// bfloat16.
+// flow.  Local rows as in float32.
 //
 // Design: one thread per output pixel and flow computes the corners once
 // and sums over the channels in registers, so the reduction needs no
@@ -110,16 +109,17 @@ extern "C" int resample2d_grad_flow(const float* g, const float* img,
 }
 
 // The same for a bfloat16 cotangent, image and flows, with a bfloat16
-// d_flow: the float sums of the upcast values, rounded once.  Whole image
-// only (Ho = H, off = 0, else cudaErrorInvalidValue): the local-rows form
-// comes with the row bands in bfloat16.
+// d_flow: the float sums of the upcast values, rounded once; whole image or
+// local rows, as resample2d_fwd_bf16.
 extern "C" int resample2d_grad_flow_bf16(const __nv_bfloat16* g,
                                          const __nv_bfloat16* img,
                                          const __nv_bfloat16* flows,
                                          __nv_bfloat16* d_flows, int B, int F,
                                          int C, int H, int W, int Ho, int off,
                                          int device, void* stream) {
-  if (Ho != H || off != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<__nv_bfloat16, false>(g, img, flows, d_flows, B, F, C, H, W,
-                                      Ho, off, device, stream);
+  if (Ho == H && off == 0)
+    return launch<__nv_bfloat16, false>(g, img, flows, d_flows, B, F, C, H, W,
+                                        Ho, off, device, stream);
+  return launch<__nv_bfloat16, true>(g, img, flows, d_flows, B, F, C, H, W,
+                                     Ho, off, device, stream);
 }

@@ -28,8 +28,7 @@
 // the lerp and the tangents are float; out is rounded once to bfloat16, and
 // d1 and d2 stay float32, as the TPU kernel returns them (:458-463), so the
 // backward's sum of g*d1 loses nothing to them.  One flow moves ~55 MB.
-// Whole image only: the local-rows form comes with the row bands in
-// bfloat16.
+// Local rows as in float32.
 //
 // Design: K2's, with two more outputs.  One thread per output pixel and
 // flow computes the corners once and loops over the channels, writing out,
@@ -117,17 +116,18 @@ extern "C" int resample2d_tangents(const float* img, const float* flows,
                              device, stream);
 }
 
-// The same for a bfloat16 image and flows: out (B, F, C, H, W) bfloat16,
-// rounded once; d1, d2 float32.  Whole image only (Ho = H, off = 0, else
-// cudaErrorInvalidValue): the local-rows form comes with the row bands in
-// bfloat16.
+// The same for a bfloat16 image and flows: out (B, F, C, Ho, W) bfloat16,
+// rounded once; d1, d2 float32; whole image or local rows, as
+// resample2d_fwd_bf16.
 extern "C" int resample2d_tangents_bf16(const __nv_bfloat16* img,
                                         const __nv_bfloat16* flows,
                                         __nv_bfloat16* out, float* d1,
                                         float* d2, int B, int F, int C, int H,
                                         int W, int Ho, int off, int device,
                                         void* stream) {
-  if (Ho != H || off != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<__nv_bfloat16, false>(img, flows, out, d1, d2, B, F, C, H, W,
-                                      Ho, off, device, stream);
+  if (Ho == H && off == 0)
+    return launch<__nv_bfloat16, false>(img, flows, out, d1, d2, B, F, C, H,
+                                        W, Ho, off, device, stream);
+  return launch<__nv_bfloat16, true>(img, flows, out, d1, d2, B, F, C, H, W,
+                                     Ho, off, device, stream);
 }

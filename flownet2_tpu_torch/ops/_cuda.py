@@ -161,18 +161,15 @@ def check_operand(op: str, name: str, t: torch.Tensor, ndim: int,
                   dtypes: tuple = (torch.float32,)) -> None:
     """Raise unless ``t`` is a contiguous ``ndim``-D CUDA tensor on
     ``device`` of one of ``dtypes``, the element types the entry point
-    ``op`` has kernels for.  A tensor of another type is never cast: a
-    bfloat16 tensor where only float32 kernels exist raises ``TypeError``."""
+    ``op`` has kernels for.  A tensor of another type is never cast: it
+    raises ``TypeError``."""
     if t.device != device or device.type != "cuda":
         raise ValueError(f"{op}: {name} is on {t.device}, expected the CUDA "
                          f"device {device}")
     if t.dtype not in dtypes:
-        later = (" (the bfloat16 forms of the row bands, K7 and the "
-                 "local-rows warps, are not ported yet, ROADMAP.md)"
-                 if t.dtype == torch.bfloat16 else "")
         raise TypeError(f"{op}: {name} must be "
                         f"{' or '.join(str(d) for d in dtypes)}, got "
-                        f"{t.dtype}{later}")
+                        f"{t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{op}: {name} must be {ndim}-D, got "
                          f"{tuple(t.shape)}")

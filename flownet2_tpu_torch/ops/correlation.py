@@ -53,10 +53,12 @@ from . import _cuda, sharding_hints
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _ENTRY_POINTS = {
     "correlation_fwd": ("correlation_fwd", "correlation_fwd_rows",
-                        "correlation_fwd_bf16"),
+                        "correlation_fwd_bf16", "correlation_fwd_rows_bf16"),
     "correlation_bwd": ("correlation_bwd_f1", "correlation_bwd_f2",
                         "correlation_bwd_f1_rows", "correlation_bwd_f2_rows",
-                        "correlation_bwd_f1_bf16", "correlation_bwd_f2_bf16"),
+                        "correlation_bwd_f1_bf16", "correlation_bwd_f2_bf16",
+                        "correlation_bwd_f1_rows_bf16",
+                        "correlation_bwd_f2_rows_bf16"),
 }
 _MAX_GRID_YZ = 65535
 

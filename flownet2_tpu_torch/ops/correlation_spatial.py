@@ -5,7 +5,8 @@ composition) and of the Pallas row-slab kernels ``correlation_pallas_rows``
 and ``correlation_pallas_bwd_rows`` (K7: the entry points
 ``correlation_fwd_rows`` of ``csrc/correlation_fwd.cu`` and
 ``correlation_bwd_f1_rows``, ``correlation_bwd_f2_rows`` of
-``csrc/correlation_bwd.cu``).
+``csrc/correlation_bwd.cu``, and their ``_bf16`` forms for bfloat16
+operands, which upcast, sum in float32 and round once).
 
 Output rows ``[off, off + Hloc)`` of the cost volume read f2 rows
 ``[off - maxd, off + Hloc + maxd)``, zero beyond the map: a halo bounded
@@ -47,8 +48,12 @@ def corr_slab_plain(f1: torch.Tensor, slab: torch.Tensor,
                     max_displacement: int = 20,
                     stride2: int = 2) -> torch.Tensor:
     """The plain PyTorch local op, on any device: the shifts form of
-    ``correlation_plain`` in slab coordinates."""
+    ``correlation_plain`` in slab coordinates.  bfloat16 operands are
+    upcast, multiplied and summed in float32, and the output is rounded
+    once to f1's dtype, as ``correlation_plain`` and the kernel do."""
     _cuda.PLAIN_CALLS["corr_slab"] += 1
+    dtype = f1.dtype
+    f1, slab = _cuda.widened(f1), _cuda.widened(slab)
     channels, height, width = f1.shape[1:]
     maxd = max_displacement
     d_rad = maxd // stride2
@@ -59,7 +64,7 @@ def corr_slab_plain(f1: torch.Tensor, slab: torch.Tensor,
             oy, ox = maxd + tj * stride2, maxd + ti * stride2
             w2 = slabp[:, :, oy:oy + height, ox:ox + width]
             outs.append((0.0 + torch.sum(f1 * w2, dim=1)) / channels)
-    return torch.stack(outs, dim=1)
+    return torch.stack(outs, dim=1).to(dtype)
 
 
 def corr_slab_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
@@ -68,8 +73,12 @@ def corr_slab_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
     """(d_f1, d_slab) of ``corr_slab`` for the cotangent ``g``
     (B, D*D, Hloc, W), on any device; an input whose entry in ``needs`` is
     False gets None.  The D*D-step loop of the JAX package's
-    ``_corr_slab_bwd``, accumulating in place."""
+    ``_corr_slab_bwd``, accumulating in place.  bfloat16 g, f1 and slab
+    are upcast, summed in float32, divided by C and rounded once to f1's
+    dtype, as ``correlation_bwd_plain`` and the kernels do."""
     _cuda.PLAIN_CALLS["corr_slab_bwd"] += 1
+    dtype = f1.dtype
+    g, f1, slab = (_cuda.widened(t) for t in (g, f1, slab))
     channels, height, width = f1.shape[1:]
     slab_h = slab.shape[2]
     maxd = max_displacement
@@ -97,15 +106,25 @@ def corr_slab_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
                 d_slab.addcmul_(
                     gp[:, d:d + 1, oy:oy + slab_h, ox:ox + width],
                     f1p[:, :, oy:oy + slab_h, ox:ox + width])
-    return (None if d_f1 is None else d_f1 / channels,
-            None if d_slab is None else d_slab / channels)
+    return (None if d_f1 is None else (d_f1 / channels).to(dtype),
+            None if d_slab is None else (d_slab / channels).to(dtype))
+
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _suffix(t: torch.Tensor) -> str:
+    """The entry point's suffix for ``t``'s dtype: ``_bf16`` for bfloat16."""
+    return "_bf16" if t.dtype == torch.bfloat16 else ""
 
 
 def _check_slab(name, f1, slab, max_displacement, stride2):
     _check_config(name, max_displacement, 1, max_displacement, 1, stride2)
     device = f1.device
-    _cuda.check_operand(name, "f1", f1, 4, device)
-    _cuda.check_operand(name, "slab", slab, 4, device)
+    _cuda.check_operand(name, "f1", f1, 4, device, _DTYPES)
+    _cuda.check_operand(name, "slab", slab, 4, device, _DTYPES)
+    if slab.dtype != f1.dtype:
+        raise TypeError(f"{name}: f1 is {f1.dtype} and slab {slab.dtype}")
     batch, channels, height, width = f1.shape
     slab_h = height + 2 * max_displacement
     if slab.shape != (batch, channels, slab_h, width):
@@ -121,8 +140,10 @@ def _check_slab(name, f1, slab, max_displacement, stride2):
 def corr_slab_cuda(f1: torch.Tensor, slab: torch.Tensor,
                    max_displacement: int = 20,
                    stride2: int = 2) -> torch.Tensor:
-    """K7 forward (``correlation_fwd_rows``): float32, any width."""
-    name = "correlation_fwd_rows"
+    """K7 forward, any width: ``correlation_fwd_rows`` on float32, or
+    ``correlation_fwd_rows_bf16`` on bfloat16 f1 and slab with a bfloat16
+    output."""
+    name = "correlation_fwd_rows" + _suffix(f1)
     device = _check_slab(name, f1, slab, max_displacement, stride2)
     batch, _, height, width = f1.shape
     disp = 2 * (max_displacement // stride2) + 1
@@ -137,14 +158,18 @@ def corr_slab_cuda(f1: torch.Tensor, slab: torch.Tensor,
 def corr_slab_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, slab: torch.Tensor,
                        max_displacement: int = 20, stride2: int = 2,
                        needs=(True, True)):
-    """K7 backward: d_f1 by ``correlation_bwd_f1_rows`` and d_slab by
-    ``correlation_bwd_f2_rows``, each launched only where ``needs`` asks;
-    float32, any width."""
+    """K7 backward, any width: d_f1 by ``correlation_bwd_f1_rows`` and
+    d_slab by ``correlation_bwd_f2_rows``, each launched only where
+    ``needs`` asks; float32, or bfloat16 g, f1 and slab with bfloat16
+    gradients (the entry points' ``_bf16`` forms)."""
     device = _check_slab("correlation_bwd_rows", f1, slab, max_displacement,
                          stride2)
     batch, _, height, width = f1.shape
     disp = 2 * (max_displacement // stride2) + 1
-    _cuda.check_operand("correlation_bwd_rows", "g", g, 4, device)
+    _cuda.check_operand("correlation_bwd_rows", "g", g, 4, device, _DTYPES)
+    if g.dtype != f1.dtype:
+        raise TypeError(f"correlation_bwd_rows: g is {g.dtype} and f1 "
+                        f"{f1.dtype}")
     if g.shape != (batch, disp * disp, height, width):
         raise ValueError(f"correlation_bwd_rows: g {tuple(g.shape)} does not "
                          f"match f1 {tuple(f1.shape)} and D*D = "
@@ -158,7 +183,7 @@ def corr_slab_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, slab: torch.Tensor,
             continue
         out = torch.empty_like(like)
         if out.numel():
-            _launch("correlation_bwd", name, (g, src, out), f1,
+            _launch("correlation_bwd", name + _suffix(f1), (g, src, out), f1,
                     max_displacement, stride2)
         grads.append(out)
     return tuple(grads)

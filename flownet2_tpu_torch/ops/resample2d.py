@@ -45,10 +45,9 @@ the flow gradient to the flow's; K3's tangents d1, d2 stay float32, and
 the tangent route's backward sums ``g * d1`` in float32 and rounds once.
 
 A CPU tensor takes the plain PyTorch versions.  A CUDA tensor launches the
-kernels (bilinear, K=1; float32, or, over the whole image, a bfloat16
-image, flow and cotangent) or raises: a bfloat16 tensor where no bfloat16
-kernel exists (the local rows) raises ``TypeError``, it is never cast to
-run a float32 kernel.  With
+kernels (bilinear, K=1; float32, or a bfloat16 image, flow and cotangent,
+over the whole image or its local rows) or raises; no tensor is cast to
+run a kernel of another type.  With
 ``sharding_hints.spatial_shards() > 1`` the three differentiable entry
 points run as row bands (``ops/resample2d_spatial.py``).
 """
@@ -282,23 +281,19 @@ def _launch(lib: str, name: str, pointers, dims, device,
 def _check_cuda_warp(lib: str, name: str, img: torch.Tensor,
                      flows: torch.Tensor, off: int):
     """``_check_warp`` for the entry points of ``csrc/<lib>.cu``: float32,
-    or a bfloat16 image and bfloat16 flows over the whole image (entry
-    point ``<lib>_bf16``).  Returns the device, the dims, the output shape,
-    the entry point and the counter name (``<name>_bf16`` for bfloat16)."""
+    or a bfloat16 image and bfloat16 flows (entry point ``<lib>_bf16``),
+    over the whole image or its local rows.  Returns the device, the dims,
+    the output shape, the entry point and the counter name
+    (``<name>_bf16`` for bfloat16)."""
     device, dims, shape = _check_warp(name, img, flows, off,
                                       (torch.float32, torch.bfloat16))
-    if img.dtype != torch.bfloat16:
-        return device, dims, shape, lib, name
-    if off or flows.shape[3] != img.shape[2]:
-        raise TypeError(f"{name}: the bfloat16 warp covers the whole "
-                        "image; its local-rows form comes with the row "
-                        "bands in bf16 (ROADMAP.md)")
-    return device, dims, shape, f"{lib}_bf16", f"{name}_bf16"
+    suffix = "_bf16" if img.dtype == torch.bfloat16 else ""
+    return device, dims, shape, lib + suffix, name + suffix
 
 
 def _fwd_cuda(name: str, img: torch.Tensor, flows: torch.Tensor, off: int):
     """Run K2 (csrc/resample2d_fwd.cu) over flows (B, F, 2, Ho, W): float32,
-    or a bfloat16 image and bfloat16 flows over the whole image (entry point
+    or a bfloat16 image and bfloat16 flows (entry point
     ``resample2d_fwd_bf16``, counted under ``<name>_bf16``)."""
     device, dims, shape, entry, name = _check_cuda_warp(
         "resample2d_fwd", name, img, flows, off)
@@ -332,7 +327,7 @@ def resample2d_tangents_cuda(img: torch.Tensor, flows: torch.Tensor,
     """K3: the warp of one image by F flows (B, F, 2, Ho, W) and its flow
     tangents, ``(out, d1, d2)`` each (B, F, C, Ho, W), in one launch;
     ``out`` in the image's dtype, d1 and d2 float32 (a bfloat16 image and
-    flows over the whole image: entry point ``resample2d_tangents_bf16``)."""
+    flows: entry point ``resample2d_tangents_bf16``)."""
     device, dims, shape, entry, name = _check_cuda_warp(
         "resample2d_tangents", _per_flow("resample2d_tangents",
                                          flows.shape[1]), img, flows, off)
@@ -350,8 +345,8 @@ def resample2d_grad_flow_cuda(g: torch.Tensor, img: torch.Tensor,
                               off: int = 0) -> torch.Tensor:
     """K4: the flow gradient (B, F, 2, Ho, W) of the warp of ``img`` by
     ``flows`` for the cotangent ``g`` (B, F, C, Ho, W), in one launch, in
-    the flows' dtype (a bfloat16 image, flows and g over the whole image:
-    entry point ``resample2d_grad_flow_bf16``)."""
+    the flows' dtype (a bfloat16 image, flows and g: entry point
+    ``resample2d_grad_flow_bf16``)."""
     device, dims, shape, entry, name = _check_cuda_warp(
         "resample2d_grad_flow", _per_flow("resample2d_grad_flow",
                                           flows.shape[1]), img, flows, off)

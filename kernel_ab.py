@@ -11,16 +11,16 @@ band of two, (8, 441, 24, 56) against its (8, 256, 64, 56) slab, of the
 two-flow and the one-flow K2 at (8, 3, 384, 512), of ``F.grid_sample``
 on the one-flow K2's inputs (the library call that computes the same warp;
 timed here, used nowhere in the port), of the one-flow and the two-flow K3
-and K4 at (8, 3, 384, 448), float32, and the bf16 forms of K5, K6, K3
-and K4 on the same inputs rounded to bf16 ("n/a" for a checkout that has
-no bf16 form of a kernel: its wrapper raises TypeError), CUDA events over
-300
-launches after 20 that the host queues while the card is kept busy (and,
+and K4 at (8, 3, 384, 448), float32, and the bf16 forms of K5, K6, K3,
+K4 and K7 (forward, d_f1, d_slab) on the same inputs rounded to bf16
+("n/a" for a checkout that has no bf16 form of a kernel: its wrapper
+raises TypeError), CUDA events over 300 launches after 20 that the host
+queues while the card is kept busy (and,
 for the one-flow K2, also without that head start: a 0.04 ms kernel then
 reads as the wrapper's time on the host), the first 12 hex digits of the
 sha1 of the output bytes of K1, K7 forward, K5, K7 d_f1, K6, K7 d_slab,
 the one-flow and the two-flow K2, K3 (its three outputs) and K4 (the
-twelve float32 digests), then of the bf16 K5, K6, K3 and K4 (the
+twelve float32 digests), then of the bf16 K5, K6, K3, K4 and K7 (the
 inputs come from a fixed seed, so two checkouts that print the same
 digest computed the same bits), the SM clock and its maximum as nvidia-smi
 reads them after the timings, and ptxas's register counts (none for
@@ -130,6 +130,8 @@ def main(root: str, tag: str) -> int:
     t_img16, t_flow16, t_flows16 = (t.bfloat16() for t in (t_img, t_flow,
                                                             t_flows))
     t_g16, t_g2_16 = t_g.bfloat16(), t_g2.bfloat16()
+    sf1_16, slab16 = sf1.bfloat16(), slab.bfloat16()
+    bg16, bf1_16, bslab16 = bg.bfloat16(), bf1.bfloat16(), bslab.bfloat16()
     bf16_kernels = {
         "K5 bf16": lambda: corr.correlation_bwd_cuda(
             tg16, tf1_16, tf2_16, needs=(True, False))[0],
@@ -142,7 +144,12 @@ def main(root: str, tag: str) -> int:
         "K4 bf16, one flow": lambda: r2d.resample2d_grad_flow_cuda(
             t_g16, t_img16, t_flow16),
         "K4 bf16, two flows": lambda: r2d.resample2d_grad_flow_cuda(
-            t_g2_16, t_img16, t_flows16)}
+            t_g2_16, t_img16, t_flows16),
+        "K7 fwd bf16": lambda: corr_sp.corr_slab_cuda(sf1_16, slab16),
+        "K7 d_f1 bf16": lambda: corr_sp.corr_slab_bwd_cuda(
+            bg16, bf1_16, bslab16, needs=(True, False))[0],
+        "K7 d_slab bf16": lambda: corr_sp.corr_slab_bwd_cuda(
+            bg16, bf1_16, bslab16, needs=(False, True))[1]}
     times = {
         "K1": time_ms(lambda: corr.correlation_cuda(f1, f2)),
         "K7 fwd": time_ms(lambda: corr_sp.corr_slab_cuda(sf1, slab)),
