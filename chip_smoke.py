@@ -28,7 +28,10 @@ Phases (any failure raises and the script exits non-zero):
    against K6 at 1e-5.  The local-rows forms of K2, K3 and K4 (one and two
    flows, +-8 px and +-200 px) on the bands of 2 and of 4: bit-equal to
    the same rows of the whole-image kernels' output.  The bf16 forms:
-   K1 at the main-path, the wide and the two ragged maps, K2 for one flow
+   K1 at the main-path, the wide and the two ragged maps and at
+   (2, 40, 3, 64) and (2, 40, 5, 75) (its tensor-core body; the flip rate
+   is printed), and at maxd 8, s2 1 and maxd 4, s2 2 (its general body),
+   K2 for one flow
    of +-8 px and of +-200 px and for two flows over the (8, 3, 384, 512)
    image and the ragged (2, 3, 100, 150) one, K5 and K6 at the training,
    the main-path, the wide and the two ragged maps and at maxd 8, s2 1 and
@@ -37,7 +40,9 @@ Phases (any failure raises and the script exits non-zero):
    plain version and at most 1% of them not bit-equal; K3's float32 d1 and
    d2 at 1e-5; K4 bf16 also at one ulp of the tangent route's bf16 flow
    gradient.  The bf16 row bands: K7 bf16 (forward, d_f1, d_slab) on the
-   bands of 1, 2 and 4 of the maps of K7's f32 checks, every band's forward
+   bands of 1, 2 and 4 of the maps of K7's f32 checks and of a
+   (2, 40, 5, 64) map (bands of one row, whose slabs are all halo but that
+   row), every band's forward
    and d_f1 bit for bit the same rows of K1 bf16 and K5 bf16, one band's
    d_slab rows [20, 20 + H) K6 bf16's, the top, a middle and the bottom
    band at one ulp of the plain version; the bf16 local-rows K2, K3 (out;
@@ -130,8 +135,9 @@ Phases (any failure raises and the script exits non-zero):
    same work and, where one PyTorch call computes the same function, that
    call's time, at the main-path shapes (K7 at one band of two; the bf16
    forms of K1, K2 at the bf16 forward's shapes and of K3, K4, K5, K6 at
-   the bf16 step's, their operations at the bf16 tensor-core rate and also
-   at the f32 rate their bodies sum at; K7 bf16 at one band of two of the
+   the bf16 step's, their operations at the bf16 tensor-core rate and, but
+   for the correlation forward (a tensor-core body), also at the f32 rate
+   their bodies sum at; K7 bf16 at one band of two of the
    bf16 forward's and step's maps, likewise), each beside
    the SM clock; then the one-flow K2 and K4 and their library calls with a
    cold L2 cache (six input sets of 31-44 MB taken in turn).
@@ -738,13 +744,22 @@ def main() -> int:
         # generator: the other phases' inputs stay the ones they had
         print("  bf16 kernels against their plain versions, one bf16 ulp")
         bf16_gen = torch.Generator(device=dev).manual_seed(13)
-        for shape in ((BATCH, 256, HEIGHT // 8, WIDTH // 8), (4, 256, 48, 128),
-                      (2, 40, 20, 152), odd_shape):
+        # K1 bf16's tensor-core body at maxd 20, s2 2: C = 40 is no multiple
+        # of its 16-channel k-steps, W = 152 none of its 64-column tiles
+        # (16-byte copies) and 75 odd (2-byte copies), and maps of 3 and 5
+        # rows end inside a block's rows; the general body at two other
+        # configurations
+        fwd16_cases = [(shape, 20, 2) for shape in (
+            (BATCH, 256, HEIGHT // 8, WIDTH // 8), (4, 256, 48, 128),
+            (2, 40, 20, 152), odd_shape, (2, 40, 3, 64), (2, 40, 5, 75))]
+        fwd16_cases += [(odd_shape, 8, 1), (odd_shape, 4, 2)]
+        for shape, maxd, s2 in fwd16_cases:
             f1, f2 = (randn(*shape, gen=bf16_gen).bfloat16() for _ in range(2))
+            args = (maxd, 1, maxd, 1, s2)
             errs.setdefault("correlation_fwd_bf16", []).append(ulp_err(
-                corr.correlation_cuda(f1, f2, *corr_args),
-                corr.correlation_plain(f1, f2, *corr_args),
-                f"K1 bf16 correlation {shape}"))
+                corr.correlation_cuda(f1, f2, *args),
+                corr.correlation_plain(f1, f2, *args),
+                f"K1 bf16 correlation {shape}, maxd {maxd}, s2 {s2}"))
         img16, ragged16 = img.bfloat16(), ragged_img.bfloat16()
         for what, im, fl in (("one flow of +-8 px", img16, flow8),
                              ("one flow of +-200 px", img16, flow200),
@@ -813,16 +828,19 @@ def main() -> int:
             ulp_err(k4, tangent_grad, f"K4 bf16 against the tangent route's "
                     f"bf16 d_flow, {what}")
 
-        # the bf16 row bands: K7 bf16 (forward, d_f1, d_slab; the general
-        # bodies) on the bands of the main paths', the wide and the ragged
-        # maps, as the f32 K7 above: every band's forward and d_f1 the same
-        # rows of K1 bf16 and K5 bf16 bit for bit, one band's d_slab rows
-        # [20, 20 + H) K6 bf16's, and the top, a middle and the bottom band
-        # at one ulp of the plain version
+        # the bf16 row bands: K7 bf16 (the forward on K1 bf16's tensor-core
+        # body, d_f1 and d_slab on the general bodies) on the bands of the
+        # main paths', the wide and the ragged maps, as the f32 K7 above,
+        # and of a 5-row map, whose bands of 4 are one row each, so that 40
+        # of the 41 rows of each slab are halo: every band's forward and
+        # d_f1 the same rows of K1 bf16 and K5 bf16 bit for bit, one band's
+        # d_slab rows [20, 20 + H) K6 bf16's, and the top, a middle and the
+        # bottom band at one ulp of the plain version
         rows16_names = tuple(n + "_bf16" for n in slab_names)
         for shape in ((BATCH, 256, HEIGHT // 8, WIDTH // 8),
                       (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8),
-                      (4, 256, 48, 128), (2, 40, 20, 152), odd_shape):
+                      (4, 256, 48, 128), (2, 40, 20, 152), odd_shape,
+                      (2, 40, 5, 64)):
             f1, f2 = (randn(*shape, gen=bf16_gen).bfloat16() for _ in range(2))
             g = randn(shape[0], disp * disp, *shape[2:],
                       gen=bf16_gen).bfloat16()
@@ -1681,8 +1699,9 @@ def main() -> int:
 
         # the bf16 forms at the bf16 path's shapes, 2 bytes a value; the
         # operations at the card's rate for bf16 (its tensor cores), the
-        # correlation's also at the f32 rate that its body, which upcasts and
-        # sums in f32, can reach (bound_ms_f32_body).  No library
+        # correlation backward's also at the f32 rate that its bodies, which
+        # upcast and sum in f32, can reach (bound_ms_f32_body; the forward
+        # runs on the tensor cores).  No library
         # call: F.grid_sample wants its grid in the image's dtype, and a bf16
         # grid moves the sample point 2-4 px at 512 columns
         b, c, h, w = BATCH, 256, HEIGHT // 8, WIDTH // 8
@@ -1766,7 +1785,7 @@ def main() -> int:
                 f"{flops / 1e9:.3f} GFLOP)  [{smi}; SM clock, max: "
                 f"{sm_clock()}]")
             extra = {}
-            if bf16:
+            if bf16 and not name.startswith("correlation_fwd"):
                 extra["bound_ms_f32_body"] = bound_ms(nbytes, flops, peaks)[0]
                 if name.startswith("correlation"):
                     say(f"  {name}: bound at the f32 rate of its body "

@@ -24,37 +24,39 @@
 // The slab is not padded in H again; columns outside [0, W) read zero.  The
 // kernel bodies read the second operand with a row count H2 and a row shift:
 // K1 is (H2 = H, shift = 0), K7 is (H2 = Hloc + 2*maxd, shift = maxd).  The
-// two are instantiations of one template with both values folded in.  Every
-// output is one fmaf chain over the channels in ascending order followed by
-// a division by C, in either form and in either body below, so a band's rows
-// carry the bits of the whole-map call.
+// two are instantiations of one template with both values folded in.  Each
+// body sums every output in one order that does not depend on the form, and
+// divides by C last, so a band's rows carry the bits of the whole-map call.
 //
-// Operands and sums are float32 on the FMA pipes.  The port's one
-// configuration is the f32 parity one: a single TF32 product would break its
-// 1e-5 tolerance and a 3xTF32 split costs as many operations as the FMAs.
-// A tensor-core form (the TPU kernel fed bf16 to its matrix unit) belongs to
-// a bf16 model.
+// float32 operands: the sums are float32 on the FMA pipes, one fmaf chain
+// over the channels in ascending order in either float body.  The port's
+// float32 configuration is the parity one: a single TF32 product would break
+// its 1e-5 tolerance and a 3xTF32 split costs as many operations as the FMAs.
 //
 // bfloat16 f1 and f2 (entry point correlation_fwd_bf16, the bf16 model's K1,
-// and correlation_fwd_rows_bf16, its K7) run the general body below for
-// every (maxd, s2), FlowNetC's included:
-// the operands are upcast exactly as they are staged into the float shared
-// tiles, the float sums are those of the float body, and out is rounded
-// once to bfloat16 after the division by C (the TPU kernel accumulates in
-// f32 and returns (out / C) in f1's dtype, correlation_pallas.py:643-664).
-// At 2 bytes a value FlowNetC's shape moves ~47 MB; its bound stays the FMA
-// one, and a tensor-core band matmul on the bf16 operands is the Hopper form
-// of the TPU design for it, not written yet.
+// and correlation_fwd_rows_bf16, its K7): float32 sums of the bf16 products,
+// divided by C and rounded once to bfloat16 (the TPU kernel feeds bf16 to its
+// matrix unit, accumulates in f32 and returns (out / C) in f1's dtype,
+// correlation_pallas.py:83-99, :643-664).  At maxd 20, s2 2 they run the
+// tensor-core body below, the TPU design on Hopper's tensor cores; for any
+// other (maxd, s2) the general body, which upcasts while it stages and sums
+// in fmaf chains.  At FlowNetC's shape a bf16 call moves ~47 MB, ~0.014 ms
+// at 3.35 TB/s, and its 3.6 GFLOP of in-map multiply-adds (those whose f2
+// row and column lie in the map) ~0.004 ms at the bf16 tensor-core rate:
+// the bytes bound it.
 //
 // Bound on an H100 SXM at FlowNetC's shape (B 8, C 256, H 48, W 64,
 // maxd 20, s2 2 -> 441 channels): 5.55 GFLOP of f32 multiply-adds against
 // ~94 MB moved, so the FMA rate (~67 TFLOP/s, ~83 us) bounds it, not the
 // memory (~28 us).
 //
-// Two bodies, chosen by configuration in launch():
+// Three bodies, chosen by configuration and dtype in launch() and
+// launch_bf16():
 //
-// * correlation_fwd_tile_kernel, for maxd 20, s2 2 (FlowNetC's, D = 21), the
-//   one the models run.  See the note above it.
+// * correlation_fwd_tile_kernel, float32 at maxd 20, s2 2 (FlowNetC's,
+//   D = 21), the one the float models run.  See the note above it.
+// * correlation_fwd_mma_kernel, bfloat16 at maxd 20, s2 2.  See the note
+//   above it.
 // * correlation_fwd_general_kernel, for every other (maxd, s2): a block per
 //   (batch, output row, row shift, 64-column tile) that stages the f1 row and
 //   the one f2 row it needs 32 channels at a time; thread (tx, g) owns output
@@ -362,6 +364,384 @@ int launch_tile(const float* f1, const float* f2, float* out, int B, int C,
 }
 
 // ---------------------------------------------------------------------------
+// The tensor-core body for bfloat16 f1 and f2 at maxd 20, s2 2: the TPU
+// kernel's band product on mma.sync.
+//
+// For 16 output pixels x0 .. x0+15 of one row at one row shift, the product
+// A (16 px x 16 ch) . B (16 ch x 64 cols) over the f2 columns
+// [x0 - 24, x0 + 40), chunk by chunk of 16 channels, holds every sum the
+// band needs: pixel r at column shift ti is the product's element
+// (r, r + 2*ti + 4).  That is eight m16n8k16 products (bf16 operands as
+// they lie, f32 accumulators) for 16 x 21 wanted sums, 3x the band's
+// multiply-adds, on units ~15x the FMA pipes' rate.  The window starts 24
+// columns left of the tile, not 20, so that every 8-column piece of it is
+// 16-byte aligned for ldmatrix and cp.async.
+//
+// A block is one (batch, 64-column tile, kMmaRows output rows of one
+// parity, kMmaShifts row shifts), as in the tiled float body: output row y
+// at shift tj reads the f2 row y + 2*(tj - 10), so the block stages
+// kMmaShifts + kMmaRows - 1 f2 rows and kMmaRows f1 rows per channel for its
+// kMmaRows * kMmaShifts (row, shift) pairs.  Warp (q, yy) owns the 16-pixel
+// tile q of output row yy at the block's kMmaShifts shifts: per k-step it
+// loads its A fragment once and a B fragment per shift, and holds 3 x 8
+// accumulator tiles (96 registers).  Two blocks of 256 threads share an SM,
+// so that one block's epilogue runs beside the other's products.
+//
+// Rows lie in shared memory as [row][channel][column] with the column
+// fastest, as in device memory, so staging copies bytes as they lie
+// (16-byte cp.async where W % 8 == 0 and the tensors are 16-byte aligned,
+// else 4-byte cp.async for an even W, else a 2-byte load and store) into a
+// ring of kMmaStages chunks of kMmaChunkC channels; ldmatrix.trans turns the
+// channel-major rows into the fragments.  Row pitches of 144 and 240 bytes
+// put the eight rows of each 8x8 ldmatrix on distinct banks.  A thread owns
+// fixed (row, column piece) slots of a stage and a group of its channels,
+// and works out their addresses once, so that a copy costs a pointer step:
+// decoding each piece's address for each chunk costs the warps more
+// instruction slots than their products, and the copies' bytes do not bound
+// the staging.  Columns outside [0, W) and channels past C are
+// staged as zeros; a pair whose f2 row lies outside the map computes nothing
+// and writes zeros.
+//
+// Every output's sum runs over the same chunks, k-steps and fragment
+// position in the whole-map and the slab form (both tile the columns from
+// 0 and the channels from 0), so a band's rows carry the bits of the
+// whole-map call.  The epilogue writes the band's float sums to a tile in
+// shared memory, then divides by C, rounds once to bf16 and stores with x
+// fastest, 16 bytes a thread.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (kernel_ab.py, the parent's general
+// body in the same call): 0.1049 ms for K1 at (8, 256, 48, 64) against
+// 1.1329, 0.0660 for K7 at one band of two against 0.7667; 128 registers
+// and 60 bytes spilled (chip_smoke.py phase 1's ptxas lines).  That is 13%
+// and 15% of the bytes' bound (0.0140, 0.0101 ms).
+// The tensor cores do 3x the band's products at mma.sync's rate, which is
+// below wgmma's; staging and the epilogue, which one block's warps run in
+// turn with the products, take the rest.  One value in ~10^4 differs by
+// one ulp from the general body's fmaf chain (the order of the sums).
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaRows = 2;            // output rows (one parity) a block
+constexpr int kMmaShifts = 3;          // row shifts a block and a warp
+constexpr int kMmaQ = kTileW / 16;     // 16-pixel tiles across a block: 4
+constexpr int kMmaThreads = 32 * kMmaQ * kMmaRows;   // 256
+constexpr int kMmaGroups = kD / kMmaShifts;          // 7
+constexpr int kMmaPairs = kMmaRows * kMmaShifts;     // 6
+constexpr int kMmaF2Rows = kMmaShifts + kMmaRows - 1;   // 4
+constexpr int kMmaLead = 24;           // f2 window start, left of the tile
+constexpr int kMmaSpan = kTileW + 2 * kMmaLead;      // f2 columns staged: 112
+constexpr int kMmaKSteps = 2;          // k-steps of 16 channels a stage
+constexpr int kMmaChunkC = 16 * kMmaKSteps;   // channels a stage
+constexpr int kMmaStages = 2;
+constexpr int kMmaMinBlocks = 2;       // resident blocks asked for
+constexpr int kF1Pitch = kTileW + 8;   // bf16 a staged f1 channel row: 72
+constexpr int kF2Pitch = kMmaSpan + 8; // and f2: 120
+constexpr int kMmaF1Elems = kMmaRows * kMmaChunkC * kF1Pitch;
+constexpr int kMmaStageElems =
+    kMmaF1Elems + kMmaF2Rows * kMmaChunkC * kF2Pitch;
+constexpr int kBandPitch = kTileW + 8; // floats a row of the band tile
+static_assert(kD % kMmaShifts == 0, "whole shift groups");
+static_assert(2 * kMmaPairs * kD * kBandPitch <= kMmaStages * kMmaStageElems,
+              "the band tile reuses the ring");
+static_assert((kF1Pitch * 2) % 16 == 0 && (kF2Pitch * 2) % 16 == 0 &&
+              kMmaLead % 8 == 0, "16-byte ldmatrix rows");
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a . b for one m16n8k16 tile: bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Copies kPiece bf16 values into shared memory, or zeros where ``ok`` is
+// false: 8 (a 16-byte cp.async) or 2 (4-byte) asynchronously, 1 by a plain
+// load and store.
+template <int kPiece>
+__device__ __forceinline__ void stage_piece(__nv_bfloat16* dst,
+                                            const __nv_bfloat16* src,
+                                            bool ok) {
+  if constexpr (kPiece == 1) {
+    *reinterpret_cast<unsigned short*>(dst) =
+        ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
+  } else {
+    cp_async<2 * kPiece>(reinterpret_cast<float*>(dst),
+                         reinterpret_cast<const float*>(src), ok);
+  }
+}
+
+template <bool kSlab, int kPiece>
+__global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
+correlation_fwd_mma_kernel(const __nv_bfloat16* __restrict__ f1,
+                           const __nv_bfloat16* __restrict__ f2,
+                           __nv_bfloat16* __restrict__ out, int C, int H,
+                           int W) {
+  extern __shared__ __align__(16) __nv_bfloat16 ring[];
+  const int H2 = kSlab ? H + 2 * kMaxd : H;   // rows of the second operand
+  const int shift = kSlab ? kMaxd : 0;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int q = (tid >> 5) % kMmaQ;      // 16-pixel tile of the warp
+  const int yy = (tid >> 5) / kMmaQ;     // output row of the warp
+  const int tj0 = (blockIdx.x % kMmaGroups) * kMmaShifts;
+  const int x0 = (blockIdx.x / kMmaGroups) * kTileW;
+  // blocks alternate row parity: rows ybase, ybase + 2, ...
+  const int ybase = (blockIdx.y >> 1) * (2 * kMmaRows) + (blockIdx.y & 1);
+  const int b = blockIdx.z;
+  const int y = ybase + 2 * yy;
+  // staged f2 row rho is row row0 + 2*rho of the second operand; the pair
+  // (yy, s) reads rho = yy + s
+  const int row0 = ybase + shift + (tj0 - kRad) * kS2;
+  const bool live = y < H && x0 + 16 * q < W;
+  bool active[kMmaShifts];
+  bool any = false;
+#pragma unroll
+  for (int s = 0; s < kMmaShifts; ++s) {
+    const int y2 = row0 + 2 * (yy + s);
+    active[s] = live && y2 >= 0 && y2 < H2;
+    any = any || active[s];
+  }
+
+  const int64_t plane = static_cast<int64_t>(H) * W;
+  const int64_t plane2 = static_cast<int64_t>(H2) * W;
+  const __nv_bfloat16* f1b = f1 + static_cast<int64_t>(b) * C * plane;
+  const __nv_bfloat16* f2b = f2 + static_cast<int64_t>(b) * C * plane2;
+
+  float acc[kMmaShifts][8][4];
+#pragma unroll
+  for (int s = 0; s < kMmaShifts; ++s)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][t][e] = 0.f;
+
+  if (__syncthreads_or(any)) {
+    // A stage is kMmaRows f1 rows of kMmaChunkC channel rows of kTileW
+    // columns, then kMmaF2Rows f2 rows of kMmaChunkC channel rows of
+    // kMmaSpan columns, copied in pieces of kPiece values.  A thread owns
+    // kPasses (row, column piece) slots of that layout and kCPer channels of
+    // each chunk; it works out a slot's addresses once, so that a copy costs
+    // a pointer step.
+    constexpr int kF1Slots = kMmaRows * (kTileW / kPiece);
+    constexpr int kSlots = kF1Slots + kMmaF2Rows * (kMmaSpan / kPiece);
+    constexpr int kCGroups = kPiece == 8 ? kMmaThreads / 128 : 1;
+    constexpr int kCPer = kMmaChunkC / kCGroups;
+    constexpr int kSlotThreads = kMmaThreads / kCGroups;
+    constexpr int kPasses = (kSlots + kSlotThreads - 1) / kSlotThreads;
+    const int cg = tid / kSlotThreads;
+    const __nv_bfloat16* src[kPasses];
+    int64_t stride[kPasses];      // 0 where the piece lies outside [0, W)
+    int dst[kPasses], pitch[kPasses];
+    bool used[kPasses], inside[kPasses];
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k) {
+      const int u = tid % kSlotThreads + k * kSlotThreads;
+      src[k] = f1;
+      stride[k] = 0;
+      dst[k] = pitch[k] = 0;
+      used[k] = inside[k] = false;
+      if (u < kF1Slots) {
+        const int ry = u / (kTileW / kPiece);
+        const int col = (u % (kTileW / kPiece)) * kPiece;
+        const int row = ybase + 2 * ry;
+        used[k] = row < H;                   // no pair owns a row past it
+        inside[k] = x0 + col < W;
+        pitch[k] = kF1Pitch;
+        dst[k] = (ry * kMmaChunkC + cg * kCPer) * kF1Pitch + col;
+        if (used[k] && inside[k]) {
+          stride[k] = plane;
+          src[k] = f1b + cg * kCPer * plane + static_cast<int64_t>(row) * W +
+                   x0 + col;
+        }
+      } else if (u < kSlots) {
+        const int i = u - kF1Slots;
+        const int rho = i / (kMmaSpan / kPiece);
+        const int col = (i % (kMmaSpan / kPiece)) * kPiece;
+        const int row = row0 + 2 * rho;
+        const int gcol = x0 - kMmaLead + col;
+        used[k] = row >= 0 && row < H2;      // no active pair reads others
+        inside[k] = gcol >= 0 && gcol < W;
+        pitch[k] = kF2Pitch;
+        dst[k] =
+            kMmaF1Elems + (rho * kMmaChunkC + cg * kCPer) * kF2Pitch + col;
+        if (used[k] && inside[k]) {
+          stride[k] = plane2;
+          src[k] = f2b + cg * kCPer * plane2 + static_cast<int64_t>(row) * W +
+                   gcol;
+        }
+      }
+    }
+    // stage(n) runs for n = 0, 1, 2, ... in turn, so each slot's source
+    // steps one chunk a call
+    auto stage = [&](int n) {
+      const int left = C - n * kMmaChunkC - cg * kCPer;   // channels left
+      __nv_bfloat16* buf = ring + (n % kMmaStages) * kMmaStageElems;
+#pragma unroll
+      for (int k = 0; k < kPasses; ++k) {
+        if (!used[k]) continue;
+        const __nv_bfloat16* from = src[k];
+        __nv_bfloat16* to = buf + dst[k];
+#pragma unroll
+        for (int c = 0; c < kCPer; ++c) {
+          stage_piece<kPiece>(to, from, inside[k] && c < left);
+          from += stride[k];
+          to += pitch[k];
+        }
+        src[k] += kMmaChunkC * stride[k];
+      }
+      cp_async_commit();
+    };
+
+    // ldmatrix row addresses: lane l gives row l % 8 of matrix l / 8.  A's
+    // four matrices are (pixels 0-7, 8-15) x (channels 0-7, 8-15) in the
+    // fragment's order; B's are (channels 0-7, 8-15) x (n-tiles t, t+1).
+    const int a_off = (yy * kMmaChunkC + (lane & 7) + ((lane >> 4) & 1) * 8) *
+                          kF1Pitch + 16 * q + ((lane >> 3) & 1) * 8;
+    const int b_off = kMmaF1Elems +
+                      (yy * kMmaChunkC + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                          kF2Pitch + 16 * q + ((lane >> 4) & 1) * 8;
+    const int nchunks = (C + kMmaChunkC - 1) / kMmaChunkC;
+    for (int n = 0; n < kMmaStages - 1; ++n) {
+      if (n < nchunks) stage(n); else cp_async_commit();
+    }
+    for (int n = 0; n < nchunks; ++n) {
+      cp_async_wait<kMmaStages - 2>();
+      __syncthreads();     // chunk n has landed; chunk n - 1 is summed
+      if (n + kMmaStages - 1 < nchunks) stage(n + kMmaStages - 1);
+      else cp_async_commit();
+      if (any) {
+        const __nv_bfloat16* buf = ring + (n % kMmaStages) * kMmaStageElems;
+#pragma unroll
+        for (int k = 0; k < kMmaKSteps; ++k) {
+          uint32_t a[4];
+          ldsm_x4_trans(a, buf + a_off + 16 * k * kF1Pitch);
+#pragma unroll
+          for (int s = 0; s < kMmaShifts; ++s) {
+            if (!active[s]) continue;
+            const __nv_bfloat16* b_ptr =
+                buf + b_off + (s * kMmaChunkC + 16 * k) * kF2Pitch;
+#pragma unroll
+            for (int t = 0; t < 8; t += 2) {
+              uint32_t bb[4];
+              ldsm_x4_trans(bb, b_ptr + 8 * t);
+              mma_bf16(acc[s][t], a, bb[0], bb[1]);
+              mma_bf16(acc[s][t + 1], a, bb[2], bb[3]);
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+  __syncthreads();         // the ring is free: it holds the band tile now
+
+  // The band tile: [pair][ti][x], the float sums.  Accumulator element e of
+  // n-tile t is pixel r = lane/4 (+8 for e >= 2) at window column
+  // j = 8t + 2*(lane%4) + e%2, which is column shift ti = (j - r - 4) / 2.
+  // A row pitch of 72 words puts the 16 sums a warp writes at once on
+  // distinct banks.
+  float* band = reinterpret_cast<float*>(ring);
+  if (live) {
+#pragma unroll
+    for (int s = 0; s < kMmaShifts; ++s) {
+      float* bp = band + (yy * kMmaShifts + s) * kD * kBandPitch + 16 * q;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = (lane >> 2) + (e >> 1) * 8;
+          const int d = 8 * t + 2 * (lane & 3) + (e & 1) - r - 4;
+          if (d >= 0 && d <= 2 * (kD - 1) && (d & 1) == 0)
+            bp[(d >> 1) * kBandPitch + r] = acc[s][t][e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // Divide by C, round once and store, x fastest: 8 values a thread where
+  // W % 8 == 0.
+  const float cf = static_cast<float>(C);
+  constexpr int kOut = kPiece == 8 ? 8 : 1;
+  constexpr int kRowPieces = kTileW / kOut;
+  for (int p = tid; p < kMmaPairs * kD * kRowPieces; p += kMmaThreads) {
+    const int pair = p / (kD * kRowPieces);
+    const int ti = (p / kRowPieces) % kD;
+    const int x = x0 + (p % kRowPieces) * kOut;
+    const int oy = ybase + 2 * (pair / kMmaShifts);
+    const int tj = tj0 + pair % kMmaShifts;
+    if (oy >= H || x >= W) continue;
+    const float* src = band + (pair * kD + ti) * kBandPitch + x - x0;
+    __nv_bfloat16* dst =
+        out + (static_cast<int64_t>(b) * kD * kD + tj * kD + ti) * plane +
+        static_cast<int64_t>(oy) * W + x;
+    if constexpr (kOut == 8) {
+      const float4 lo = *reinterpret_cast<const float4*>(src);
+      const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(
+          bf16_pair(lo.x / cf, lo.y / cf), bf16_pair(lo.z / cf, lo.w / cf),
+          bf16_pair(hi.x / cf, hi.y / cf), bf16_pair(hi.z / cf, hi.w / cf));
+    } else {
+      fnet_store(dst, *src / cf);
+    }
+  }
+}
+
+template <bool kSlab, int kPiece>
+int launch_mma_as(const __nv_bfloat16* f1, const __nv_bfloat16* f2,
+                  __nv_bfloat16* out, int B, int C, int H, int W,
+                  cudaStream_t stream) {
+  constexpr size_t smem =
+      sizeof(__nv_bfloat16) * kMmaStages * kMmaStageElems;
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      correlation_fwd_mma_kernel<kSlab, kPiece>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+  if (err) return err;
+  // row blocks with a first row inside the map: two (one per parity) for
+  // every 2*kMmaRows rows
+  const int rest = H % (2 * kMmaRows);
+  const int ny = H / (2 * kMmaRows) * 2 + (rest < 2 ? rest : 2);
+  const dim3 grid((W + kTileW - 1) / kTileW * kMmaGroups, ny, B);
+  correlation_fwd_mma_kernel<kSlab, kPiece>
+      <<<grid, kMmaThreads, smem, stream>>>(f1, f2, out, C, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The copy width, chosen at launch: 16 bytes where W % 8 == 0 and every
+// tensor is 16-byte aligned, 4 where W is even and they are 4-byte aligned,
+// else 2.
+template <bool kSlab>
+int launch_mma(const __nv_bfloat16* f1, const __nv_bfloat16* f2,
+               __nv_bfloat16* out, int B, int C, int H, int W,
+               cudaStream_t stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(f1) |
+                         reinterpret_cast<uintptr_t>(f2) |
+                         reinterpret_cast<uintptr_t>(out);
+  if (W % 8 == 0 && addr % 16 == 0)
+    return launch_mma_as<kSlab, 8>(f1, f2, out, B, C, H, W, stream);
+  if (W % 2 == 0 && addr % 4 == 0)
+    return launch_mma_as<kSlab, 2>(f1, f2, out, B, C, H, W, stream);
+  return launch_mma_as<kSlab, 1>(f1, f2, out, B, C, H, W, stream);
+}
+
+// ---------------------------------------------------------------------------
 // The general body, for every other (maxd, s2).
 // ---------------------------------------------------------------------------
 
@@ -498,6 +878,21 @@ int launch(const float* f1, const float* f2, float* out, int B, int C, int H,
   return launch_general<float, kSlab>(f1, f2, out, B, C, H, W, maxd, s2, st);
 }
 
+// The bf16 forms: the tensor-core body for maxd 20, s2 2, the general body
+// for any other configuration.
+template <bool kSlab>
+int launch_bf16(const __nv_bfloat16* f1, const __nv_bfloat16* f2,
+                __nv_bfloat16* out, int B, int C, int H, int W, int maxd,
+                int s2, int device, void* stream) {
+  const int err = fnet_set_device(device);
+  if (err) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (maxd == kMaxd && s2 == kS2)
+    return launch_mma<kSlab>(f1, f2, out, B, C, H, W, st);
+  return launch_general<__nv_bfloat16, kSlab>(f1, f2, out, B, C, H, W, maxd,
+                                              s2, st);
+}
+
 }  // namespace
 
 // K1.  f1, f2: (B, C, H, W) float32, contiguous; out: (B, D*D, H, W) float32
@@ -508,19 +903,18 @@ extern "C" int correlation_fwd(const float* f1, const float* f2, float* out,
   return launch<false>(f1, f2, out, B, C, H, W, maxd, s2, device, stream);
 }
 
-// K1 for bfloat16 f1 and f2, any (maxd, s2), on the general body: the float
-// sums of the upcast operands, divided by C and rounded once, so out is
-// (B, D*D, H, W) bfloat16.  The TPU kernel's bf16 form (correlation_pallas.py
-// :70 accepts bf16 and :664 returns (out / C) in f1's dtype).
+// K1 for bfloat16 f1 and f2: float32 sums of the bf16 products, divided by
+// C and rounded once, so out is (B, D*D, H, W) bfloat16.  The tensor-core
+// body at maxd 20, s2 2, the general body for any other (maxd, s2).  The
+// TPU kernel's bf16 form (correlation_pallas.py :70 accepts bf16 and :664
+// returns (out / C) in f1's dtype).
 extern "C" int correlation_fwd_bf16(const __nv_bfloat16* f1,
                                     const __nv_bfloat16* f2,
                                     __nv_bfloat16* out, int B, int C, int H,
                                     int W, int maxd, int s2, int device,
                                     void* stream) {
-  const int err = fnet_set_device(device);
-  if (err) return err;
-  return launch_general<__nv_bfloat16, false>(
-      f1, f2, out, B, C, H, W, maxd, s2, static_cast<cudaStream_t>(stream));
+  return launch_bf16<false>(f1, f2, out, B, C, H, W, maxd, s2, device,
+                            stream);
 }
 
 // K7 forward.  f1: (B, C, Hloc, W); slab: (B, C, Hloc + 2*maxd, W); out:
@@ -533,18 +927,14 @@ extern "C" int correlation_fwd_rows(const float* f1, const float* slab,
                       stream);
 }
 
-// K7 forward for bfloat16 f1 and slab, any (maxd, s2), on the general body,
-// as correlation_fwd_bf16: out (B, D*D, Hloc, W) bfloat16, the float sums of
-// the upcast operands divided by C and rounded once.  The TPU kernel's bf16
-// form of the row-slab path (correlation_pallas.py:615, :664).
+// K7 forward for bfloat16 f1 and slab, as correlation_fwd_bf16 (the same
+// bodies, chosen the same way): out (B, D*D, Hloc, W) bfloat16.  The TPU
+// kernel's bf16 form of the row-slab path (correlation_pallas.py:615, :664).
 extern "C" int correlation_fwd_rows_bf16(const __nv_bfloat16* f1,
                                          const __nv_bfloat16* slab,
                                          __nv_bfloat16* out, int B, int C,
                                          int Hloc, int W, int maxd, int s2,
                                          int device, void* stream) {
-  const int err = fnet_set_device(device);
-  if (err) return err;
-  return launch_general<__nv_bfloat16, true>(
-      f1, slab, out, B, C, Hloc, W, maxd, s2,
-      static_cast<cudaStream_t>(stream));
+  return launch_bf16<true>(f1, slab, out, B, C, Hloc, W, maxd, s2, device,
+                           stream);
 }

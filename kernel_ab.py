@@ -12,19 +12,23 @@ two-flow and the one-flow K2 at (8, 3, 384, 512), of ``F.grid_sample``
 on the one-flow K2's inputs (the library call that computes the same warp;
 timed here, used nowhere in the port), of the one-flow and the two-flow K3
 and K4 at (8, 3, 384, 448), float32, and the bf16 forms of K5, K6, K3,
-K4 and K7 (forward, d_f1, d_slab) on the same inputs rounded to bf16
-("n/a" for a checkout that has no bf16 form of a kernel: its wrapper
-raises TypeError), CUDA events over 300 launches after 20 that the host
+K4, K7 (forward, d_f1, d_slab), K1 and the one-flow and two-flow K2 on
+the same inputs rounded to bf16 ("n/a" for a checkout that has no bf16
+form of a kernel: its wrapper raises TypeError), CUDA events over 300
+launches after 20 that the host
 queues while the card is kept busy (and,
 for the one-flow K2, also without that head start: a 0.04 ms kernel then
 reads as the wrapper's time on the host), the first 12 hex digits of the
 sha1 of the output bytes of K1, K7 forward, K5, K7 d_f1, K6, K7 d_slab,
 the one-flow and the two-flow K2, K3 (its three outputs) and K4 (the
-twelve float32 digests), then of the bf16 K5, K6, K3, K4 and K7 (the
-inputs come from a fixed seed, so two checkouts that print the same
+twelve float32 digests), then of the bf16 K5, K6, K3, K4, K7, K1 and K2
+(the inputs come from a fixed seed, so two checkouts that print the same
 digest computed the same bits), the SM clock and its maximum as nvidia-smi
 reads them after the timings, and ptxas's register counts (none for
-libraries an earlier run in that checkout has built).
+libraries an earlier run in that checkout has built).  It keeps the bf16
+K1 and K7 forward outputs in ``build/kernel_ab/<tag>.pt`` under the
+working directory and prints, on a second line, the share of their values
+that differ from those a run of another tag kept there.
 
 Two commits are compared on one card in one call, in turns, since two calls
 may land on two cards: unpack the parent with ``git archive <commit>
@@ -40,6 +44,7 @@ from __future__ import annotations
 import hashlib
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -131,6 +136,8 @@ def main(root: str, tag: str) -> int:
                                                             t_flows))
     t_g16, t_g2_16 = t_g.bfloat16(), t_g2.bfloat16()
     sf1_16, slab16 = sf1.bfloat16(), slab.bfloat16()
+    f1_16, f2_16 = f1.bfloat16(), f2.bfloat16()
+    img16, flow16, flows16 = (t.bfloat16() for t in (img, flow, flows))
     bg16, bf1_16, bslab16 = bg.bfloat16(), bf1.bfloat16(), bslab.bfloat16()
     bf16_kernels = {
         "K5 bf16": lambda: corr.correlation_bwd_cuda(
@@ -149,7 +156,11 @@ def main(root: str, tag: str) -> int:
         "K7 d_f1 bf16": lambda: corr_sp.corr_slab_bwd_cuda(
             bg16, bf1_16, bslab16, needs=(True, False))[0],
         "K7 d_slab bf16": lambda: corr_sp.corr_slab_bwd_cuda(
-            bg16, bf1_16, bslab16, needs=(False, True))[1]}
+            bg16, bf1_16, bslab16, needs=(False, True))[1],
+        "K1 bf16": lambda: corr.correlation_cuda(f1_16, f2_16),
+        "K2 bf16, one flow": lambda: r2d.resample2d_cuda(img16, flow16),
+        "K2 bf16, two flows": lambda: r2d.resample2d_multi_cuda(img16,
+                                                                flows16)}
     times = {
         "K1": time_ms(lambda: corr.correlation_cuda(f1, f2)),
         "K7 fwd": time_ms(lambda: corr_sp.corr_slab_cuda(sf1, slab)),
@@ -210,6 +221,20 @@ def main(root: str, tag: str) -> int:
           "| sha1:", ", ".join(f"{k} {v}" for k, v in digests.items()),
           "| SM clock, max:", clock,
           "| registers:", ", ".join(registers))
+    # the bf16 correlation forwards against those of runs of other tags
+    kept = {name: bf16(bf16_kernels[name]) for name in ("K1 bf16",
+                                                        "K7 fwd bf16")}
+    if all(out is not None for out in kept.values()):
+        store = Path("build") / "kernel_ab"
+        store.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in kept.items()}, store / f"{tag}.pt")
+        for other in sorted(store.glob("*.pt")):
+            if other.stem == tag:
+                continue
+            theirs = torch.load(other)
+            print(tag, f"against {other.stem}: not bit-equal", ", ".join(
+                f"{k} {(v.cpu() != theirs[k]).float().mean().item():.4%}"
+                for k, v in kept.items()))
     return 0
 
 
