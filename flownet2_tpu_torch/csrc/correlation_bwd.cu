@@ -47,13 +47,15 @@
 // Design: both kernels are gathers: every output element is summed by one
 // thread in a fixed order, so there are no atomics and the result does not
 // depend on the run (a scatter of d_f2 with atomicAdd would).  Each output
-// is one fmaf chain over the row shifts in ascending order (a row shift whose
-// second-operand row lies outside the map skipped), inside it the column
-// shifts in ascending order, then a division by C, in every body and form
-// below, so a band's rows carry the bits of the whole-map call.
+// sums the row shifts in ascending order (a row shift whose second-operand
+// row lies outside the map skipped), then is divided by C: in the FMA bodies
+// one fmaf chain with the column shifts in ascending order inside each row
+// shift, in the tensor-core body one mma per k-step in ascending order.  A
+// body sums the same way in either form, so a band's rows carry the bits of
+// the whole-map call.
 //
-// K5 and K6 (and their K7 forms) each have two bodies, chosen by
-// configuration in launch_f1() and launch_f2():
+// In float32, K5 and K6 (and their K7 forms) each have two bodies, chosen
+// by configuration in launch_f1() and launch_f2():
 //
 // * correlation_bwd_f1_tile_kernel and correlation_bwd_f2_tile_kernel, for
 //   maxd 20, s2 2 (FlowNetC's, D = 21), the ones the models run.  See the
@@ -74,17 +76,23 @@
 //
 // bfloat16 g, f1 and f2 (entry points correlation_bwd_f1_bf16 and
 // correlation_bwd_f2_bf16, the bf16 model's K5 and K6, and their K7 forms
-// correlation_bwd_f1_rows_bf16 and correlation_bwd_f2_rows_bf16) run the
-// general bodies for every (maxd, s2), FlowNetC's included: the operands are
-// upcast exactly as they are staged into the float shared tiles, each output
-// is the float fmaf chain of the float body in its order, and it is rounded
-// once to bfloat16 after the division by C.  The TPU kernels feed bf16
-// operands to the matrix unit, sum in f32 and return f32
-// (correlation_pallas.py:541-602), which the JAX package casts to f1's dtype
-// (ops/correlation.py:296): the same value, rounded once.  The tiled bodies
-// stay float: their 16-byte cp.async staging copies f32 rows as they lie and
-// cannot upcast.  At 2 bytes a value FlowNet2's training shape moves ~41 MB a
-// kernel; the bound stays the FMA one.
+// correlation_bwd_f1_rows_bf16 and correlation_bwd_f2_rows_bf16): float32
+// sums of the bf16 products, divided by C and rounded once to bfloat16.  The
+// TPU kernels feed bf16 operands to the matrix unit, sum in f32 and return
+// f32 (correlation_pallas.py:541-602), which the JAX package casts to f1's
+// dtype (ops/correlation.py:296): the same value, rounded once.  At 2 bytes
+// a value FlowNet2's training shape moves ~41 MB a kernel, 0.0122 ms at
+// 3.35 TB/s, and its multiply-adds take ~0.005 ms at the bf16 tensor-core
+// rate: the bytes bound it.  Two bodies serve them:
+//
+// * correlation_bwd_f2_mma_kernel (namespace band), d_f2 and d_slab at
+//   maxd 20, s2 2: the TPU kernel's band product on the tensor cores.  See
+//   the note above it.
+// * the general bodies, d_f1 for every (maxd, s2) and d_f2 for every other:
+//   the operands are upcast exactly as they are staged into the float
+//   shared tiles and each output is the float fmaf chain of the float body
+//   in its order.  The tiled f32 bodies do not serve bf16: their 16-byte
+//   cp.async staging copies f32 rows as they lie and cannot upcast.
 
 #include <cstdint>
 
@@ -673,6 +681,395 @@ int launch_f2(const float* g, const float* f1, float* d_f2, int B, int C,
 }  // namespace tiled
 
 // ---------------------------------------------------------------------------
+// The tensor-core d_f2 body for bfloat16 g and f1 at maxd 20, s2 2 (K6 bf16
+// and K7 bf16 d_slab): the TPU kernel's band product on mma.sync.
+//
+// Replaces _bwd_f2_kernel (correlation_pallas.py:478, launched at :578; wide
+// form :225, :365), which builds, per output row and row shift, the band
+// matrix B_t[x, x2] of the bf16 cotangent and multiplies it with the bf16
+// f1 row on the matrix unit, summing in f32.  At the training shape, g
+// (8, 441, 48, 56) and f1, d_f2 (8, 256, 48, 56) in bf16 move ~41 MB,
+// 0.0122 ms at 3.35 TB/s; the 4.855 GFLOP of in-map multiply-adds take
+// ~0.005 ms at the bf16 tensor-core rate: the bytes bound it.
+//
+// For 16 output columns x2 = x0 + m of one output row at row shift tj,
+// with source row y, the window of 64 source columns [x0 - 24, x0 + 40)
+// holds every term:
+//
+//   d_f2[c][x2] += sum_k Band[k][m] * f1[c][y][x0 - 24 + k],
+//   Band[k][m] = g[tj*21 + ti][y][x0 - 24 + k] at k = m + 44 - 2 ti
+//
+// and zero elsewhere, 21 nonzeros in each column of 64.  That is an
+// m16n8k16 product with the channels as M (f1 as A, channel rows as they
+// lie: ldmatrix without .trans), the output columns as N (the band as B)
+// and the window's columns as K, four k-steps of 16: 3x the band's
+// multiply-adds on the tensor cores, bf16 operands as they lie, f32
+// accumulators.  The window starts 24 columns left of the tile, not 20,
+// so that every 8-column piece is 16-byte aligned (as in correlation_fwd.cu).
+// The channels are M, not the columns, so that a lane's accumulators hold
+// neighbouring output columns of one channel: the epilogue stores bf16
+// pairs straight from registers, x fastest, with no tile in shared memory
+// and no barrier; and one band fragment serves the block's 64 channels.
+//
+// The band is built in registers: of the two values of a B register (rows
+// k, k + 1 of column m) only the one whose k has m's parity can be nonzero,
+// so a lane loads the 4-byte pair that holds it from the staged cotangent
+// rows and masks the other half off (and the whole register where its ti
+// lies outside [0, 21)).  The pair's plane is ti0 + 4 (j - 2s - b) for
+// n-tile j, k-step s and register b, and its staged column does not
+// depend on j, s or b beyond the output column (planes 4 apart are staged
+// from columns 8 apart), so every register is one load at a fixed offset
+// from the lane's base and one AND with one of 9 masks worked out once.
+// Writing the 21 diagonals into a zeroed band tile and reading it with
+// ldmatrix would cost a store per value and a barrier per shift.
+//
+// A block is (batch, 64-column tile, 64 channels, kRows = 4 output rows of
+// one parity); warp (row, half) owns 32 columns of one row for all 64
+// channels, 64 accumulators a thread, and walks its window's 5 k-steps
+// (k-steps wholly outside the map and n-tiles wholly past it are skipped,
+// in both forms alike).  Output row y2 at shift tj reads source row
+// y2 + 20 - 2 tj (y2 - 2 tj in the slab form), so the block keeps a ring of
+// kRows + 1 staged f1 rows, filled in descending row order while the shifts
+// run tj ascending, as the f32 tiled body does: each f1 row is staged
+// (20 + 4) / 4 = 6 times, not 21.  Each shift stages one new f1 row (64
+// channel rows of 112 columns) and the 4 x 21 cotangent rows of 72
+// columns, from the 8-aligned column at or below the first one a plane
+// needs, into the other of two stages while the current shift is summed.
+// Rows lie in shared memory as in device memory, copied by 16-byte
+// cp.async where W % 8 == 0 and the tensors are 16-byte aligned, else 4
+// bytes (even W) or 2; a thread owns one staging slot of each kind whose
+// addresses are worked out once.  Columns outside [0, W) and channels past
+// C are staged as zeros; a row no warp reads is not staged.  Pitches of 240
+// and 160 bytes put ldmatrix's rows and the band loads on distinct banks.
+// 102.7 KB of shared memory, two blocks of 256 threads an SM.
+//
+// Every output sums its shifts in ascending order, each over the same
+// k-steps and fragment positions in the whole-map and the slab form (both
+// tile the columns and the channels from 0), so a band's d_slab rows carry
+// the bits of the whole-map call.  The products of bf16 values are exact in
+// f32; the order of the sums and the tensor cores' adds differ from the
+// general body's fmaf chain, which puts ~2 values in 10^4 one ulp apart.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (kernel_ab.py, the parent's general
+// body in the same call): 0.0775 ms for K6 at (8, 256, 48, 56) against
+// 0.8639 (11.1x), 0.0589 for K7 d_slab at one band of two, g (8, 441, 24,
+// 56) against its (8, 256, 64, 56) slab, against 0.6026; 16% and 15% of the
+// bytes' bound (0.0122, 0.0089 ms).  123 and 127 registers and no spills
+// for the 16-byte forms (8-52 bytes spilled by the 4- and 2-byte forms).
+// Tried and dropped, in one call: 32 channels a block, 0.0804 / 0.0712 ms
+// at three blocks an SM and 0.0846 / 0.0704 at two, and 2 rows a block
+// (128 threads, three blocks an SM), 0.0733 / 0.0614, against 0.0781 /
+// 0.0592 for this shape.
+// ---------------------------------------------------------------------------
+
+namespace band {
+
+constexpr int kMaxd = 20;                  // the body's configuration
+constexpr int kS2 = 2;
+constexpr int kD = 2 * (kMaxd / kS2) + 1;  // 21
+constexpr int kTileW = 64;                 // output columns a block
+constexpr int kRows = 4;                   // output rows (one parity) a block
+constexpr int kChunk = 64;                 // channels a block
+constexpr int kHalves = kTileW / 32;       // 32-column halves, a warp each
+constexpr int kThreads = 32 * kRows * kHalves;   // 256: warp = (row, half)
+constexpr int kMTiles = kChunk / 16;       // 16-channel m-tiles a warp
+constexpr int kNTiles = 4;                 // 8-column n-tiles a warp
+constexpr int kKSteps = 5;                 // 16-column k-steps a warp
+constexpr int kMinBlocks = 2;              // resident blocks asked for
+constexpr int kLead = 24;                  // window start, left of the tile
+constexpr int kSpan = kTileW + 2 * kLead;  // f1 columns staged: 112
+constexpr int kF1Pitch = kSpan + 8;        // bf16 a staged f1 channel row
+constexpr int kGCols = 72;                 // cotangent columns staged a plane
+constexpr int kGPitch = kGCols + 8;        // bf16 a staged cotangent row
+constexpr int kRing = kRows + 1;           // staged f1 rows
+constexpr int kF1Elems = kChunk * kF1Pitch;     // one staged f1 row
+constexpr int kGElems = kRows * kD * kGPitch;   // one shift's cotangent rows
+constexpr int kGBase = kRing * kF1Elems;        // the cotangent stages
+// The band loads of a lane run over planes ti0 - 28 .. ti0 + 4 with
+// ti0 in [19, 25]; those outside [0, 21) are masked to zero, but read: the
+// last stage's last row reaches 9 rows past the end.
+constexpr int kGPad = 9 * kGPitch;
+constexpr size_t kSmem =
+    sizeof(__nv_bfloat16) * (kGBase + 2 * kGElems + kGPad);
+// Staging slots: a thread copies one 8-column piece of the cotangent rows
+// of one output row for 3 consecutive planes, and one 8-column piece of
+// kF1CPer consecutive f1 channel rows.
+constexpr int kGPlanes = 3;
+constexpr int kGSlots = kRows * (kD / kGPlanes) * (kGCols / 8);   // 252
+constexpr int kF1CPer = kChunk / 16;
+constexpr int kF1Slots = (kChunk / kF1CPer) * (kSpan / 8);       // 224
+constexpr int kBandOff = (kLead + kMaxd) / kS2;   // 22
+static_assert(kD % kGPlanes == 0 && kGSlots <= kThreads &&
+              kF1Slots <= kThreads, "one slot of each kind a thread");
+static_assert(kSmem <= 113 * 1024, "two blocks an SM");
+static_assert((kF1Pitch * 2) % 16 == 0 && (kF1Pitch / 2) % 32 == 28 &&
+              kLead % 8 == 0 && kGCols % 8 == 0,
+              "16-byte ldmatrix rows on distinct banks");
+
+// The first column, relative to the tile's, of the staged row of plane ti:
+// the 8-aligned column at or below x2 + maxd - 2 ti for x2 = 0 (floor, for
+// negative values too).  Planes 4 apart start 8 columns apart.
+__device__ __forceinline__ int g_lead(int ti) {
+  return (kMaxd - kS2 * ti) & ~7;
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Copies the 8 values at src[off .. off + 8), global columns x .. x + 7,
+// into dst, kPiece a copy; a copy whose columns lie outside [0, W), or all
+// of them where ``ok`` is false, writes zeros.
+template <int kPiece>
+__device__ __forceinline__ void copy8(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, int64_t off,
+                                      int x, int W, bool ok) {
+#pragma unroll
+  for (int e = 0; e < 8; e += kPiece) {
+    const bool in = ok && x + e >= 0 && x + e < W;
+    stage_piece<kPiece>(dst + e, in ? src + off + e : src, in);
+  }
+}
+
+// Whether k-step s of a warp's window meets n-tile j of its 32 columns:
+// n-tile j reads window columns 8j + 4 .. 8j + 51.
+__host__ __device__ constexpr bool meets(int j, int s) {
+  return s >= j / 2 && s <= j / 2 + 3;
+}
+
+template <bool kSlab, int kPiece>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+correlation_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g,
+                              const __nv_bfloat16* __restrict__ f1,
+                              __nv_bfloat16* __restrict__ d_f2, int C, int H,
+                              int W) {
+  extern __shared__ __align__(16) __nv_bfloat16 smem16[];
+  const int H2 = kSlab ? H + 2 * kMaxd : H;   // rows of d_f2
+  const int shift = kSlab ? kMaxd : 0;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int half = (tid >> 5) % kHalves;     // 32-column half of the warp
+  const int r = (tid >> 5) / kHalves;        // output row of the warp
+  const int tiles = (W + kTileW - 1) / kTileW;
+  const int x0 = (blockIdx.x % tiles) * kTileW;
+  const int c0 = (blockIdx.x / tiles) * kChunk;
+  // blocks alternate row parity: rows ybase, ybase + 2, ...
+  const int ybase = (blockIdx.y >> 1) * (2 * kRows) + (blockIdx.y & 1);
+  const int b = blockIdx.z;
+  const int y2 = ybase + 2 * r;
+  const bool owns = y2 < H2;
+  // output row y2 at row shift n reads source row y2 - shift + maxd - 2n;
+  // staged f1 row rho is row row0 + 2 rho, so warp r reads
+  // rho = r + kD - 1 - n
+  const int row0 = ybase - shift - kMaxd;
+
+  const int64_t plane = static_cast<int64_t>(H) * W;
+
+  // Staging slots, their addresses worked out once.  The cotangent: slot
+  // u < kGSlots copies piece gp of the rows of planes gti .. gti + 2 of
+  // output row gr, from global column x0 + g_lead(ti) + 8 gp.
+  const bool g_slot = tid < kGSlots;
+  const int gp = tid % (kGCols / 8);
+  const int gti = tid / (kGCols / 8) % (kD / kGPlanes) * kGPlanes;
+  const int gr = tid / (kGCols / 8) / (kD / kGPlanes);
+  const bool g_live = g_slot && ybase + 2 * gr < H2;
+  const int gy0 = ybase + 2 * gr - shift + kMaxd;   // its source row, n = 0
+  const int gx = x0 + 8 * gp;
+  const int g_dst = (gr * kD + gti) * kGPitch + 8 * gp;
+  const int64_t g_base = static_cast<int64_t>(b) * kD * kD * plane + gx;
+  // f1: slot u < kF1Slots copies piece fp of channels fc .. fc + kF1CPer - 1
+  // of the chunk, from global column x0 - kLead + 8 fp.
+  const bool f_slot = tid < kF1Slots;
+  const int fp = tid % (kSpan / 8);
+  const int fc = tid / (kSpan / 8) * kF1CPer;
+  const int fx = x0 - kLead + 8 * fp;
+  const int f_left = C - c0 - fc;            // channels of the slot in C
+  const int f_dst = fc * kF1Pitch + 8 * fp;
+  const int64_t f_base = (static_cast<int64_t>(b) * C + c0 + fc) * plane + fx;
+
+  auto stage_g = [&](int n) {
+    const int y = gy0 - 2 * n;
+    if (!g_live || y < 0 || y >= H) return;   // no warp reads it
+    __nv_bfloat16* dst = smem16 + kGBase + (n & 1) * kGElems + g_dst;
+    const int64_t off =
+        g_base + (static_cast<int64_t>(n * kD + gti) * H + y) * W;
+#pragma unroll
+    for (int t = 0; t < kGPlanes; ++t) {
+      const int lead = g_lead(gti + t);
+      copy8<kPiece>(dst + t * kGPitch, g, off + t * plane + lead, gx + lead,
+                    W, true);
+    }
+  };
+  auto stage_f1 = [&](int rho) {
+    const int row = row0 + 2 * rho;
+    if (!f_slot || row < 0 || row >= H) return;   // no warp reads it
+    __nv_bfloat16* dst = smem16 + rho % kRing * kF1Elems + f_dst;
+    const int64_t off = f_base + static_cast<int64_t>(row) * W;
+#pragma unroll
+    for (int c = 0; c < kF1CPer; ++c)
+      copy8<kPiece>(dst + c * kF1Pitch, f1, off + c * plane, fx, W,
+                    c < f_left);
+  };
+
+  // The lane's fragments.  B, the band: lane (gq, qq) holds column
+  // n = 8j + gq of n-tile j and rows k = 16s + 8b + 2qq + {0, 1} of
+  // k-step s in register b.  Band[k][n] is g of plane
+  // ti = (n + kLead + maxd - k) / 2 at window column k where that is an
+  // integer in [0, kD), else zero: one of the two values of a register can
+  // be nonzero, the one whose k has n's parity, and it is read as the
+  // 4-byte pair that holds it, the other half masked off.  The plane is
+  // ti0 + 4 (j - 2s - b), and its staged row's column, k - kLead -
+  // g_lead(ti), does not depend on j, s or b beyond n: each register is one
+  // load at a fixed offset from the lane's base.
+  const int gq = lane >> 2;
+  const int qq = lane & 3;
+  const uint32_t keep = (gq & 1) ? 0xffff0000u : 0x0000ffffu;
+  const int ti0 = kBandOff - qq + (gq >> 1);
+  uint32_t mk[9];                  // keep, or 0 where ti0 + 4m is no plane
+#pragma unroll
+  for (int m = -7; m <= 1; ++m)
+    mk[m + 7] = static_cast<unsigned>(ti0 + 4 * m) < kD ? keep : 0u;
+  const int band_lane =
+      r * kD * kGPitch + ti0 * kGPitch + 2 * qq - kLead - g_lead(ti0) +
+      32 * half;
+  // A, f1: matrices (channels 0-7, 8-15) x (columns 0-7, 8-15) of a
+  // 16 x 16 tile in the fragment's order, channel rows as they lie.
+  const int a_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * kF1Pitch +
+                     ((lane >> 4) & 1) * 8 + 32 * half;
+  // k-steps whose window columns all lie outside the map and n-tiles
+  // whose columns all lie past it add nothing and are skipped; both forms
+  // skip the same ones
+  unsigned ksteps = 0, ntiles = 0;
+#pragma unroll
+  for (int s = 0; s < kKSteps; ++s) {
+    const int xs = x0 - kLead + 16 * (2 * half + s);
+    if (xs + 16 > 0 && xs < W) ksteps |= 1u << s;
+  }
+#pragma unroll
+  for (int j = 0; j < kNTiles; ++j)
+    if (x0 + 32 * half + 8 * j < W) ntiles |= 1u << j;
+
+  float acc[kMTiles][kNTiles][4];
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  for (int rho = kD - 1; rho < kD - 1 + kRows; ++rho) stage_f1(rho);
+  stage_g(0);
+  cp_async_commit();
+  for (int n = 0; n < kD; ++n) {
+    cp_async_wait<0>();
+    __syncthreads();     // shift n has landed; shift n - 1 is summed
+    if (n + 1 < kD) {
+      stage_f1(kD - 2 - n);
+      stage_g(n + 1);
+    }
+    cp_async_commit();
+    const int y = y2 - shift + kMaxd - 2 * n;   // the warp's source row
+    if (!owns || y < 0 || y >= H) continue;
+    const __nv_bfloat16* bp =
+        smem16 + kGBase + (n & 1) * kGElems + band_lane;
+    const __nv_bfloat16* ap =
+        smem16 + (r + kD - 1 - n) % kRing * kF1Elems + a_lane;
+#pragma unroll
+    for (int s = 0; s < kKSteps; ++s) {
+      if (!(ksteps >> s & 1)) continue;
+      uint32_t bq[kNTiles][2];
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        if (!meets(j, s)) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          bq[j][h] = lds32(bp + j * (4 * kGPitch + 8) - s * 8 * kGPitch -
+                           h * 4 * kGPitch) &
+                     mk[j - 2 * s - h + 7];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+        uint32_t a[4];
+        ldsm_x4(a, ap + mt * 16 * kF1Pitch + 16 * s);
+#pragma unroll
+        for (int j = 0; j < kNTiles; ++j)
+          if (meets(j, s) && (ntiles >> j & 1))
+            mma_bf16(acc[mt][j], a, bq[j][0], bq[j][1]);
+      }
+    }
+  }
+
+  // Divide by C, round once and store, x fastest: accumulator element e of
+  // (m-tile mt, n-tile j) is channel 16 mt + gq (+ 8 for e >= 2) and column
+  // 8j + 2qq + e % 2 of the warp's 32, so a lane holds neighbouring pairs.
+  if (!owns) return;
+  const float cf = static_cast<float>(C);
+  const int64_t plane2 = static_cast<int64_t>(H2) * W;
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 16 * mt + gq + 8 * h;
+      if (c >= C) continue;
+      __nv_bfloat16* o = d_f2 + (static_cast<int64_t>(b) * C + c) * plane2 +
+                         static_cast<int64_t>(y2) * W;
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        const int x = x0 + 32 * half + 8 * j + 2 * qq;
+        const float lo = acc[mt][j][2 * h] / cf;
+        const float hi = acc[mt][j][2 * h + 1] / cf;
+        if constexpr (kPiece > 1) {   // W even: the pair is 4-byte aligned
+          if (x < W) *reinterpret_cast<uint32_t*>(o + x) = bf16_pair(lo, hi);
+        } else {
+          if (x < W) fnet_store(o + x, lo);
+          if (x + 1 < W) fnet_store(o + x + 1, hi);
+        }
+      }
+    }
+  }
+}
+
+template <bool kSlab, int kPiece>
+int launch_as(const __nv_bfloat16* g, const __nv_bfloat16* f1,
+              __nv_bfloat16* d_f2, int B, int C, int H, int W,
+              cudaStream_t stream) {
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      correlation_bwd_f2_mma_kernel<kSlab, kPiece>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem)));
+  if (err) return err;
+  // row blocks with a first row inside the output: two (one per parity) for
+  // every 2*kRows of its H2 rows
+  const int H2 = kSlab ? H + 2 * kMaxd : H;
+  const int rest = H2 % (2 * kRows);
+  const int ny = H2 / (2 * kRows) * 2 + (rest < 2 ? rest : 2);
+  const dim3 grid((W + kTileW - 1) / kTileW * ((C + kChunk - 1) / kChunk), ny,
+                  B);
+  correlation_bwd_f2_mma_kernel<kSlab, kPiece>
+      <<<grid, kThreads, kSmem, stream>>>(g, f1, d_f2, C, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The copy width, chosen at launch as in correlation_fwd.cu: 16 bytes where
+// W % 8 == 0 and every tensor is 16-byte aligned, 4 where W is even and
+// they are 4-byte aligned, else 2.
+template <bool kSlab>
+int launch(const __nv_bfloat16* g, const __nv_bfloat16* f1,
+           __nv_bfloat16* d_f2, int B, int C, int H, int W,
+           cudaStream_t stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(f1) |
+                         reinterpret_cast<uintptr_t>(d_f2);
+  if (W % 8 == 0 && addr % 16 == 0)
+    return launch_as<kSlab, 8>(g, f1, d_f2, B, C, H, W, stream);
+  if (W % 2 == 0 && addr % 4 == 0)
+    return launch_as<kSlab, 2>(g, f1, d_f2, B, C, H, W, stream);
+  return launch_as<kSlab, 1>(g, f1, d_f2, B, C, H, W, stream);
+}
+
+}  // namespace band
+
+// ---------------------------------------------------------------------------
 // The general bodies: d_f1 for every other (maxd, s2), and d_f2.
 // ---------------------------------------------------------------------------
 
@@ -915,6 +1312,24 @@ int launch_f2(const float* g, const float* f1, float* d_f2, int B, int C,
                        kSlab ? H + 2 * maxd : H, maxd, s2, device, stream);
 }
 
+// The bf16 d_f2 (and d_slab): the tensor-core body for maxd 20, s2 2, the
+// general body on the upcast operands for any other (maxd, s2).
+template <bool kSlab>
+int launch_f2_bf16(const __nv_bfloat16* g, const __nv_bfloat16* f1,
+                   __nv_bfloat16* d_f2, int B, int C, int H, int W, int maxd,
+                   int s2, int device, void* stream) {
+  if (maxd == band::kMaxd && s2 == band::kS2) {
+    const int err = fnet_set_device(device);
+    if (err) return err;
+    return band::launch<kSlab>(g, f1, d_f2, B, C, H, W,
+                               static_cast<cudaStream_t>(stream));
+  }
+  return launch<__nv_bfloat16>(
+      correlation_bwd_f2_kernel<__nv_bfloat16, kSlab>, smem_f2(maxd, s2), g,
+      f1, d_f2, B, C, H, W, kSlab ? H + 2 * maxd : H, maxd, s2, device,
+      stream);
+}
+
 }  // namespace
 
 // K5.  g: (B, D*D, H, W); f2, d_f1: (B, C, H, W); all float32 and
@@ -945,15 +1360,16 @@ extern "C" int correlation_bwd_f1_bf16(const __nv_bfloat16* g,
       f2, d_f1, B, C, H, W, H, maxd, s2, device, stream);
 }
 
-// K6 for bfloat16 g and f1, likewise: d_f2 (B, C, H, W) bfloat16.
+// K6 for bfloat16 g and f1: float32 sums of the bf16 products, divided by
+// C and rounded once, so d_f2 is (B, C, H, W) bfloat16.  The tensor-core
+// body at maxd 20, s2 2, the general body for any other (maxd, s2).
 extern "C" int correlation_bwd_f2_bf16(const __nv_bfloat16* g,
                                        const __nv_bfloat16* f1,
                                        __nv_bfloat16* d_f2, int B, int C,
                                        int H, int W, int maxd, int s2,
                                        int device, void* stream) {
-  return launch<__nv_bfloat16>(
-      correlation_bwd_f2_kernel<__nv_bfloat16, false>, smem_f2(maxd, s2), g,
-      f1, d_f2, B, C, H, W, H, maxd, s2, device, stream);
+  return launch_f2_bf16<false>(g, f1, d_f2, B, C, H, W, maxd, s2, device,
+                               stream);
 }
 
 // K7 backward, d_f1.  g: (B, D*D, Hloc, W); slab: (B, C, Hloc + 2*maxd, W);
@@ -976,9 +1392,10 @@ extern "C" int correlation_bwd_f2_rows(const float* g, const float* f1,
                          stream);
 }
 
-// K7 backward for bfloat16 g, f1 and slab, any (maxd, s2), on the general
-// bodies, as the whole-map bf16 entry points (the TPU kernels' bf16 form,
-// correlation_pallas.py:528, :553-554).  d_f1: (B, C, Hloc, W) bfloat16.
+// K7 backward for bfloat16 g, f1 and slab, any (maxd, s2), on the bodies
+// of the whole-map bf16 entry points, chosen the same way (the TPU kernels'
+// bf16 form, correlation_pallas.py:528, :553-554).  d_f1: (B, C, Hloc, W)
+// bfloat16.
 extern "C" int correlation_bwd_f1_rows_bf16(const __nv_bfloat16* g,
                                             const __nv_bfloat16* slab,
                                             __nv_bfloat16* d_f1, int B, int C,
@@ -997,7 +1414,6 @@ extern "C" int correlation_bwd_f2_rows_bf16(const __nv_bfloat16* g,
                                             int C, int Hloc, int W, int maxd,
                                             int s2, int device,
                                             void* stream) {
-  return launch<__nv_bfloat16>(
-      correlation_bwd_f2_kernel<__nv_bfloat16, true>, smem_f2(maxd, s2), g,
-      f1, d_slab, B, C, Hloc, W, Hloc + 2 * maxd, maxd, s2, device, stream);
+  return launch_f2_bf16<true>(g, f1, d_slab, B, C, Hloc, W, maxd, s2, device,
+                              stream);
 }

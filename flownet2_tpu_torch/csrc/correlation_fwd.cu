@@ -445,47 +445,6 @@ static_assert(2 * kMmaPairs * kD * kBandPitch <= kMmaStages * kMmaStageElems,
 static_assert((kF1Pitch * 2) % 16 == 0 && (kF2Pitch * 2) % 16 == 0 &&
               kMmaLead % 8 == 0, "16-byte ldmatrix rows");
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += a . b for one m16n8k16 tile: bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 (to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Copies kPiece bf16 values into shared memory, or zeros where ``ok`` is
-// false: 8 (a 16-byte cp.async) or 2 (4-byte) asynchronously, 1 by a plain
-// load and store.
-template <int kPiece>
-__device__ __forceinline__ void stage_piece(__nv_bfloat16* dst,
-                                            const __nv_bfloat16* src,
-                                            bool ok) {
-  if constexpr (kPiece == 1) {
-    *reinterpret_cast<unsigned short*>(dst) =
-        ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
-  } else {
-    cp_async<2 * kPiece>(reinterpret_cast<float*>(dst),
-                         reinterpret_cast<const float*>(src), ok);
-  }
-}
-
 template <bool kSlab, int kPiece>
 __global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
 correlation_fwd_mma_kernel(const __nv_bfloat16* __restrict__ f1,

@@ -25,10 +25,11 @@ twelve float32 digests), then of the bf16 K5, K6, K3, K4, K7, K1 and K2
 (the inputs come from a fixed seed, so two checkouts that print the same
 digest computed the same bits), the SM clock and its maximum as nvidia-smi
 reads them after the timings, and ptxas's register counts (none for
-libraries an earlier run in that checkout has built).  It keeps the bf16
-K1 and K7 forward outputs in ``build/kernel_ab/<tag>.pt`` under the
-working directory and prints, on a second line, the share of their values
-that differ from those a run of another tag kept there.
+libraries an earlier run in that checkout has built).  It keeps the
+outputs of the bf16 kernels that run a tensor-core body (K1, K7 forward,
+K6 and K7 d_slab) in ``build/kernel_ab/<tag>.pt`` under the working
+directory and prints, on a second line, the share of their values that
+differ from those a run of another tag kept there.
 
 Two commits are compared on one card in one call, in turns, since two calls
 may land on two cards: unpack the parent with ``git archive <commit>
@@ -221,9 +222,11 @@ def main(root: str, tag: str) -> int:
           "| sha1:", ", ".join(f"{k} {v}" for k, v in digests.items()),
           "| SM clock, max:", clock,
           "| registers:", ", ".join(registers))
-    # the bf16 correlation forwards against those of runs of other tags
-    kept = {name: bf16(bf16_kernels[name]) for name in ("K1 bf16",
-                                                        "K7 fwd bf16")}
+    # the bf16 tensor-core bodies' outputs against those of runs of other
+    # tags
+    kept = {name: bf16(bf16_kernels[name])
+            for name in ("K1 bf16", "K7 fwd bf16", "K6 bf16",
+                         "K7 d_slab bf16")}
     if all(out is not None for out in kept.values()):
         store = Path("build") / "kernel_ab"
         store.mkdir(parents=True, exist_ok=True)
