@@ -35,9 +35,10 @@ Phases (any failure raises and the script exits non-zero):
    K2 for one flow
    of +-8 px and of +-200 px and for two flows over the (8, 3, 384, 512)
    image and the ragged (2, 3, 100, 150) one, K5 and K6 at the training,
-   the main-path, the wide and the two ragged maps and at (2, 40, 3, 64)
-   and (2, 40, 5, 75) (K6's tensor-core body; its flip rate is printed),
-   and at maxd 8, s2 1 and maxd 4, s2 2 (their general bodies), K3 (out)
+   the main-path, the wide and the two ragged maps, at (2, 40, 20, 150)
+   (4-byte copies) and at (2, 40, 3, 64) and (2, 40, 5, 75) (their
+   tensor-core bodies; their flip rates are printed), and at maxd 8, s2 1
+   and maxd 4, s2 2 (their general bodies), K3 (out)
    and K4 on K3's and K4's f32 cases, each element
    within one bf16 ulp (rtol 2^-7, atol 1e-6 of the largest |out|) of the
    plain version and at most 1% of them not bit-equal; K3's float32 d1 and
@@ -47,7 +48,8 @@ Phases (any failure raises and the script exits non-zero):
    (2, 40, 5, 64) map (bands of one row, whose slabs are all halo but that
    row), every band's forward
    and d_f1 bit for bit the same rows of K1 bf16 and K5 bf16, one band's
-   d_slab rows [20, 20 + H) K6 bf16's, the top, a middle and the bottom
+   d_slab rows [20, 20 + H) K6 bf16's (the flip rates of the d_f1 bands
+   printed), the top, a middle and the bottom
    band at one ulp of the plain version; the bf16 local-rows K2, K3 (out;
    d1, d2 float32) and K4, one and two flows at +-8 px and +-200 px, on
    the bands of 2 and of 4 (the second band of two of a 384-row image
@@ -138,10 +140,10 @@ Phases (any failure raises and the script exits non-zero):
    same work and, where one PyTorch call computes the same function, that
    call's time, at the main-path shapes (K7 at one band of two; the bf16
    forms of K1, K2 at the bf16 forward's shapes and of K3, K4, K5, K6 at
-   the bf16 step's, their operations at the bf16 tensor-core rate and, but
-   for the correlation forward and d_f2 (tensor-core bodies), also at the
-   f32 rate their bodies sum at; K7 bf16 at one band of two of the
-   bf16 forward's and step's maps, likewise), each beside
+   the bf16 step's, their operations at the bf16 tensor-core rate and,
+   for the warps, whose bodies upcast and sum in f32, also at the f32
+   rate; K7 bf16 at one band of two of the bf16 forward's and step's maps,
+   likewise), each beside
    the SM clock; then the one-flow K2 and K4 and their library calls with a
    cold L2 cache (six input sets of 31-44 MB taken in turn).
 7. Where the device time goes: the phase 3 model and pair, 5 forwards, the
@@ -787,17 +789,19 @@ def main() -> int:
                 r2d.resample2d_multi_cuda(im, fl),
                 r2d.resample2d_multi_plain(im, fl), f"K2 bf16 warp, {what}"))
 
-        # the bf16 forms of K5 (its general body) and K6 (its tensor-core
-        # body at maxd 20, s2 2) at the training, the main-path, the wide
-        # and the two ragged maps and at maps of 3 and 5 rows, which end
-        # inside a block's rows (W = 75 odd: 2-byte copies), and at the two
-        # other configurations (the general bodies)
+        # the bf16 forms of K5 and K6 (their tensor-core bodies at maxd 20,
+        # s2 2) at the training, the main-path, the wide and the two ragged
+        # maps, at W = 150 (even, no multiple of 8: 4-byte copies) and at
+        # maps of 3 and 5 rows, which end inside a block's rows (W = 75
+        # odd: 2-byte copies), and at the two other configurations (the
+        # general bodies)
         bwd_cases = [(shape, 20, 2) for shape in (
             (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8),
             (BATCH, 256, HEIGHT // 8, WIDTH // 8), (4, 256, 48, 128),
-            (2, 40, 20, 152), odd_shape, (2, 40, 3, 64), (2, 40, 5, 75))]
+            (2, 40, 20, 152), odd_shape, (2, 40, 20, 150), (2, 40, 3, 64),
+            (2, 40, 5, 75))]
         bwd_cases += [(odd_shape, 8, 1), (odd_shape, 4, 2)]
-        k6_flips = []
+        bwd_flips = ([], [])
         for shape, maxd, s2 in bwd_cases:
             f1, f2 = (randn(*shape, gen=bf16_gen).bfloat16() for _ in range(2))
             g = randn(shape[0], (2 * (maxd // s2) + 1) ** 2, *shape[2:],
@@ -810,10 +814,13 @@ def main() -> int:
                     got[k], want[k], f"K{5 + k} bf16 correlation d_f{1 + k} "
                     f"{shape}, maxd {maxd}, s2 {s2}"))
             if maxd == 20:
-                k6_flips.append((got[1] != want[1]).float().mean().item())
-        note(f"  K6 bf16 (tensor-core body) against its plain version: "
-             f"{min(k6_flips):.4%} to {max(k6_flips):.4%} of the values not "
-             f"bit-equal over the {len(k6_flips)} maxd 20 maps")
+                for k in range(2):
+                    bwd_flips[k].append(
+                        (got[k] != want[k]).float().mean().item())
+        for k, flips in enumerate(bwd_flips):
+            note(f"  K{5 + k} bf16 (tensor-core body) against its plain "
+                 f"version: {min(flips):.4%} to {max(flips):.4%} of the "
+                 f"values not bit-equal over the {len(flips)} maxd 20 maps")
         # the bf16 forms of K3 and K4 on phase 2's K3/K4 cases: out and the
         # flow gradient at one ulp, K3's float32 d1 and d2 at 1e-5, and K4
         # against the tangent route's bf16 flow gradient
@@ -844,15 +851,17 @@ def main() -> int:
             ulp_err(k4, tangent_grad, f"K4 bf16 against the tangent route's "
                     f"bf16 d_flow, {what}")
 
-        # the bf16 row bands: K7 bf16 (the forward and d_slab on K1's and
-        # K6's bf16 tensor-core bodies, d_f1 on the general body) on the
-        # bands of the main paths', the wide and the ragged maps, as the f32
-        # K7 above, and of a 5-row map, whose bands of 4 are one row each, so
-        # that 40 of the 41 rows of each slab are halo: every band's forward
-        # and d_f1 the same rows of K1 bf16 and K5 bf16 bit for bit, one band's
-        # d_slab rows [20, 20 + H) K6 bf16's, and the top, a middle and the
-        # bottom band at one ulp of the plain version
+        # the bf16 row bands: K7 bf16 (the forward, d_f1 and d_slab on K1's,
+        # K5's and K6's bf16 tensor-core bodies) on the bands of the main
+        # paths', the wide and the ragged maps, as the f32 K7 above, and of
+        # a 5-row map, whose bands of 4 are one row each, so that 40 of the
+        # 41 rows of each slab are halo: every band's forward and d_f1 the
+        # same rows of K1 bf16 and K5 bf16 bit for bit, one band's d_slab
+        # rows [20, 20 + H) K6 bf16's, and the top, a middle and the bottom
+        # band at one ulp of the plain version (the d_f1 bands' flip rates
+        # noted)
         rows16_names = tuple(n + "_bf16" for n in slab_names)
+        d_f1_flips = []
         for shape in ((BATCH, 256, HEIGHT // 8, WIDTH // 8),
                       (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8),
                       (4, 256, 48, 128), (2, 40, 20, 152), odd_shape,
@@ -894,8 +903,13 @@ def main() -> int:
                         errs.setdefault(name, []).append(ulp_err(
                             a, b, f"K7 bf16 {name} {shape}, band {band} of "
                             f"{shards}"))
+                    d_f1_flips.append(
+                        (got[1] != want[1]).float().mean().item())
             print(f"  K7 bf16 {shape}: one band bit-equal to K1, K5, K6 bf16; "
                   "the bands of 2 and of 4 bit-equal to K1, K5 bf16's rows")
+        note(f"  K7 bf16 d_f1 (K5's tensor-core body) against its plain "
+             f"version: {min(d_f1_flips):.4%} to {max(d_f1_flips):.4%} of the "
+             f"values not bit-equal over {len(d_f1_flips)} bands")
 
         # the bf16 local-rows K2, K3, K4 against the same rows of the
         # whole-image bf16 kernels, at +-8 px and +-200 px, one and two
@@ -1715,9 +1729,9 @@ def main() -> int:
 
         # the bf16 forms at the bf16 path's shapes, 2 bytes a value; the
         # operations at the card's rate for bf16 (its tensor cores), the
-        # correlation backward's also at the f32 rate that its bodies, which
-        # upcast and sum in f32, can reach (bound_ms_f32_body; the forward
-        # runs on the tensor cores).  No library
+        # warps' also at the f32 rate that their bodies, which upcast and
+        # sum in f32, can reach (bound_ms_f32_body; the correlation runs on
+        # the tensor cores).  No library
         # call: F.grid_sample wants its grid in the image's dtype, and a bf16
         # grid moves the sample point 2-4 px at 512 columns
         b, c, h, w = BATCH, 256, HEIGHT // 8, WIDTH // 8
@@ -1741,8 +1755,8 @@ def main() -> int:
                          fn, plain, None,
                          2 * b * h * w * (ch + nflows * (2 + ch)),
                          b * nflows * h * w * (10 + 7 * ch)))
-        # the bf16 training kernels at the bf16 step's shapes: K5 (general
-        # body) and K6 (tensor-core body) at (8, 256, 48, 56), K3 and K4 at
+        # the bf16 training kernels at the bf16 step's shapes: K5 and K6
+        # (tensor-core bodies) at (8, 256, 48, 56), K3 and K4 at
         # (8, 3, 384, 448) with +-8 px flows; K3's d1 and d2 are float32
         b, c, h, w = TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8
         tf1_16, tf2_16, tg_16 = (t.bfloat16() for t in (tf1, tf2, tg))
@@ -1782,9 +1796,8 @@ def main() -> int:
                                                             one16),
                      None, 2 * b * h * w * (2 * ch + 2 + 2),
                      b * h * w * (10 + 12 * ch)))
-        # K7 bf16 (the forward and d_slab on tensor-core bodies, d_f1 on
-        # the general body) at one band of the bf16 forward's and the bf16
-        # step's maps
+        # K7 bf16 (tensor-core bodies) at one band of the bf16 forward's and
+        # the bf16 step's maps
         k7_rows(torch.bfloat16)
 
         kernels = []
@@ -1802,12 +1815,8 @@ def main() -> int:
                 f"{flops / 1e9:.3f} GFLOP)  [{smi}; SM clock, max: "
                 f"{sm_clock()}]")
             extra = {}
-            if bf16 and not name.startswith(("correlation_fwd",
-                                             "correlation_bwd_f2")):
+            if bf16 and not name.startswith("correlation"):
                 extra["bound_ms_f32_body"] = bound_ms(nbytes, flops, peaks)[0]
-                if name.startswith("correlation"):
-                    say(f"  {name}: bound at the f32 rate of its body "
-                        f"{extra['bound_ms_f32_body']:.4f} ms")
             step16_k = route16_launches[
                 "tangents" if "tangents" in name else "grad_flow"][0]
             if name in launches:      # over the phase 3 forwards

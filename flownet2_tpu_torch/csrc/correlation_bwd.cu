@@ -83,16 +83,18 @@
 // dtype (ops/correlation.py:296): the same value, rounded once.  At 2 bytes
 // a value FlowNet2's training shape moves ~41 MB a kernel, 0.0122 ms at
 // 3.35 TB/s, and its multiply-adds take ~0.005 ms at the bf16 tensor-core
-// rate: the bytes bound it.  Two bodies serve them:
+// rate: the bytes bound it.  Two bodies serve each, chosen by configuration
+// in launch_f1_bf16() and launch_f2_bf16():
 //
-// * correlation_bwd_f2_mma_kernel (namespace band), d_f2 and d_slab at
-//   maxd 20, s2 2: the TPU kernel's band product on the tensor cores.  See
-//   the note above it.
-// * the general bodies, d_f1 for every (maxd, s2) and d_f2 for every other:
-//   the operands are upcast exactly as they are staged into the float
-//   shared tiles and each output is the float fmaf chain of the float body
-//   in its order.  The tiled f32 bodies do not serve bf16: their 16-byte
-//   cp.async staging copies f32 rows as they lie and cannot upcast.
+// * correlation_bwd_f1_mma_kernel and correlation_bwd_f2_mma_kernel
+//   (namespace band), d_f1 and d_f2 (and K7's d_f1 and d_slab) at maxd 20,
+//   s2 2: the TPU kernels' band products on the tensor cores.  See the
+//   notes above them.
+// * the general bodies, for every other (maxd, s2): the operands are upcast
+//   exactly as they are staged into the float shared tiles and each output
+//   is the float fmaf chain of the float body in its order.  The tiled f32
+//   bodies do not serve bf16: their 16-byte cp.async staging copies f32
+//   rows as they lie and cannot upcast.
 
 #include <cstdint>
 
@@ -1030,41 +1032,312 @@ correlation_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core d_f1 body for bfloat16 g and f2 at maxd 20, s2 2 (K5 bf16
+// and K7 bf16 d_f1): the d_f2 body above, mirrored.
+//
+// Replaces _bwd_f1_kernel (correlation_pallas.py:449, launched at :557; wide
+// form :201, :340), which builds, per output row and row shift, the band
+// matrix G_t[x, v] = g[y, x, t*D + (v - x)/s2] of the bf16 cotangent and
+// multiplies it with the bf16 f2 row on the matrix unit, summing in f32.
+// At the training shape, g (8, 441, 48, 56) and f2, d_f1 (8, 256, 48, 56)
+// in bf16 move ~41 MB, 0.0122 ms at 3.35 TB/s; the 4.855 GFLOP of in-map
+// multiply-adds take ~0.005 ms at the bf16 tensor-core rate: the bytes bound
+// it.
+//
+// For 16 output columns x = x0 + m of one output row y at row shift tj,
+// with f2 row y2 = y + shift + 2 (tj - 10), the window of 64 f2 columns
+// [x0 - 24, x0 + 40) holds every term:
+//
+//   d_f1[c][x] += sum_k f2[c][y2][x0 - 24 + k] * Band[k][m],
+//   Band[k][m] = g[tj*21 + ti][y][x0 + m] at k = m + 4 + 2 ti
+//
+// and zero elsewhere.  The roles are the d_f2 body's: the channels are M (f2
+// as A, channel rows as they lie: ldmatrix without .trans), the output
+// columns N (the band as B, built in registers), the window's columns K;
+// n-tile j of a warp's 32 columns reads window columns 8j + 4 .. 8j + 51,
+// so ``meets`` and the skipped k-steps and n-tiles are the d_f2 body's.
+// What differs is where the band is read: at the output column, not the
+// source column.  So each plane's staged cotangent row is the tile's own 64
+// columns, with no per-plane lead, and in register h of n-tile j at k-step
+// s, lane (gq, qq) holds Band[k][n] for k = 16s + 8h + 2qq + {0, 1},
+// n = 8j + gq, of which only the half gq & 1 can be nonzero, of plane
+// ti = ti0 + 4 (2s + h - j), ti0 = qq - (gq >> 1) - 2: the half gq & 1 of
+// the 4-byte pair at column 32 half + 8j + 2 (gq >> 1) of that plane's row.
+// Every register is one load at a fixed offset from the lane's base and one
+// AND with one of 9 masks (2s + h - j runs over [-1, 7] where ``meets``
+// holds); the planes read run from ti0 - 4 to ti0 + 28, so the loads reach
+// 9 rows before the first stage (the f2 ring there) and 9 rows past the
+// last (kF1GPad), masked to zero.  A cotangent pitch of 72 bf16 puts the 16
+// words of every band load on 16 banks; 64 would put them on 4.
+//
+// A block is (batch, 64-column tile, 64 channels, kRows = 4 output rows of
+// one parity); warp (row, half) owns 32 columns of one row for all 64
+// channels.  Output row y at shift tj reads f2 row y + shift - 20 + 2 tj:
+// the block keeps a ring of kRows + 1 staged f2 rows filled in ascending
+// row order, warp r reading ring row r + n at shift n, and while shift n is
+// summed stages row n + kRows into the slot that shift n - 1 freed (the
+// f32 tiled body's ring): each f2 row is staged (20 + 4) / 4 = 6 times, not
+// 21.  The f2 rows are staged as the d_f2 body stages f1 (112 columns,
+// pitch 120, 4 channels a slot); each shift's 4 x 21 cotangent rows of 64
+// columns go into the other of two stages, a slot copying one 8-column
+// piece of 3 planes of one row (224 slots).  A row no warp reads is not
+// staged; columns outside [0, W) and channels past C are staged as zeros.
+// 99.9 KB of shared memory, two blocks of 256 threads an SM.
+//
+// Every output sums its shifts in ascending order, each over the same
+// k-steps and fragment positions in the whole-map and the slab form (both
+// tile the columns and the channels from 0).  Where the whole map skips a
+// shift whose f2 row lies outside the map, the slab form reads a zero halo
+// row of the slab: its mma products are zeros, which leave the sums as they
+// are.  So every band's d_f1 rows carry the bits of the whole-map call.
+// The products of bf16 values are exact in f32; the order of the sums and
+// the tensor cores' adds differ from the general body's fmaf chain, which
+// puts ~2 values in 10^4 one ulp apart.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (kernel_ab.py, the parent's general
+// body in the same call): 0.0809 and 0.0804 ms for K5 at (8, 256, 48, 56)
+// against 0.6503 and 0.6570 (8.1x; the f32 tiled body 0.186), 0.0464 and
+// 0.0463 for K7 d_f1 at one band of two, g (8, 441, 24, 56) against its
+// (8, 256, 64, 56) slab, against 0.4644 and 0.4631 (10.0x); 15% and 19% of
+// the bytes' bound (0.0122, 0.0089 ms).  ptxas: 115 registers and no spill
+// in the 16-byte forms, 128 registers in the 4- and 2-byte forms (4 bytes
+// spilled by the whole-map 2-byte form).
+// ---------------------------------------------------------------------------
+
+constexpr int kF1GCols = kTileW;           // cotangent columns staged a plane
+constexpr int kF1GPitch = kF1GCols + 8;    // bf16 a staged cotangent row
+constexpr int kF1GElems = kRows * kD * kF1GPitch;   // one shift's rows
+constexpr int kF1GPad = 9 * kF1GPitch;     // read past the last stage
+constexpr size_t kSmemF1 =
+    sizeof(__nv_bfloat16) * (kGBase + 2 * kF1GElems + kF1GPad);
+constexpr int kF1GSlots = kRows * (kD / kGPlanes) * (kF1GCols / 8);   // 224
+constexpr int kF1BandOff = (kLead - kMaxd) / kS2;   // 2
+static_assert(kF1GSlots <= kThreads && kSmemF1 <= 113 * 1024,
+              "one slot a thread, two blocks an SM");
+static_assert(kGBase >= 9 * kF1GPitch, "the ring lies below the first stage");
+static_assert((kF1GPitch * 2) % 16 == 0 && (kF1GPitch / 2) % 32 == 4,
+              "16-byte rows; band loads on distinct banks");
+
 template <bool kSlab, int kPiece>
-int launch_as(const __nv_bfloat16* g, const __nv_bfloat16* f1,
-              __nv_bfloat16* d_f2, int B, int C, int H, int W,
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+correlation_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g,
+                              const __nv_bfloat16* __restrict__ f2,
+                              __nv_bfloat16* __restrict__ d_f1, int C, int H,
+                              int W) {
+  extern __shared__ __align__(16) __nv_bfloat16 smem16[];
+  const int H2 = kSlab ? H + 2 * kMaxd : H;   // rows of f2
+  const int shift = kSlab ? kMaxd : 0;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int half = (tid >> 5) % kHalves;     // 32-column half of the warp
+  const int r = (tid >> 5) / kHalves;        // output row of the warp
+  const int tiles = (W + kTileW - 1) / kTileW;
+  const int x0 = (blockIdx.x % tiles) * kTileW;
+  const int c0 = (blockIdx.x / tiles) * kChunk;
+  // blocks alternate row parity: rows ybase, ybase + 2, ...
+  const int ybase = (blockIdx.y >> 1) * (2 * kRows) + (blockIdx.y & 1);
+  const int b = blockIdx.z;
+  const int y = ybase + 2 * r;
+  const bool owns = y < H;
+  // output row y at row shift n reads f2 row y + shift - maxd + 2n; staged
+  // f2 row rho is row row0 + 2 rho, so warp r reads rho = r + n
+  const int row0 = ybase + shift - kMaxd;
+
+  const int64_t plane = static_cast<int64_t>(H) * W;
+  const int64_t plane2 = static_cast<int64_t>(H2) * W;
+
+  // Staging slots, their addresses worked out once.  The cotangent: slot
+  // u < kF1GSlots copies piece gp of the rows of planes gti .. gti + 2 of
+  // output row gr, from global column x0 + 8 gp.
+  const bool g_slot = tid < kF1GSlots;
+  const int gp = tid % (kF1GCols / 8);
+  const int gti = tid / (kF1GCols / 8) % (kD / kGPlanes) * kGPlanes;
+  const int gr = tid / (kF1GCols / 8) / (kD / kGPlanes);
+  const int gy = ybase + 2 * gr;                  // its row
+  const bool g_live = g_slot && gy < H;
+  const int gy2 = gy + shift - kMaxd;             // its warp's f2 row, n = 0
+  const int gx = x0 + 8 * gp;
+  const int g_dst = (gr * kD + gti) * kF1GPitch + 8 * gp;
+  const int64_t g_base = (static_cast<int64_t>(b) * kD * kD + gti) * plane +
+                         static_cast<int64_t>(gy) * W + gx;
+  // f2: slot u < kF1Slots copies piece fp of channels fc .. fc + kF1CPer - 1
+  // of the chunk, from global column x0 - kLead + 8 fp.
+  const bool f_slot = tid < kF1Slots;
+  const int fp = tid % (kSpan / 8);
+  const int fc = tid / (kSpan / 8) * kF1CPer;
+  const int fx = x0 - kLead + 8 * fp;
+  const int f_left = C - c0 - fc;            // channels of the slot in C
+  const int f_dst = fc * kF1Pitch + 8 * fp;
+  const int64_t f_base =
+      (static_cast<int64_t>(b) * C + c0 + fc) * plane2 + fx;
+
+  auto stage_g = [&](int n) {
+    const int y2 = gy2 + 2 * n;
+    if (!g_live || y2 < 0 || y2 >= H2) return;   // no warp reads it
+    __nv_bfloat16* dst = smem16 + kGBase + (n & 1) * kF1GElems + g_dst;
+    const int64_t off = g_base + static_cast<int64_t>(n * kD) * plane;
+#pragma unroll
+    for (int t = 0; t < kGPlanes; ++t)
+      copy8<kPiece>(dst + t * kF1GPitch, g, off + t * plane, gx, W, true);
+  };
+  auto stage_f2 = [&](int rho) {
+    const int row = row0 + 2 * rho;
+    if (!f_slot || row < 0 || row >= H2) return;   // no warp reads it
+    __nv_bfloat16* dst = smem16 + rho % kRing * kF1Elems + f_dst;
+    const int64_t off = f_base + static_cast<int64_t>(row) * W;
+#pragma unroll
+    for (int c = 0; c < kF1CPer; ++c)
+      copy8<kPiece>(dst + c * kF1Pitch, f2, off + c * plane2, fx, W,
+                    c < f_left);
+  };
+
+  // The lane's fragments.  B, the band: register h of n-tile j at k-step s
+  // is the pair at bp + j (8 - 4 pitch) + s 8 pitch + h 4 pitch (plane
+  // ti0 + 4 (2s + h - j), column 32 half + 8j + 2 (gq >> 1)), masked to the
+  // half gq & 1 where that plane lies in [0, kD).  A, f2: as in the d_f2
+  // body.
+  const int gq = lane >> 2;
+  const int qq = lane & 3;
+  const uint32_t keep = (gq & 1) ? 0xffff0000u : 0x0000ffffu;
+  const int ti0 = qq - (gq >> 1) - kF1BandOff;
+  uint32_t mk[9];                  // keep, or 0 where ti0 + 4m is no plane
+#pragma unroll
+  for (int m = -1; m <= 7; ++m)
+    mk[m + 1] = static_cast<unsigned>(ti0 + 4 * m) < kD ? keep : 0u;
+  const int band_lane = (r * kD + ti0) * kF1GPitch + 2 * (gq >> 1) +
+                        32 * half;
+  const int a_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * kF1Pitch +
+                     ((lane >> 4) & 1) * 8 + 32 * half;
+  // k-steps whose window columns all lie outside the map and n-tiles
+  // whose columns all lie past it add nothing and are skipped; both forms
+  // skip the same ones
+  unsigned ksteps = 0, ntiles = 0;
+#pragma unroll
+  for (int s = 0; s < kKSteps; ++s) {
+    const int xs = x0 - kLead + 16 * (2 * half + s);
+    if (xs + 16 > 0 && xs < W) ksteps |= 1u << s;
+  }
+#pragma unroll
+  for (int j = 0; j < kNTiles; ++j)
+    if (x0 + 32 * half + 8 * j < W) ntiles |= 1u << j;
+
+  float acc[kMTiles][kNTiles][4];
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  for (int rho = 0; rho < kRows; ++rho) stage_f2(rho);
+  stage_g(0);
+  cp_async_commit();
+  for (int n = 0; n < kD; ++n) {
+    cp_async_wait<0>();
+    __syncthreads();     // shift n has landed; shift n - 1 is summed
+    if (n + 1 < kD) {
+      stage_f2(n + kRows);
+      stage_g(n + 1);
+    }
+    cp_async_commit();
+    const int y2 = y + shift - kMaxd + 2 * n;   // the warp's f2 row
+    if (!owns || y2 < 0 || y2 >= H2) continue;
+    const __nv_bfloat16* bp =
+        smem16 + kGBase + (n & 1) * kF1GElems + band_lane;
+    const __nv_bfloat16* ap = smem16 + (r + n) % kRing * kF1Elems + a_lane;
+#pragma unroll
+    for (int s = 0; s < kKSteps; ++s) {
+      if (!(ksteps >> s & 1)) continue;
+      uint32_t bq[kNTiles][2];
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        if (!meets(j, s)) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          bq[j][h] = lds32(bp + j * (8 - 4 * kF1GPitch) +
+                           s * 8 * kF1GPitch + h * 4 * kF1GPitch) &
+                     mk[2 * s + h - j + 1];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+        uint32_t a[4];
+        ldsm_x4(a, ap + mt * 16 * kF1Pitch + 16 * s);
+#pragma unroll
+        for (int j = 0; j < kNTiles; ++j)
+          if (meets(j, s) && (ntiles >> j & 1))
+            mma_bf16(acc[mt][j], a, bq[j][0], bq[j][1]);
+      }
+    }
+  }
+
+  // Divide by C, round once and store, x fastest, as the d_f2 body does.
+  if (!owns) return;
+  const float cf = static_cast<float>(C);
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 16 * mt + gq + 8 * h;
+      if (c >= C) continue;
+      __nv_bfloat16* o = d_f1 + (static_cast<int64_t>(b) * C + c) * plane +
+                         static_cast<int64_t>(y) * W;
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        const int x = x0 + 32 * half + 8 * j + 2 * qq;
+        const float lo = acc[mt][j][2 * h] / cf;
+        const float hi = acc[mt][j][2 * h + 1] / cf;
+        if constexpr (kPiece > 1) {   // W even: the pair is 4-byte aligned
+          if (x < W) *reinterpret_cast<uint32_t*>(o + x) = bf16_pair(lo, hi);
+        } else {
+          if (x < W) fnet_store(o + x, lo);
+          if (x + 1 < W) fnet_store(o + x + 1, hi);
+        }
+      }
+    }
+  }
+}
+
+// Either body: kF1 picks the d_f1 body, whose grid covers the H output
+// rows, or the d_f2 body, whose grid covers the H2 rows of d_f2.
+template <bool kF1, bool kSlab, int kPiece>
+int launch_as(const __nv_bfloat16* g, const __nv_bfloat16* src,
+              __nv_bfloat16* out, int B, int C, int H, int W,
               cudaStream_t stream) {
+  const auto kernel = kF1 ? correlation_bwd_f1_mma_kernel<kSlab, kPiece>
+                          : correlation_bwd_f2_mma_kernel<kSlab, kPiece>;
+  const size_t smem = kF1 ? kSmemF1 : kSmem;
   const int err = static_cast<int>(cudaFuncSetAttribute(
-      correlation_bwd_f2_mma_kernel<kSlab, kPiece>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem)));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
   if (err) return err;
   // row blocks with a first row inside the output: two (one per parity) for
-  // every 2*kRows of its H2 rows
-  const int H2 = kSlab ? H + 2 * kMaxd : H;
-  const int rest = H2 % (2 * kRows);
-  const int ny = H2 / (2 * kRows) * 2 + (rest < 2 ? rest : 2);
+  // every 2*kRows of its rows
+  const int rows = kF1 || !kSlab ? H : H + 2 * kMaxd;
+  const int rest = rows % (2 * kRows);
+  const int ny = rows / (2 * kRows) * 2 + (rest < 2 ? rest : 2);
   const dim3 grid((W + kTileW - 1) / kTileW * ((C + kChunk - 1) / kChunk), ny,
                   B);
-  correlation_bwd_f2_mma_kernel<kSlab, kPiece>
-      <<<grid, kThreads, kSmem, stream>>>(g, f1, d_f2, C, H, W);
+  kernel<<<grid, kThreads, smem, stream>>>(g, src, out, C, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The copy width, chosen at launch as in correlation_fwd.cu: 16 bytes where
 // W % 8 == 0 and every tensor is 16-byte aligned, 4 where W is even and
 // they are 4-byte aligned, else 2.
-template <bool kSlab>
-int launch(const __nv_bfloat16* g, const __nv_bfloat16* f1,
-           __nv_bfloat16* d_f2, int B, int C, int H, int W,
+template <bool kF1, bool kSlab>
+int launch(const __nv_bfloat16* g, const __nv_bfloat16* src,
+           __nv_bfloat16* out, int B, int C, int H, int W,
            cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(g) |
-                         reinterpret_cast<uintptr_t>(f1) |
-                         reinterpret_cast<uintptr_t>(d_f2);
+                         reinterpret_cast<uintptr_t>(src) |
+                         reinterpret_cast<uintptr_t>(out);
   if (W % 8 == 0 && addr % 16 == 0)
-    return launch_as<kSlab, 8>(g, f1, d_f2, B, C, H, W, stream);
+    return launch_as<kF1, kSlab, 8>(g, src, out, B, C, H, W, stream);
   if (W % 2 == 0 && addr % 4 == 0)
-    return launch_as<kSlab, 2>(g, f1, d_f2, B, C, H, W, stream);
-  return launch_as<kSlab, 1>(g, f1, d_f2, B, C, H, W, stream);
+    return launch_as<kF1, kSlab, 2>(g, src, out, B, C, H, W, stream);
+  return launch_as<kF1, kSlab, 1>(g, src, out, B, C, H, W, stream);
 }
 
 }  // namespace band
@@ -1312,6 +1585,23 @@ int launch_f2(const float* g, const float* f1, float* d_f2, int B, int C,
                        kSlab ? H + 2 * maxd : H, maxd, s2, device, stream);
 }
 
+// The bf16 d_f1 (and K7's d_f1): the tensor-core body for maxd 20, s2 2,
+// the general body on the upcast operands for any other (maxd, s2).
+template <bool kSlab>
+int launch_f1_bf16(const __nv_bfloat16* g, const __nv_bfloat16* f2,
+                   __nv_bfloat16* d_f1, int B, int C, int H, int W, int maxd,
+                   int s2, int device, void* stream) {
+  if (maxd == band::kMaxd && s2 == band::kS2) {
+    const int err = fnet_set_device(device);
+    if (err) return err;
+    return band::launch<true, kSlab>(g, f2, d_f1, B, C, H, W,
+                                     static_cast<cudaStream_t>(stream));
+  }
+  return launch<__nv_bfloat16>(
+      correlation_bwd_f1_kernel<__nv_bfloat16, kSlab>, smem_f1(maxd, s2), g,
+      f2, d_f1, B, C, H, W, H, maxd, s2, device, stream);
+}
+
 // The bf16 d_f2 (and d_slab): the tensor-core body for maxd 20, s2 2, the
 // general body on the upcast operands for any other (maxd, s2).
 template <bool kSlab>
@@ -1321,8 +1611,8 @@ int launch_f2_bf16(const __nv_bfloat16* g, const __nv_bfloat16* f1,
   if (maxd == band::kMaxd && s2 == band::kS2) {
     const int err = fnet_set_device(device);
     if (err) return err;
-    return band::launch<kSlab>(g, f1, d_f2, B, C, H, W,
-                               static_cast<cudaStream_t>(stream));
+    return band::launch<false, kSlab>(g, f1, d_f2, B, C, H, W,
+                                      static_cast<cudaStream_t>(stream));
   }
   return launch<__nv_bfloat16>(
       correlation_bwd_f2_kernel<__nv_bfloat16, kSlab>, smem_f2(maxd, s2), g,
@@ -1347,17 +1637,16 @@ extern "C" int correlation_bwd_f2(const float* g, const float* f1, float* d_f2,
   return launch_f2<false>(g, f1, d_f2, B, C, H, W, maxd, s2, device, stream);
 }
 
-// K5 for bfloat16 g and f2, any (maxd, s2), on the general body: the float
-// sums of the upcast operands, divided by C and rounded once, so d_f1 is
-// (B, C, H, W) bfloat16.
+// K5 for bfloat16 g and f2: float32 sums of the bf16 products, divided by
+// C and rounded once, so d_f1 is (B, C, H, W) bfloat16.  The tensor-core
+// body at maxd 20, s2 2, the general body for any other (maxd, s2).
 extern "C" int correlation_bwd_f1_bf16(const __nv_bfloat16* g,
                                        const __nv_bfloat16* f2,
                                        __nv_bfloat16* d_f1, int B, int C,
                                        int H, int W, int maxd, int s2,
                                        int device, void* stream) {
-  return launch<__nv_bfloat16>(
-      correlation_bwd_f1_kernel<__nv_bfloat16, false>, smem_f1(maxd, s2), g,
-      f2, d_f1, B, C, H, W, H, maxd, s2, device, stream);
+  return launch_f1_bf16<false>(g, f2, d_f1, B, C, H, W, maxd, s2, device,
+                               stream);
 }
 
 // K6 for bfloat16 g and f1: float32 sums of the bf16 products, divided by
@@ -1401,9 +1690,8 @@ extern "C" int correlation_bwd_f1_rows_bf16(const __nv_bfloat16* g,
                                             __nv_bfloat16* d_f1, int B, int C,
                                             int Hloc, int W, int maxd, int s2,
                                             int device, void* stream) {
-  return launch<__nv_bfloat16>(
-      correlation_bwd_f1_kernel<__nv_bfloat16, true>, smem_f1(maxd, s2), g,
-      slab, d_f1, B, C, Hloc, W, Hloc, maxd, s2, device, stream);
+  return launch_f1_bf16<true>(g, slab, d_f1, B, C, Hloc, W, maxd, s2, device,
+                              stream);
 }
 
 // d_slab: (B, C, Hloc + 2*maxd, W) bfloat16, in slab coordinates; the grid

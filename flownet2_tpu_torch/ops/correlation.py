@@ -227,9 +227,8 @@ def correlation_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
     asks; any width.  float32, or bfloat16 g, f1 and f2 with bfloat16
     gradients (entry points ``correlation_bwd_f1_bf16`` and
     ``correlation_bwd_f2_bf16``: float32 sums of the bf16 products, one
-    rounding; d_f2 at maxd 20, s2 2 on the tensor-core body, d_f1 and any
-    other configuration on the general bodies, which upcast the
-    operands)."""
+    rounding; at maxd 20, s2 2 on the tensor-core bodies, at any other
+    configuration on the general bodies, which upcast the operands)."""
     _check_config("correlation backward", max_displacement, 1,
                   max_displacement, 1, stride2)
     dtypes = (torch.float32, torch.bfloat16)

@@ -6,9 +6,9 @@ and ``correlation_pallas_bwd_rows`` (K7: the entry points
 ``correlation_fwd_rows`` of ``csrc/correlation_fwd.cu`` and
 ``correlation_bwd_f1_rows``, ``correlation_bwd_f2_rows`` of
 ``csrc/correlation_bwd.cu``, and their ``_bf16`` forms for bfloat16
-operands, which sum the bf16 products in float32 and round once: the
-forward and d_slab at maxd 20, s2 2 on the tensor-core bodies of K1 and
-K6, d_f1 and any other configuration on the general bodies).
+operands, which sum the bf16 products in float32 and round once: at
+maxd 20, s2 2 on the tensor-core bodies of K1, K5 and K6, at any other
+configuration on the general bodies).
 
 Output rows ``[off, off + Hloc)`` of the cost volume read f2 rows
 ``[off - maxd, off + Hloc + maxd)``, zero beyond the map: a halo bounded

@@ -27,9 +27,10 @@ digest computed the same bits), the SM clock and its maximum as nvidia-smi
 reads them after the timings, and ptxas's register counts (none for
 libraries an earlier run in that checkout has built).  It keeps the
 outputs of the bf16 kernels that run a tensor-core body (K1, K7 forward,
-K6 and K7 d_slab) in ``build/kernel_ab/<tag>.pt`` under the working
-directory and prints, on a second line, the share of their values that
-differ from those a run of another tag kept there.
+K5, K7 d_f1, K6 and K7 d_slab) in ``build/kernel_ab/<tag>.pt`` under the
+working directory and prints, on a second line, the share of their values
+that differ from those a run of another tag kept there, over the kernels
+that both runs kept (a run of an older checkout kept fewer).
 
 Two commits are compared on one card in one call, in turns, since two calls
 may land on two cards: unpack the parent with ``git archive <commit>
@@ -225,8 +226,8 @@ def main(root: str, tag: str) -> int:
     # the bf16 tensor-core bodies' outputs against those of runs of other
     # tags
     kept = {name: bf16(bf16_kernels[name])
-            for name in ("K1 bf16", "K7 fwd bf16", "K6 bf16",
-                         "K7 d_slab bf16")}
+            for name in ("K1 bf16", "K7 fwd bf16", "K5 bf16", "K7 d_f1 bf16",
+                         "K6 bf16", "K7 d_slab bf16")}
     if all(out is not None for out in kept.values()):
         store = Path("build") / "kernel_ab"
         store.mkdir(parents=True, exist_ok=True)
@@ -237,7 +238,7 @@ def main(root: str, tag: str) -> int:
             theirs = torch.load(other)
             print(tag, f"against {other.stem}: not bit-equal", ", ".join(
                 f"{k} {(v.cpu() != theirs[k]).float().mean().item():.4%}"
-                for k, v in kept.items()))
+                for k, v in kept.items() if k in theirs))
     return 0
 
 
