@@ -54,7 +54,12 @@ Phases (any failure raises and the script exits non-zero):
    d1, d2 float32) and K4, one and two flows at +-8 px and +-200 px, on
    the bands of 2 and of 4 (the second band of two of a 384-row image
    starts at row 192, where a bf16 ulp is 1 px), bit-equal to the same rows
-   of the whole-image bf16 kernels.
+   of the whole-image bf16 kernels.  The row tiles of K2 and K4 (one and
+   two flows, f32 and bf16) at the smooth flow the stage glue makes (+-8
+   px at (H/4, W/4), bilinear x4) at K2's and K4's shapes, and in one
+   launch whose blocks take both routes (half the batch at +-8 px, whose
+   windows are staged in shared memory, half at +-200 px, gathered from
+   global memory), at phase 2's tolerances.
 3. FlowNet2 inference, seeded random weights, b8 384x512 fp32: warm-up,
    then 10 timed batches with CUDA events, with the launch counters set to
    0 just before and read just after (1 K1 and 3 K2 launches per forward,
@@ -144,8 +149,11 @@ Phases (any failure raises and the script exits non-zero):
    for the warps, whose bodies upcast and sum in f32, also at the f32
    rate; K7 bf16 at one band of two of the bf16 forward's and step's maps,
    likewise), each beside
-   the SM clock; then the one-flow K2 and K4 and their library calls with a
-   cold L2 cache (six input sets of 31-44 MB taken in turn).
+   the SM clock, the two-flow K4 (+-8 px and +-200 px at (8, 3, 384, 448))
+   among them; K2 and K4, one and two flows, f32 and bf16, at the smooth
+   flow beside their times at the noise flows; then the one-flow K2 and K4
+   and their library calls with a cold L2 cache (six input sets of 31-44
+   MB taken in turn).
 7. Where the device time goes: the phase 3 model and pair, 5 forwards, the
    phase 3b bf16 model, 5 forwards, and the phase 4 train step, 3 steps,
    under torch.profiler, the device time summed by kernel family and the
@@ -505,7 +513,7 @@ def main() -> int:
     from flownet2_tpu_torch.ops import correlation as corr
     from flownet2_tpu_torch.ops import correlation_spatial as corr_sp
     from flownet2_tpu_torch.ops import resample2d as r2d
-    from flownet2_tpu_torch.ops import sharding_hints, stage_glue
+    from flownet2_tpu_torch.ops import sharding_hints, stage_glue, upsample
     from flownet2_tpu_torch.train import StepFactory, get_optimizer
 
     backward_kernels = (
@@ -656,7 +664,8 @@ def main() -> int:
                     a, b, 1e-5, 1e-5, f"K3 warp tangents {part}, {what}"))
             g = randn(*want[0].shape)
             k4 = r2d.resample2d_grad_flow_cuda(g, im, fl)
-            errs.setdefault("resample2d_grad_flow", []).append(max_err(
+            errs.setdefault(r2d._per_flow("resample2d_grad_flow", nflows),
+                            []).append(max_err(
                 k4, r2d.resample2d_grad_flow_plain(g, im, fl), 1e-5, 1e-5,
                 f"K4 warp flow gradient, {what}"))
             # the tangent route's flow gradient for the same cotangent
@@ -841,7 +850,8 @@ def main() -> int:
                                         f"(float32), {what}"))
             g = randn(*want[0].shape, gen=bf16_gen).bfloat16()
             k4 = r2d.resample2d_grad_flow_cuda(g, im, fl)
-            errs.setdefault("resample2d_grad_flow_bf16", []).append(ulp_err(
+            errs.setdefault(r2d._per_flow("resample2d_grad_flow", nflows)
+                            + "_bf16", []).append(ulp_err(
                 k4, r2d.resample2d_grad_flow_plain(g, im, fl),
                 f"K4 bf16 warp flow gradient, {what}"))
             with torch.enable_grad():
@@ -951,6 +961,60 @@ def main() -> int:
                                 "whole-image bf16 kernel's bits")
             print(f"  K2, K3, K4 bf16 on the bands of 2 and of 4, {what}: "
                   "bit-equal to the whole-image bf16 kernels' rows")
+
+        # the row tiles of K2 and K4 (one and two flows, f32 and bf16) at
+        # the smooth flow the stage glue makes (+-8 px at (H/4, W/4),
+        # bilinear x4), and in one launch whose blocks take both routes:
+        # half the batch at +-8 px (the window in shared memory), half at
+        # +-200 px (the image in global memory); inputs of their own
+        # generator
+        tile_gen = torch.Generator(device=dev).manual_seed(17)
+
+        def tile_uniform(*shape, scale):
+            return (torch.rand(shape, generator=tile_gen, device=dev) * 2
+                    - 1) * scale
+
+        def smooth_flows(b, nflows, h, w):
+            coarse = tile_uniform(b * nflows, 2, h // 4, w // 4, scale=8.0)
+            return upsample.upsample_bilinear(coarse).reshape(
+                b, nflows, 2, h, w)
+
+        half = BATCH // 2
+        tile_cases = []
+        for nflows in (1, 2):
+            for h, w in ((HEIGHT, WIDTH), (TRAIN_HEIGHT, TRAIN_WIDTH)):
+                tile_cases.append((f"smooth flow, {nflows} flow(s), {h}x{w}",
+                                   smooth_flows(BATCH, nflows, h, w)))
+            tile_cases.append((
+                f"both routes in one launch, {nflows} flow(s)",
+                torch.cat([tile_uniform(half, nflows, 2, HEIGHT, WIDTH,
+                                        scale=8.0),
+                           tile_uniform(BATCH - half, nflows, 2, HEIGHT,
+                                        WIDTH, scale=200.0)])))
+        for what, fl in tile_cases:
+            im = randn(BATCH, 3, *fl.shape[3:], gen=tile_gen)
+            g = randn(*fl.shape[:2], 3, *fl.shape[3:], gen=tile_gen)
+            nflows = fl.shape[1]
+            k2 = r2d._per_flow("resample2d_fwd", nflows)
+            k4 = r2d._per_flow("resample2d_grad_flow", nflows)
+            errs[k2].append(max_err(
+                r2d.resample2d_multi_cuda(im, fl),
+                r2d.resample2d_multi_plain(im, fl), 1e-5, 1e-5,
+                f"K2 warp, {what}"))
+            errs[k4].append(max_err(
+                r2d.resample2d_grad_flow_cuda(g, im, fl),
+                r2d.resample2d_grad_flow_plain(g, im, fl), 1e-5, 1e-5,
+                f"K4 warp flow gradient, {what}"))
+            im, fl, g = im.bfloat16(), fl.bfloat16(), g.bfloat16()
+            errs[k2 + "_bf16"].append(ulp_err(
+                r2d.resample2d_multi_cuda(im, fl),
+                r2d.resample2d_multi_plain(im, fl), f"K2 bf16 warp, {what}"))
+            errs[k4 + "_bf16"].append(ulp_err(
+                r2d.resample2d_grad_flow_cuda(g, im, fl),
+                r2d.resample2d_grad_flow_plain(g, im, fl),
+                f"K4 bf16 warp flow gradient, {what}"))
+        print("  K2 and K4 (f32, bf16) at the smooth flow and with both "
+              "routes in one launch: within the tolerances")
 
     # -- 3. FlowNet2 inference ----------------------------------------------
     print(f"phase 3: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, TF32 off")
@@ -1683,6 +1747,28 @@ def main() -> int:
                                                  retain_graph=True),
                      4 * b * h * w * (2 * ch + 2 + 2),
                      b * h * w * (10 + 12 * ch)))
+        # the two-flow K4 (+-8 px and +-200 px, K3's two-flow input) and,
+        # as one library call, grid_sample's grid gradient over the image
+        # taken once for each flow
+        tg4_2 = randn(b, 2, ch, h, w, gen=tile_gen)
+        t_img2 = t_img.repeat(2, 1, 1, 1)  # flow-major, as the grids
+        with torch.enable_grad():
+            grid_leaf2 = torch.cat([
+                grid_of(two[:, k], xs=torch.arange(w, device=dev).view(
+                    1, 1, -1), ys=torch.arange(h, device=dev).view(1, -1, 1),
+                    h=h, w=w) for k in range(2)]).requires_grad_()
+            sampled2 = F.grid_sample(t_img2, grid_leaf2, mode="bilinear",
+                                     padding_mode="border",
+                                     align_corners=True)
+        g_by_flow = tg4_2.transpose(0, 1).reshape(2 * b, ch, h, w)
+        rows.append(("resample2d_grad_flow_multi", "resample2d_pallas.py:312",
+                     "resample2d_grad_flow.cu",
+                     lambda: r2d.resample2d_grad_flow_cuda(tg4_2, t_img, two),
+                     lambda: r2d.resample2d_grad_flow_plain(tg4_2, t_img, two),
+                     lambda: torch.autograd.grad(sampled2, grid_leaf2,
+                                                 g_by_flow, retain_graph=True),
+                     4 * b * h * w * (ch + 2 * (ch + 2 + 2)),
+                     2 * b * h * w * (10 + 12 * ch)))
 
         def k7_rows(dtype=torch.float32):
             """K7's rows at one band of SHARDS: the forward at the inference
@@ -1796,6 +1882,15 @@ def main() -> int:
                                                             one16),
                      None, 2 * b * h * w * (2 * ch + 2 + 2),
                      b * h * w * (10 + 12 * ch)))
+        tg4_2_16 = tg4_2.bfloat16()
+        rows.append(("resample2d_grad_flow_multi_bf16",
+                     "resample2d_pallas.py:312", "resample2d_grad_flow.cu",
+                     lambda: r2d.resample2d_grad_flow_cuda(tg4_2_16, t_img16,
+                                                           two16),
+                     lambda: r2d.resample2d_grad_flow_plain(tg4_2_16, t_img16,
+                                                            two16),
+                     None, 2 * b * h * w * (ch + 2 * (ch + 2 + 2)),
+                     2 * b * h * w * (10 + 12 * ch)))
         # K7 bf16 (tensor-core bodies) at one band of the bf16 forward's and
         # the bf16 step's maps
         k7_rows(torch.bfloat16)
@@ -1827,20 +1922,12 @@ def main() -> int:
                 count = band16_fwd_launches[name]
             elif name.endswith("_rows_bf16"):      # per phase 5b step
                 count = band16_launches["grad_flow"][0][name] / TRAIN_STEPS
-            elif name == "resample2d_grad_flow_bf16":  # one and two flows
-                count = (step16_k[name]
-                         + step16_k["resample2d_grad_flow_multi_bf16"]
-                         ) / TRAIN_STEPS
             elif bf16:                # per phase 4b step
                 count = step16_k[name] / TRAIN_STEPS
             elif name == "correlation_fwd_rows":   # over the phase 5 forwards
                 count = band_fwd_launches[name]
             elif name.endswith("_rows"):           # per phase 5 train step
                 count = band_step_launches[name] / TRAIN_STEPS
-            elif name == "resample2d_grad_flow":   # one and two flows
-                k4 = route_launches["grad_flow"][0]
-                count = (k4["resample2d_grad_flow"]
-                         + k4["resample2d_grad_flow_multi"]) / TRAIN_STEPS
             elif name.startswith("resample2d_tangents"):
                 count = route_launches["tangents"][0][name] / TRAIN_STEPS
             else:                      # per step of the default route
@@ -1857,7 +1944,31 @@ def main() -> int:
                 "launches": count, "max_abs_err": max(errs[name]),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": l_ms, **extra})
-        del sampled, grid_leaf
+        del sampled, grid_leaf, sampled2, grid_leaf2
+        by_name = {k["name"]: k for k in kernels}
+
+        # K2 and K4 at the smooth flow the stage glue makes (+-8 px at
+        # (H/4, W/4), bilinear x4), one and two flows, f32 and bf16, beside
+        # the noise flows timed above
+        for dtype in (torch.float32, torch.bfloat16):
+            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            im, t_im = img.to(dtype), t_img.to(dtype)
+            for nflows in (1, 2):
+                fl = smooth_flows(BATCH, nflows, HEIGHT, WIDTH).to(dtype)
+                t_fl = smooth_flows(TRAIN_BATCH, nflows, TRAIN_HEIGHT,
+                                    TRAIN_WIDTH).to(dtype)
+                t_g = randn(TRAIN_BATCH, nflows, 3, TRAIN_HEIGHT,
+                            TRAIN_WIDTH, gen=tile_gen).to(dtype)
+                for base, fn in (
+                        ("resample2d_fwd", lambda im=im, fl=fl:
+                         r2d.resample2d_multi_cuda(im, fl)),
+                        ("resample2d_grad_flow",
+                         lambda t_g=t_g, t_im=t_im, t_fl=t_fl:
+                         r2d.resample2d_grad_flow_cuda(t_g, t_im, t_fl))):
+                    name = r2d._per_flow(base, nflows) + suffix
+                    note(f"  {name} at the smooth flow: "
+                         f"{time_ms(fn, 50, head_start=True):.4f} ms (at the "
+                         f"noise flow {by_name[name]['ms']:.4f})  [{smi}]")
 
         # cold L2: the one-flow K2 and K4 and their library calls, each call
         # on input buffers of its own, COLD_SETS sets of them in turn
@@ -1885,7 +1996,6 @@ def main() -> int:
             cold["grid_sample grad"].append(
                 lambda out=out, leaf=leaf, gt=gt: torch.autograd.grad(
                     out, leaf, gt[:, 0], retain_graph=True))
-        by_name = {k["name"]: k for k in kernels}
         k2, k4 = by_name["resample2d_fwd"], by_name["resample2d_grad_flow"]
         warm = {"K2": k2["ms"], "grid_sample": k2["library_ms"],
                 "K4": k4["ms"], "grid_sample grad": k4["library_ms"]}

@@ -3,7 +3,10 @@
 // appears once in each library.
 #pragma once
 
+#include <climits>
 #include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -171,3 +174,389 @@ static __device__ __forceinline__ FnetBilinear fnet_bilinear(
   s.br = static_cast<int64_t>(yB) * W + xR;
   return s;
 }
+
+// ---------------------------------------------------------------------------
+// The row-tile warps, K2 (resample2d_fwd.cu) and K4 (resample2d_grad_flow.cu).
+//
+// A block covers kCols output columns x kTileRows output rows of one flow
+// (grid: column tiles x row tiles x B*F); a thread owns kV consecutive
+// columns of one row, 16 bytes of T.  The flow arrives, and K2's output and
+// K4's cotangent and d_flow move, in pieces of kPiece elements: kV (16
+// bytes) where every row of every tensor starts 16-byte aligned, else 2, else
+// 1; a piece past the row's last column is masked.  The block takes the
+// bounding box of its sample points' clamped corners (its window) and
+// chooses a route:
+// - shared: the window's rows of all C channels are staged in shared
+//   memory (cp.async) and the corners gathered there.  A block takes this
+//   route where the window fits in kWindowBytes (a +-8 px flow needs 30 KB
+//   at C = 3 in float32, 23 KB in bfloat16) and is more than a few pixels
+//   larger than the tile's part of the map;
+// - global: the corners are gathered from the image in global memory
+//   through the read-only path.  This serves wild flows, whose window does
+//   not fit, and flows that hardly move the tile, whose corners L1 serves
+//   well.
+// Both routes read the same values and run the same arithmetic, so they
+// give the same bits.
+template <typename T>
+struct WarpTile {
+  static constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kCols = 64;
+  static constexpr int kTileRows = sizeof(T) == 4 ? 16 : 32;
+  static constexpr int kThreadsX = kCols / kV;
+  static constexpr int kThreads = kThreadsX * kTileRows;
+  static constexpr int kWarps = kThreads / 32;
+  // the window: a +-8 px flow's over C = 3 (32 x 80 x 3 float32, 48 x 80
+  // x 3 bfloat16) fits
+  static constexpr int kWindowBytes = sizeof(T) == 4 ? 30720 : 24576;
+  // blocks an SM that the registers must allow (__launch_bounds__)
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
+  // the flow and the cotangent read without a place in L1 (fnet_stream):
+  // faster in float32 on an H100, slower in bfloat16
+  static constexpr bool kStreamLoads = sizeof(T) == 4;
+};
+
+// The widest piece, in elements of T, on which every row of W elements of
+// each tensor at ``ptrs`` starts: 16 bytes, 2 elements or 1.
+template <typename T>
+static inline int fnet_piece(int W, std::initializer_list<const void*> ptrs) {
+  for (const int n : {16 / static_cast<int>(sizeof(T)), 2}) {
+    bool ok = W % n == 0;
+    for (const void* p : ptrs)
+      ok = ok && reinterpret_cast<uintptr_t>(p) % (n * sizeof(T)) == 0;
+    if (ok) return n;
+  }
+  return 1;
+}
+
+// The shared-memory carveout to ask for (cudaFuncAttributePreferred-
+// SharedMemoryCarveout, in percent of the SM's 228 KB): the smallest the
+// H100 offers that holds kMinBlocks blocks' windows, so that the rest of
+// the SM's 256 KB, the L1 cache, is as large as it can be.  The blocks that
+// gather from global memory rely on it (CUDA rounds a percentage up to the
+// next size it offers).
+template <typename T>
+static inline int fnet_warp_carveout() {
+  using Tile = WarpTile<T>;
+  const int need = Tile::kMinBlocks *
+                   (Tile::kWindowBytes + Tile::kWarps * 4 * 4 +
+                    1024);  // the runtime's own kilobyte a block
+  for (const int kb : {0, 8, 16, 32, 64, 100, 132, 164, 196, 228})
+    if (kb * 1024 >= need) return kb * 100 / 228;
+  return 100;
+}
+
+// kN values of T moved as one access of kN * sizeof(T) bytes.
+template <int kBytes> struct FnetWord;
+template <> struct FnetWord<16> { using type = uint4; };
+template <> struct FnetWord<8> { using type = uint2; };
+template <> struct FnetWord<4> { using type = unsigned; };
+template <> struct FnetWord<2> { using type = unsigned short; };
+
+template <typename T, int kN>
+union FnetPiece {
+  typename FnetWord<kN * sizeof(T)>::type word;
+  T v[kN];
+};
+
+static __device__ __forceinline__ float fnet_float(float v) { return v; }
+
+static __device__ __forceinline__ float fnet_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One word read through the read-only path without a place in L1
+// (ld.global.nc.L1::no_allocate): the row tiles' streamed inputs, so that
+// L1 is left to the gathers.
+static __device__ __forceinline__ uint4 fnet_stream(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+static __device__ __forceinline__ uint2 fnet_stream(const uint2* p) {
+  uint2 v;
+  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p));
+  return v;
+}
+
+static __device__ __forceinline__ unsigned fnet_stream(const unsigned* p) {
+  unsigned v;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+static __device__ __forceinline__ unsigned short fnet_stream(
+    const unsigned short* p) {
+  unsigned short v;
+  asm("ld.global.nc.L1::no_allocate.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return v;
+}
+
+// kN values at ``src`` (aligned to kN elements), upcast to float.
+template <int kN, typename T>
+static __device__ __forceinline__ void fnet_load_piece(float* dst,
+                                                       const T* src) {
+  using Word = typename FnetWord<kN * sizeof(T)>::type;
+  FnetPiece<T, kN> p;
+  if constexpr (WarpTile<T>::kStreamLoads)
+    p.word = fnet_stream(reinterpret_cast<const Word*>(src));
+  else
+    p.word = *reinterpret_cast<const Word*>(src);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) dst[i] = fnet_float(p.v[i]);
+}
+
+// One word stored without a place in L1 (st.global.L1::no_allocate): the
+// row tiles' outputs, so that L1 is left to the gathers.
+static __device__ __forceinline__ void fnet_stream_store(uint4* p, uint4 v) {
+  asm volatile("st.global.L1::no_allocate.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               ::"l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+static __device__ __forceinline__ void fnet_stream_store(uint2* p, uint2 v) {
+  asm volatile("st.global.L1::no_allocate.v2.u32 [%0], {%1, %2};\n"
+               ::"l"(p), "r"(v.x), "r"(v.y) : "memory");
+}
+static __device__ __forceinline__ void fnet_stream_store(unsigned* p,
+                                                         unsigned v) {
+  asm volatile("st.global.L1::no_allocate.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+static __device__ __forceinline__ void fnet_stream_store(unsigned short* p,
+                                                         unsigned short v) {
+  asm volatile("st.global.L1::no_allocate.u16 [%0], %1;\n" ::"l"(p), "h"(v)
+               : "memory");
+}
+
+// kN floats stored at ``dst`` (aligned to kN elements), each rounded once to
+// T (fnet_store), without a place in L1 (fnet_stream_store).
+template <int kN, typename T>
+static __device__ __forceinline__ void fnet_store_piece(T* dst,
+                                                        const float* src) {
+  using Word = typename FnetWord<kN * sizeof(T)>::type;
+  FnetPiece<T, kN> p;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) fnet_store(&p.v[i], src[i]);
+  fnet_stream_store(reinterpret_cast<Word*>(dst), p.word);
+}
+
+// Copies kBytes from device to shared memory: asynchronously (cp.async) for
+// 4, 8 or 16 bytes, by a plain load and store for 2.
+template <int kBytes>
+static __device__ __forceinline__ void fnet_stage_bytes(void* dst,
+                                                        const void* src) {
+  if constexpr (kBytes == 2) {
+    *static_cast<unsigned short*>(dst) =
+        *static_cast<const unsigned short*>(src);
+  } else {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if constexpr (kBytes == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src)
+                   : "memory");
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                   "l"(src), "n"(kBytes)
+                   : "memory");
+    }
+  }
+}
+
+// A block's window: image rows [y0, y0 + rows) and columns [x0, x0 +
+// pitch) of each channel plane, staged in shared memory with ``pitch``
+// elements a row and rows * pitch a channel (shared), or else the image
+// itself (y0 = x0 = 0, pitch W).
+struct FnetWindow {
+  int y0, x0, pitch, rows;
+  bool shared;
+};
+
+// One thread's kV output pixels of a row-tile warp: columns [x, x + kV) of
+// output row r (image row r + off) of one flow.  For each pixel the
+// fractional offsets a, b (fnet_bilinear's arithmetic, the same bits) and
+// ``code``: the offset o of its top-left corner in a channel plane of the
+// block's window, times 4, plus 2 where the bottom corner is a row below
+// the top one and 1 where the right corner is a column right of the left
+// one (a corner clamped onto its neighbour is that neighbour).  A pixel
+// past the row's end or the last row keeps a = b = code = 0.
+template <typename T, int kPiece>
+struct FnetWarpPixels {
+  using Tile = WarpTile<T>;
+  static constexpr int kV = Tile::kV;
+  int x, r;
+  bool live;  // the thread's row is an output row
+  float a[kV], b[kV];
+  int code[kV];
+
+  // piece j (columns x + j*kPiece ..) lies in the row: W % kPiece == 0, so
+  // a piece lies wholly in the row or wholly past its end
+  __device__ __forceinline__ bool valid(int j, int W) const {
+    return live && x + j * kPiece < W;
+  }
+
+  // The sample point of pixel i for the flow (dx, dy): fnet_bilinear's
+  // arithmetic, the corners as clamped columns and rows.
+  __device__ __forceinline__ void sample(int i, float dx, float dy, int H,
+                                         int W, int off, float& fa, float& fb,
+                                         int& xL, int& xR, int& yT,
+                                         int& yB) const {
+    const float xf = static_cast<float>(x + i) + dx;
+    const float yf = static_cast<float>(r + off) + dy;
+    const float x0 = floorf(xf);
+    const float y0 = floorf(yf);
+    const int xi =
+        static_cast<int>(fminf(fmaxf(x0, -1.f), static_cast<float>(W)));
+    const int yi =
+        static_cast<int>(fminf(fmaxf(y0, -1.f), static_cast<float>(H)));
+    xL = min(max(xi, 0), W - 1);
+    xR = min(max(xi + 1, 0), W - 1);
+    yT = min(max(yi, 0), H - 1);
+    yB = min(max(yi + 1, 0), H - 1);
+    fa = xf - x0;
+    fb = yf - y0;
+  }
+
+  // Maps the thread, reads its flow (dx at ``flow``, dy one plane of Ho*W
+  // further on), computes its sample points and the block's window and
+  // route.  Every thread of the block calls it (it synchronises the
+  // block).  The sample points are computed twice, for the window and then
+  // for the offsets in it, so that only the flow is held across the
+  // block's reduction.
+  __device__ __forceinline__ FnetWindow setup(const T* __restrict__ flow,
+                                              int (*slots)[4], int C, int H,
+                                              int W, int Ho, int off) {
+    const int tx = threadIdx.x % Tile::kThreadsX;
+    const int ty = threadIdx.x / Tile::kThreadsX;
+    x = blockIdx.x * Tile::kCols + tx * kV;
+    r = blockIdx.y * Tile::kTileRows + ty;
+    live = r < Ho;
+    const int at = r * W + x;
+    const int plane = Ho * W;
+    float dx[kV], dy[kV];
+#pragma unroll
+    for (int j = 0; j < kV / kPiece; ++j) {
+      if (valid(j, W)) {
+        fnet_load_piece<kPiece>(dx + j * kPiece, flow + at + j * kPiece);
+        fnet_load_piece<kPiece>(dy + j * kPiece,
+                                flow + plane + at + j * kPiece);
+      }
+    }
+    // the thread's box of clamped corner rows and columns
+    int yl = INT_MAX, yh = INT_MIN, xl = INT_MAX, xh = INT_MIN;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      if (!valid(i / kPiece, W)) continue;
+      float fa, fb;
+      int xL, xR, yT, yB;
+      sample(i, dx[i], dy[i], H, W, off, fa, fb, xL, xR, yT, yB);
+      yl = min(yl, yT);
+      yh = max(yh, yB);
+      xl = min(xl, xL);
+      xh = max(xh, xR);
+    }
+    // the block's box: a warp's by one reduction each, then the warps'
+    const unsigned all = 0xffffffffu;
+    yl = __reduce_min_sync(all, yl);
+    yh = __reduce_max_sync(all, yh);
+    xl = __reduce_min_sync(all, xl);
+    xh = __reduce_max_sync(all, xh);
+    if (threadIdx.x % 32 == 0) {
+      int* s = slots[threadIdx.x / 32];
+      s[0] = yl;
+      s[1] = yh;
+      s[2] = xl;
+      s[3] = xh;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < Tile::kWarps; ++w) {
+      yl = min(yl, slots[w][0]);
+      yh = max(yh, slots[w][1]);
+      xl = min(xl, slots[w][2]);
+      xh = max(xh, slots[w][3]);
+    }
+    // the window: the box's rows, its columns widened to whole pieces; the
+    // route: shared where it fits and is more than a few pixels larger
+    // than the tile's part of the map
+    FnetWindow win;
+    win.y0 = yl;
+    win.x0 = xl - xl % kPiece;
+    win.pitch = (xh + kPiece) / kPiece * kPiece - win.x0;
+    win.rows = yh - yl + 1;
+    const int row0 = static_cast<int>(blockIdx.y) * Tile::kTileRows;
+    const int tile_rows = min(Tile::kTileRows, Ho - row0);
+    const int tile_cols =
+        min(Tile::kCols, W - static_cast<int>(blockIdx.x) * Tile::kCols);
+    const bool near = win.rows <= tile_rows + 2 &&
+                      win.pitch <= tile_cols + 2 * kV;
+    win.shared = !near && static_cast<int64_t>(C) * win.rows * win.pitch *
+                                  sizeof(T) <= Tile::kWindowBytes;
+    if (!win.shared) {
+      win.y0 = 0;
+      win.x0 = 0;
+      win.pitch = W;
+    }
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      a[i] = b[i] = 0.f;
+      code[i] = 0;
+      if (!valid(i / kPiece, W)) continue;
+      int xL, xR, yT, yB;
+      sample(i, dx[i], dy[i], H, W, off, a[i], b[i], xL, xR, yT, yB);
+      code[i] = ((yT - win.y0) * win.pitch + (xL - win.x0)) * 4 +
+                (yB != yT ? 2 : 0) + (xR != xL ? 1 : 0);
+    }
+    return win;
+  }
+
+  // Stages the window of the C planes of ``img`` (one image, C x H x W)
+  // into ``buf`` (shared, 16-byte aligned, Tile::kWindowBytes).  Every
+  // thread of the block calls it.
+  __device__ __forceinline__ void stage(T* buf, const T* __restrict__ img,
+                                        const FnetWindow& win, int C, int H,
+                                        int W) const {
+    const int pieces = win.pitch / kPiece;
+    const int n = win.rows * pieces;
+    for (int c = 0; c < C; ++c) {
+      const T* src = img + static_cast<int64_t>(c) * H * W + win.y0 * W +
+                     win.x0;
+      T* dst = buf + c * win.rows * win.pitch;
+      for (int k = threadIdx.x; k < n; k += Tile::kThreads) {
+        const int row = k / pieces;
+        const int col = (k - row * pieces) * kPiece;
+        fnet_stage_bytes<kPiece * sizeof(T)>(dst + row * win.pitch + col,
+                                             src + row * W + col);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // The four corner values of pixel i in channel plane ``p`` (the window's
+  // in shared memory, or the image's in global memory, read through the
+  // read-only data path: kGlobal), ``pitch`` elements a row, upcast to
+  // float.
+  template <bool kGlobal>
+  __device__ __forceinline__ void corners(const T* p, int pitch, int i,
+                                          float& tl, float& tr, float& bl,
+                                          float& br) const {
+    const int dxo = code[i] & 1;
+    const int dyo = code[i] & 2 ? pitch : 0;
+    p += code[i] >> 2;
+    if constexpr (kGlobal) {
+      tl = fnet_float(__ldg(p));
+      tr = fnet_float(__ldg(p + dxo));
+      bl = fnet_float(__ldg(p + dyo));
+      br = fnet_float(__ldg(p + dyo + dxo));
+    } else {
+      tl = fnet_float(p[0]);
+      tr = fnet_float(p[dxo]);
+      bl = fnet_float(p[dyo]);
+      br = fnet_float(p[dyo + dxo]);
+    }
+  }
+};

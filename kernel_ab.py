@@ -25,8 +25,14 @@ twelve float32 digests), then of the bf16 K5, K6, K3, K4, K7, K1 and K2
 (the inputs come from a fixed seed, so two checkouts that print the same
 digest computed the same bits), the SM clock and its maximum as nvidia-smi
 reads them after the timings, and ptxas's register counts (none for
-libraries an earlier run in that checkout has built).  It keeps the
-outputs of the bf16 kernels that run a tensor-core body (K1, K7 forward,
+libraries an earlier run in that checkout has built), those of the warp
+bodies (K2's and K4's instantiations) with their spills.  Drawn after
+every input above, so that the digests above stay comparable with those
+of older checkouts, three more flows time and digest the one-flow and
+two-flow K2 (at (8, 3, 384, 512)) and K4 (at (8, 3, 384, 448)), float32
+and bf16: a zero flow (every gather in the pixel's own sector), the smooth
+flow of the stage glue (+-8 px at (H/4, W/4), bilinear x4) and +-200 px.
+It keeps the outputs of the bf16 kernels that run a tensor-core body (K1, K7 forward,
 K5, K7 d_f1, K6 and K7 d_slab) in ``build/kernel_ab/<tag>.pt`` under the
 working directory and prints, on a second line, the share of their values
 that differ from those a run of another tag kept there, over the kernels
@@ -95,6 +101,20 @@ def main(root: str, tag: str) -> int:
     registers = [line.split("Used ")[1].split(",")[0]
                  for name in sorted(logs) for line in logs[name].splitlines()
                  if "registers" in line]
+    # the warp bodies (K2, K4): each instantiation's registers and spills
+    warp_bodies = []
+    for name in ("resample2d_fwd", "resample2d_grad_flow"):
+        body = spill = ""
+        for line in logs[name].splitlines():
+            if "Compiling entry function" in line:
+                body = line.split("'")[1].split("_kernel")[-1].split(
+                    "EEEv")[0]
+            elif "spill stores" in line:
+                spill = line.split(",")[1].strip().split(" ")[0]
+            elif "registers" in line:
+                warp_bodies.append(
+                    f"{name}{body} {line.split('Used ')[1].split(' ')[0]} "
+                    f"registers, {spill} bytes spilled")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -125,6 +145,28 @@ def main(root: str, tag: str) -> int:
     t_flows = randn(8, 2, 2, 384, 448) * 4.0
     t_flow = t_flows[:, :1].contiguous()
     t_g, t_g2 = randn(8, 1, 3, 384, 448), randn(8, 2, 3, 384, 448)
+
+    # K2 and K4 at three more flows, drawn after every input above so that
+    # the digests above stay comparable with those of older checkouts: a
+    # zero flow (every gather in the pixel's own sector), the smooth flow
+    # of the stage glue (+-8 px at (H/4, W/4), bilinear x4) and +-200 px;
+    # two flows at K2's and at K4's shape each, the one-flow forms on the
+    # first
+    def uniform(*shape, scale):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * scale
+
+    def smooth(b, nflows, _, h, w):
+        coarse = uniform(b * nflows, 2, h // 4, w // 4, scale=8.0)
+        return F.interpolate(coarse, scale_factor=4, mode="bilinear",
+                             align_corners=False).reshape(b, nflows, 2, h, w)
+
+    more_flows = {}
+    for kind in ("zero", "smooth", "200 px"):
+        more_flows[kind] = [
+            torch.zeros(shape, device=dev) if kind == "zero"
+            else smooth(*shape) if kind == "smooth"
+            else uniform(*shape, scale=200.0)
+            for shape in ((8, 2, 2, 384, 512), (8, 2, 2, 384, 448))]
     def bf16(fn):
         """``fn()``'s result, or None where the checkout has no bf16 form
         of the kernel."""
@@ -191,7 +233,25 @@ def main(root: str, tag: str) -> int:
         "K4, two flows": time_ms(lambda: r2d.resample2d_grad_flow_cuda(
             t_g2, t_img, t_flows)),
     }
-    for name, fn in bf16_kernels.items():
+    # the warps at the three more flows, f32 and bf16
+    more_kernels = {}
+    for kind, (k2_fl, k4_fl) in more_flows.items():
+        for sfx, cast in (("", lambda t: t), (" bf16", lambda t: t.bfloat16())):
+            im, fl2, t_im, fl4 = (cast(t) for t in (img, k2_fl, t_img, k4_fl))
+            fl1, fl4_1 = fl2[:, :1].contiguous(), fl4[:, :1].contiguous()
+            g1, g2 = cast(t_g), cast(t_g2)
+            more_kernels.update({
+                f"K2{sfx}, one flow, {kind}": (
+                    lambda im=im, fl=fl1: r2d.resample2d_multi_cuda(im, fl)),
+                f"K2{sfx}, two flows, {kind}": (
+                    lambda im=im, fl=fl2: r2d.resample2d_multi_cuda(im, fl)),
+                f"K4{sfx}, one flow, {kind}": (
+                    lambda g=g1, im=t_im, fl=fl4_1:
+                    r2d.resample2d_grad_flow_cuda(g, im, fl)),
+                f"K4{sfx}, two flows, {kind}": (
+                    lambda g=g2, im=t_im, fl=fl4:
+                    r2d.resample2d_grad_flow_cuda(g, im, fl))})
+    for name, fn in {**bf16_kernels, **more_kernels}.items():
         times[name] = (time_ms(fn) if bf16(fn) is not None
                        else float("nan"))
     clock = sm_clock()
@@ -214,7 +274,7 @@ def main(root: str, tag: str) -> int:
                                                           t_flow)),
                "K4 two flows": digest(r2d.resample2d_grad_flow_cuda(
                    t_g2, t_img, t_flows))}
-    for name, fn in bf16_kernels.items():
+    for name, fn in {**bf16_kernels, **more_kernels}.items():
         out = bf16(fn)
         digests[name] = ("n/a" if out is None else digest(
             *(t.float() for t in (out if isinstance(out, tuple)
@@ -222,7 +282,8 @@ def main(root: str, tag: str) -> int:
     print(tag, "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
           "| sha1:", ", ".join(f"{k} {v}" for k, v in digests.items()),
           "| SM clock, max:", clock,
-          "| registers:", ", ".join(registers))
+          "| registers:", ", ".join(registers),
+          "| warp bodies:", "; ".join(warp_bodies))
     # the bf16 tensor-core bodies' outputs against those of runs of other
     # tags
     kept = {name: bf16(bf16_kernels[name])
