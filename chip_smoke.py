@@ -54,12 +54,14 @@ Phases (any failure raises and the script exits non-zero):
    d1, d2 float32) and K4, one and two flows at +-8 px and +-200 px, on
    the bands of 2 and of 4 (the second band of two of a 384-row image
    starts at row 192, where a bf16 ulp is 1 px), bit-equal to the same rows
-   of the whole-image bf16 kernels.  The row tiles of K2 and K4 (one and
-   two flows, f32 and bf16) at the smooth flow the stage glue makes (+-8
-   px at (H/4, W/4), bilinear x4) at K2's and K4's shapes, and in one
+   of the whole-image bf16 kernels.  The row tiles of K2, K3 and K4 (one
+   and two flows, f32 and bf16) at the smooth flow the stage glue makes
+   (+-8 px at (H/4, W/4), bilinear x4) at K2's and K4's shapes, and in one
    launch whose blocks take both routes (half the batch at +-8 px, whose
    windows are staged in shared memory, half at +-200 px, gathered from
-   global memory), at phase 2's tolerances.
+   global memory), at phase 2's tolerances; K3 and K4 (two flows, f32 and
+   bf16) at (2, 3, 100, 136), where a bf16 K3 thread pair straddles the
+   row's end, likewise.
 3. FlowNet2 inference, seeded random weights, b8 384x512 fp32: warm-up,
    then 10 timed batches with CUDA events, with the launch counters set to
    0 just before and read just after (1 K1 and 3 K2 launches per forward,
@@ -93,7 +95,17 @@ Phases (any failure raises and the script exits non-zero):
    step: 1 K1, 1 K5, 1 K6 and, on the default K2 + K4 route, 2 one-flow
    and 1 two-flow K2 and K4 and no K3, on the tangent route 2 one-flow and
    1 two-flow K3 and no K2 or K4; no plain-op call).  Loss and EPE must be
-   finite.
+   finite.  Before the timed steps, on each warp route with cuDNN
+   deterministic: two backward passes over one shared forward give the
+   same bits in every sub-net, and one step under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)`` names no op
+   as nondeterministic (torch's Python warnings and its C++ log on the
+   standard error; the capture first shown to name torch.histc's op);
+   the same two readings with torch's own bilinear upsample backward in
+   place of the port's are printed beside, and its two backward passes
+   must differ in flownetc, or the check of the port's is not shown to
+   see what it checks for.  The small step against the CPU is also read,
+   not gated, on three more draws.
 4b. FlowNet2 bf16 training (``get_model(..., dtype=torch.bfloat16)``:
    float32 master weights, bf16 convolutions, glue and warps, the loss and
    Adam in float32), phase 4's weights and batch: with cuDNN deterministic
@@ -110,8 +122,9 @@ Phases (any failure raises and the script exits non-zero):
    correlation_bwd_f2_bf16 and, on the default route, 2 one-flow and 1
    two-flow resample2d_fwd_bf16 and resample2d_grad_flow_bf16, on the
    tangent route 2 one-flow and 1 two-flow resample2d_tangents_bf16; no
-   f32 kernel, no plain-op call).  The bf16 model is then freed, so that
-   phase 5 runs as it did before.
+   f32 kernel, no plain-op call), after phase 4's determinism checks on
+   the bf16 model.  The bf16 model is then freed, so that phase 5 runs as
+   it did before.
 5. The row-band path: with ``set_spatial_shards(2)`` the correlation runs
    as two bands against halo slabs on K7 and every warp as two bands on
    the local-rows K2, K3 and K4, all on this card in turn.  The phase 3
@@ -150,10 +163,11 @@ Phases (any failure raises and the script exits non-zero):
    rate; K7 bf16 at one band of two of the bf16 forward's and step's maps,
    likewise), each beside
    the SM clock, the two-flow K4 (+-8 px and +-200 px at (8, 3, 384, 448))
-   among them; K2 and K4, one and two flows, f32 and bf16, at the smooth
-   flow beside their times at the noise flows; then the one-flow K2 and K4
-   and their library calls with a cold L2 cache (six input sets of 31-44
-   MB taken in turn).
+   among them, and K3's four forms with their share of the bound beside
+   their times before the row tiles; K2, K3 and K4, one and two flows, f32
+   and bf16, at the smooth flow beside their times at the noise flows;
+   then the one-flow K2 and K4 and their library calls with a cold L2
+   cache (six input sets of 31-44 MB taken in turn).
 7. Where the device time goes: the phase 3 model and pair, 5 forwards, the
    phase 3b bf16 model, 5 forwards, and the phase 4 train step, 3 steps,
    under torch.profiler, the device time summed by kernel family and the
@@ -163,8 +177,9 @@ Phases (any failure raises and the script exits non-zero):
    and NCHW<->NHWC layout-conversion kernels by name with their launches;
    then the phase 4b bf16 train step, 3 steps, by family (convolution
    forward, dgrad and wgrad, layout conversions, copies and casts, the
-   port's kernels, Adam) with its layout-conversion launches a step.
-   Raises if no device time is recorded.
+   port's kernels, Adam) with its layout-conversion launches a step; the
+   fp32 and the bf16 step on the tangent route, 3 steps each, for K3's
+   device time a step.  Raises if no device time is recorded.
 8. The readings of phases 3 to 7 again, one JSON line listing the kernels;
    the last line is the result.
 
@@ -182,7 +197,9 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -251,6 +268,13 @@ TRAIN_FAMILIES = (
     ("convolution forward and other cuDNN", CONV),
     ("other PyTorch kernels", re.compile(r".")),
 )
+# K3's times before its row tiles, in the one-pixel-a-thread form (PERF.md's
+# kernel table: this script's phase 6 on an NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's
+K3_BEFORE_MS = {"resample2d_tangents": 0.0443,
+                "resample2d_tangents_multi": 0.0989,
+                "resample2d_tangents_bf16": 0.0381,
+                "resample2d_tangents_multi_bf16": 0.0844}
 PROFILED_FORWARDS = 5
 COLD_SETS = 6          # input sets a cold-cache timing takes in turn
 PROFILED_STEPS = 3
@@ -458,6 +482,46 @@ def grads_close(got: dict, want: dict, tol: float, what: str,
                              f"{'per tensor' if per_tensor else 'in L2'}")
 
 
+def nondeterministic_ops(run) -> list:
+    """The ops that torch names, while ``run()`` runs under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, as having
+    no deterministic implementation ("cuBLAS" for its alert on a cuBLAS
+    call): from its Python warnings and from what its C++ side writes to
+    the process's standard error (where an alert raised off the Python
+    thread, in the autograd engine's, goes).  Under torch 2.11 it names
+    nothing for torch's bilinear upsample backward, which then runs
+    deterministically and raises no alert; two backward passes over one
+    forward (``backward_twice``) are what show that op's atomics."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile() as err, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        os.dup2(err.fileno(), 2)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+        err.seek(0)
+        lines = (err.read().decode(errors="replace").splitlines()
+                 + [str(w.message) for w in caught])
+    # "<op> does not have ..." in a warning, "... Warning: <op> does not
+    # have ..." in a C++ log line
+    named = set()
+    for line in lines:
+        text = line.split("Warning: ")[-1]
+        if "does not have a deterministic implementation" in text:
+            named.add(text.split()[0])
+        elif "is not deterministic because it uses CuBLAS" in text:
+            named.add("cuBLAS")
+    return sorted(named)
+
+
 def profile_families(run, n: int, families, smi: str, unit: str,
                      say=print):
     """Profile ``run()`` (n repetitions of the work) and print (by ``say``)
@@ -508,6 +572,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from flownet2_tpu_torch import ops
     from flownet2_tpu_torch.losses import MultiScale
+    from flownet2_tpu_torch.models import flownet2 as flownet2_module
     from flownet2_tpu_torch.models import get_model
     from flownet2_tpu_torch.ops import _cuda
     from flownet2_tpu_torch.ops import correlation as corr
@@ -997,6 +1062,19 @@ def main() -> int:
             nflows = fl.shape[1]
             k2 = r2d._per_flow("resample2d_fwd", nflows)
             k4 = r2d._per_flow("resample2d_grad_flow", nflows)
+            k3 = r2d._per_flow("resample2d_tangents", nflows)
+            # K3 (f32, then bf16: out at one ulp, d1 and d2 at 1e-5)
+            for dtype in (torch.float32, torch.bfloat16):
+                got = r2d.resample2d_tangents_cuda(im.to(dtype), fl.to(dtype))
+                want = r2d.resample2d_tangents_plain(im.to(dtype),
+                                                     fl.to(dtype))
+                sfx = "_bf16" if dtype == torch.bfloat16 else ""
+                for part, a, b in zip(("out", "d1", "d2"), got, want):
+                    errs[k3 + sfx].append(
+                        ulp_err(a, b, f"K3 bf16 warp tangents {part}, {what}")
+                        if a.dtype == torch.bfloat16 else
+                        max_err(a, b, 1e-5, 1e-5, f"K3{sfx.replace('_', ' ')}"
+                                f" warp tangents {part}, {what}"))
             errs[k2].append(max_err(
                 r2d.resample2d_multi_cuda(im, fl),
                 r2d.resample2d_multi_plain(im, fl), 1e-5, 1e-5,
@@ -1013,8 +1091,36 @@ def main() -> int:
                 r2d.resample2d_grad_flow_cuda(g, im, fl),
                 r2d.resample2d_grad_flow_plain(g, im, fl),
                 f"K4 bf16 warp flow gradient, {what}"))
-        print("  K2 and K4 (f32, bf16) at the smooth flow and with both "
+        print("  K2, K3 and K4 (f32, bf16) at the smooth flow and with both "
               "routes in one launch: within the tolerances")
+
+        # K3 and K4 (f32, bf16) at W = 136: the last column tile's first
+        # thread pair of a bf16 K3 row has one thread in the map and one
+        # past its end (the tangents' paired stores); inputs of their own
+        # generator
+        pair_gen = torch.Generator(device=dev).manual_seed(19)
+        im = randn(2, 3, 100, 136, gen=pair_gen)
+        fl = (torch.rand((2, 2, 2, 100, 136), generator=pair_gen,
+                         device=dev) * 2 - 1) * 8.0
+        g = randn(2, 2, 3, 100, 136, gen=pair_gen)
+        what = "two flows, (2, 3, 100, 136)"
+        for dtype in (torch.float32, torch.bfloat16):
+            sfx = "_bf16" if dtype == torch.bfloat16 else ""
+            im_d, fl_d, g_d = im.to(dtype), fl.to(dtype), g.to(dtype)
+            got = r2d.resample2d_tangents_cuda(im_d, fl_d)
+            want = r2d.resample2d_tangents_plain(im_d, fl_d)
+            for part, a, b in zip(("out", "d1", "d2"), got, want):
+                errs["resample2d_tangents_multi" + sfx].append(
+                    ulp_err(a, b, f"K3 bf16 warp tangents {part}, {what}")
+                    if a.dtype == torch.bfloat16 else
+                    max_err(a, b, 1e-5, 1e-5, f"K3{sfx.replace('_', ' ')} "
+                            f"warp tangents {part}, {what}"))
+            k4 = r2d.resample2d_grad_flow_cuda(g_d, im_d, fl_d)
+            k4_plain = r2d.resample2d_grad_flow_plain(g_d, im_d, fl_d)
+            errs["resample2d_grad_flow_multi" + sfx].append(
+                ulp_err(k4, k4_plain, f"K4 bf16 warp flow gradient, {what}")
+                if sfx else max_err(k4, k4_plain, 1e-5, 1e-5,
+                                    f"K4 warp flow gradient, {what}"))
 
     # -- 3. FlowNet2 inference ----------------------------------------------
     print(f"phase 3: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, TF32 off")
@@ -1258,7 +1364,102 @@ def main() -> int:
     # swings from 3e-4 to 2e-2 with the random batch
     grads_close(grads_s, grads_c, 1e-3, "small step against the CPU",
                 per_tensor=False)
-    del grads_k, grads_s, grads_c, cpu_model
+    # the gate holds on this draw; on other draws it has read over 1e-3,
+    # with torch's upsample as with the port's (ROADMAP.md, section 3), so
+    # three more are read and printed, not gated
+    draw_gen = torch.Generator(device=dev)
+    for draw_seed in (1, 2, 3):
+        draw_gen.manual_seed(draw_seed)
+        draw_img = torch.rand((1, 2, 64, 128, 3), generator=draw_gen,
+                              device=dev) * 255.0
+        draw_tgt = torch.rand((1, 64, 128, 2), generator=draw_gen,
+                              device=dev) * 5.0
+        g_card = loss_and_grads(tmodel, draw_img, draw_tgt)[2]
+        g_cpu = loss_and_grads(cpu_model, draw_img.cpu(),
+                               draw_tgt.cpu())[2]
+        by_net = {net: grad_errors(
+            {n: g for n, g in g_card.items() if n.startswith(net + ".")},
+            {n: g for n, g in g_cpu.items() if n.startswith(net + ".")})[2]
+            for net in ("flownetc", "flownets_1")}
+        all_rel = grad_errors(g_card, g_cpu)[2]
+        note(f"  phase 4, small step against the CPU, draw of seed "
+             f"{draw_seed} (not gated): all gradients {all_rel:.3e} in "
+             f"relative L2, flownetc {by_net['flownetc']:.3e}, "
+             f"flownets_1 {by_net['flownets_1']:.3e}")
+    del grads_k, grads_s, grads_c, cpu_model, g_card, g_cpu, draw_img, \
+        draw_tgt
+
+    # F3: torch's bilinear upsample backward accumulates with atomic adds on
+    # the card, so two backward passes over one forward gave flownetc's and
+    # flownets_1's gradients other bits; the port's upsample has a fixed
+    # backward (ops/upsample.py).  The capture of torch's alerts is tried on
+    # an op that it names (torch.histc of floats), so that "names no op"
+    # below cannot pass for a capture that sees nothing.
+    histc_gen = torch.Generator(device=dev).manual_seed(23)
+    histc_named = nondeterministic_ops(lambda: torch.histc(
+        torch.rand(1000, generator=histc_gen, device=dev)))
+    print(f"  the capture of torch's alerts names {histc_named} for "
+          "torch.histc")
+    if "_histc_cuda" not in histc_named:
+        raise AssertionError("the capture of torch's nondeterminism alerts "
+                             f"did not name torch.histc's op: {histc_named}")
+
+    def interpolate_upsample(x, scale=4):
+        """torch's own bilinear upsample, forward and backward."""
+        return F.interpolate(x, scale_factor=scale, mode="bilinear",
+                             align_corners=False)
+
+    def backward_twice(net):
+        """One forward of phase 4's batch and two backward passes over it:
+        the sub-nets whose gradients are not the same bits in both."""
+        net.train()
+        net.zero_grad(set_to_none=True)
+        lossvalue = loss_fn(net(images), target)[0]
+        lossvalue.backward(retain_graph=True)
+        first = {n: p.grad.clone() for n, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        lossvalue.backward()
+        differ = sorted({n.split(".")[0] for n, p in net.named_parameters()
+                         if not torch.equal(p.grad, first[n])})
+        net.zero_grad(set_to_none=True)
+        return differ
+
+    def deterministic_step(net, phase: str):
+        """On each warp route, with cuDNN deterministic: two backward passes
+        over one shared forward give the same bits in every sub-net, and one
+        step under torch.use_deterministic_algorithms names no op; printed
+        beside them, the same two readings with torch's own upsample
+        backward in place of the port's."""
+        torch.backends.cudnn.deterministic = True
+        for route in ROUTES:
+            with mock.patch.object(stage_glue, "TRAIN_WARP", route):
+                differ = backward_twice(net)
+                ops_named = nondeterministic_ops(
+                    lambda: loss_and_grads(net, images, target))
+                with mock.patch.object(flownet2_module, "upsample_bilinear",
+                                       interpolate_upsample):
+                    torch_differ = backward_twice(net)
+                    torch_named = nondeterministic_ops(
+                        lambda: loss_and_grads(net, images, target))
+            note(f"  phase {phase}, {route} route, cuDNN deterministic: two "
+                 "backward passes over one forward differ in "
+                 f"{differ or 'no sub-net'}, a step under deterministic "
+                 f"algorithms names {ops_named or 'no op'}; with torch's "
+                 f"upsample backward: {torch_differ or 'no sub-net'}, "
+                 f"{torch_named or 'no op'}")
+            if differ or ops_named:
+                raise AssertionError(
+                    f"phase {phase}, {route} route: the step is not "
+                    f"deterministic: {differ} differ, {ops_named} named")
+            if "flownetc" not in torch_differ:
+                raise AssertionError(
+                    f"phase {phase}, {route} route: with torch's upsample "
+                    "backward two backward passes did not differ in "
+                    f"flownetc ({torch_differ}): the check did not show "
+                    "that it sees the atomics it checks for")
+        torch.backends.cudnn.deterministic = False
+
+    deterministic_step(tmodel, "4")
 
     def timed_routes(step, phase: str, suffix: str = "", shards: int = 1):
         """TRAIN_WARMUP warm-up and TRAIN_STEPS timed steps of ``step`` on
@@ -1415,6 +1616,7 @@ def main() -> int:
     subnets_close(grads_s, grads_c, noise_line,
                   "bf16 small step against the CPU")
     del grads_16, grads_s, grads_c, small16
+    deterministic_step(model16, "4b, bf16")
 
     step16 = StepFactory(model16, loss_fn, get_optimizer("Adam", 1e-4)) \
         .train_step()
@@ -1909,6 +2111,11 @@ def main() -> int:
                 f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
                 f"{flops / 1e9:.3f} GFLOP)  [{smi}; SM clock, max: "
                 f"{sm_clock()}]")
+            if name in K3_BEFORE_MS:
+                note(f"  {name}: {k_ms:.4f} ms, {b_ms / k_ms:.0%} of its "
+                     f"bound [{K3_BEFORE_MS[name]:.4f} ms, "
+                     f"{b_ms / K3_BEFORE_MS[name]:.0%}, before the row tiles]"
+                     f"  [{smi}]")
             extra = {}
             if bf16 and not name.startswith("correlation"):
                 extra["bound_ms_f32_body"] = bound_ms(nbytes, flops, peaks)[0]
@@ -1947,7 +2154,7 @@ def main() -> int:
         del sampled, grid_leaf, sampled2, grid_leaf2
         by_name = {k["name"]: k for k in kernels}
 
-        # K2 and K4 at the smooth flow the stage glue makes (+-8 px at
+        # K2, K3 and K4 at the smooth flow the stage glue makes (+-8 px at
         # (H/4, W/4), bilinear x4), one and two flows, f32 and bf16, beside
         # the noise flows timed above
         for dtype in (torch.float32, torch.bfloat16):
@@ -1964,7 +2171,9 @@ def main() -> int:
                          r2d.resample2d_multi_cuda(im, fl)),
                         ("resample2d_grad_flow",
                          lambda t_g=t_g, t_im=t_im, t_fl=t_fl:
-                         r2d.resample2d_grad_flow_cuda(t_g, t_im, t_fl))):
+                         r2d.resample2d_grad_flow_cuda(t_g, t_im, t_fl)),
+                        ("resample2d_tangents", lambda t_im=t_im, t_fl=t_fl:
+                         r2d.resample2d_tangents_cuda(t_im, t_fl))):
                     name = r2d._per_flow(base, nflows) + suffix
                     note(f"  {name} at the smooth flow: "
                          f"{time_ms(fn, 50, head_start=True):.4f} ms (at the "
@@ -2073,6 +2282,60 @@ def main() -> int:
             step(images, target)
 
     profile_families(steps, PROFILED_STEPS, TRAIN_FAMILIES, smi, "step")
+
+    def k3_per_step(step, families, dtype):
+        """K3's device time a step on the tangent route, from a profile of
+        PROFILED_STEPS steps."""
+        with mock.patch.object(stage_glue, "TRAIN_WARP", "tangents"):
+            step(images, target)
+            print(f"  {dtype} train step, {PROFILED_STEPS} steps on the "
+                  "tangent route under torch.profiler")
+            by_kernel, counts = profile_families(
+                lambda: steps(step), PROFILED_STEPS, families, smi, "step")
+        k3 = [k for k in by_kernel if "resample2d_tangents" in k]
+        note(f"  phase 7, {dtype} step, tangent route: K3 "
+             f"{sum(by_kernel[k] for k in k3) / 1e3 / PROFILED_STEPS:.3f} "
+             f"ms a step in {sum(counts[k] for k in k3) / PROFILED_STEPS:g} "
+             f"launches  [{smi}]")
+
+    k3_per_step(step, TRAIN_FAMILIES, "fp32")
+
+    def upsample_backward_per_step(step, dtype):
+        """The bilinear upsample's backward a step, the port's and torch's:
+        the device time and kernel launches under the autograd engine's
+        range of its node, in a profile of PROFILED_STEPS steps."""
+        def under(ev):
+            return (len(ev.kernels)
+                    + sum(under(child) for child in ev.cpu_children))
+
+        readings = []
+        for what, patch in (
+                ("the port's", contextlib.nullcontext()),
+                ("torch's", mock.patch.object(
+                    flownet2_module, "upsample_bilinear",
+                    interpolate_upsample))):
+            with patch:
+                step(images, target)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    steps(step)
+                    torch.cuda.synchronize()
+            nodes = [ev for ev in prof.events()
+                     if ev.name.startswith("autograd::engine::evaluate_"
+                                           "function")
+                     and "UpsampleBilinear" in ev.name]
+            node_ms = sum(ev.device_time_total for ev in nodes) / 1e3
+            readings.append(
+                f"{what} {node_ms / PROFILED_STEPS:.3f} "
+                f"ms in {len(nodes) / PROFILED_STEPS:g} calls, "
+                f"{sum(under(ev) for ev in nodes) / PROFILED_STEPS:g} "
+                "launches")
+        note(f"  phase 7, {dtype} step, {stage_glue.TRAIN_WARP} route: the "
+             f"bilinear upsample's backward a step: {'; '.join(readings)}  "
+             f"[{smi}]")
+
+    upsample_backward_per_step(step, "fp32")
     note(f"  phase 7, FlowNet2 bf16 train step b{TRAIN_BATCH} {TRAIN_HEIGHT}x"
          f"{TRAIN_WIDTH}, {PROFILED_STEPS} steps under torch.profiler "
          f"({stage_glue.TRAIN_WARP} route)")
@@ -2086,6 +2349,8 @@ def main() -> int:
                    if layout.search(key)) / PROFILED_STEPS
     note(f"  phase 7, bf16 step: {n_layout:g} layout-conversion launches a "
          "step")
+    k3_per_step(step16, BF16_TRAIN_FAMILIES, "bf16")
+    upsample_backward_per_step(step16, "bf16")
 
     # -- 8. result ------------------------------------------------------------
     print("summary of the timed phases:")

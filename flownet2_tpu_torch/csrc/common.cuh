@@ -176,16 +176,17 @@ static __device__ __forceinline__ FnetBilinear fnet_bilinear(
 }
 
 // ---------------------------------------------------------------------------
-// The row-tile warps, K2 (resample2d_fwd.cu) and K4 (resample2d_grad_flow.cu).
+// The row-tile warps, K2 (resample2d_fwd.cu), K3 (resample2d_tangents.cu)
+// and K4 (resample2d_grad_flow.cu).
 //
 // A block covers kCols output columns x kTileRows output rows of one flow
 // (grid: column tiles x row tiles x B*F); a thread owns kV consecutive
-// columns of one row, 16 bytes of T.  The flow arrives, and K2's output and
-// K4's cotangent and d_flow move, in pieces of kPiece elements: kV (16
-// bytes) where every row of every tensor starts 16-byte aligned, else 2, else
-// 1; a piece past the row's last column is masked.  The block takes the
-// bounding box of its sample points' clamped corners (its window) and
-// chooses a route:
+// columns of one row, 16 bytes of T.  The flow arrives, and K2's output,
+// K3's three outputs and K4's cotangent and d_flow move, in pieces of kPiece
+// elements: kV (16 bytes of T) where every row of every tensor starts
+// 16-byte aligned, else 2, else 1; a piece past the row's last column is
+// masked.  The block takes the bounding box of its sample points' clamped
+// corners (its window) and chooses a route:
 // - shared: the window's rows of all C channels are staged in shared
 //   memory (cp.async) and the corners gathered there.  A block takes this
 //   route where the window fits in kWindowBytes (a +-8 px flow needs 30 KB
@@ -216,13 +217,20 @@ struct WarpTile {
 };
 
 // The widest piece, in elements of T, on which every row of W elements of
-// each tensor at ``ptrs`` starts: 16 bytes, 2 elements or 1.
+// each tensor at ``ptrs`` starts: 16 bytes, 2 elements or 1.  The float
+// tensors at ``floats`` (K3's tangents beside a bfloat16 image) move the
+// same pieces of float, as words of 16 bytes at most, so their rows must
+// start on such a word.
 template <typename T>
-static inline int fnet_piece(int W, std::initializer_list<const void*> ptrs) {
+static inline int fnet_piece(int W, std::initializer_list<const void*> ptrs,
+                             std::initializer_list<const float*> floats = {}) {
   for (const int n : {16 / static_cast<int>(sizeof(T)), 2}) {
     bool ok = W % n == 0;
     for (const void* p : ptrs)
       ok = ok && reinterpret_cast<uintptr_t>(p) % (n * sizeof(T)) == 0;
+    for (const float* p : floats)
+      ok = ok && reinterpret_cast<uintptr_t>(p) %
+                         ((n < 4 ? n : 4) * sizeof(float)) == 0;
     if (ok) return n;
   }
   return 1;

@@ -26,12 +26,13 @@ twelve float32 digests), then of the bf16 K5, K6, K3, K4, K7, K1 and K2
 digest computed the same bits), the SM clock and its maximum as nvidia-smi
 reads them after the timings, and ptxas's register counts (none for
 libraries an earlier run in that checkout has built), those of the warp
-bodies (K2's and K4's instantiations) with their spills.  Drawn after
-every input above, so that the digests above stay comparable with those
-of older checkouts, three more flows time and digest the one-flow and
-two-flow K2 (at (8, 3, 384, 512)) and K4 (at (8, 3, 384, 448)), float32
-and bf16: a zero flow (every gather in the pixel's own sector), the smooth
-flow of the stage glue (+-8 px at (H/4, W/4), bilinear x4) and +-200 px.
+bodies (K2's, K3's and K4's instantiations) with their spills.  Drawn
+after every input above, so that the digests above stay comparable with
+those of older checkouts, three more flows time and digest the one-flow
+and two-flow K2 (at (8, 3, 384, 512)), K3 and K4 (at (8, 3, 384, 448)),
+float32 and bf16: a zero flow (every gather in the pixel's own sector),
+the smooth flow of the stage glue (+-8 px at (H/4, W/4), bilinear x4) and
++-200 px.
 It keeps the outputs of the bf16 kernels that run a tensor-core body (K1, K7 forward,
 K5, K7 d_f1, K6 and K7 d_slab) in ``build/kernel_ab/<tag>.pt`` under the
 working directory and prints, on a second line, the share of their values
@@ -101,9 +102,11 @@ def main(root: str, tag: str) -> int:
     registers = [line.split("Used ")[1].split(",")[0]
                  for name in sorted(logs) for line in logs[name].splitlines()
                  if "registers" in line]
-    # the warp bodies (K2, K4): each instantiation's registers and spills
+    # the warp bodies (K2, K3, K4): each instantiation's registers and
+    # spills
     warp_bodies = []
-    for name in ("resample2d_fwd", "resample2d_grad_flow"):
+    for name in ("resample2d_fwd", "resample2d_tangents",
+                 "resample2d_grad_flow"):
         body = spill = ""
         for line in logs[name].splitlines():
             if "Compiling entry function" in line:
@@ -146,12 +149,12 @@ def main(root: str, tag: str) -> int:
     t_flow = t_flows[:, :1].contiguous()
     t_g, t_g2 = randn(8, 1, 3, 384, 448), randn(8, 2, 3, 384, 448)
 
-    # K2 and K4 at three more flows, drawn after every input above so that
-    # the digests above stay comparable with those of older checkouts: a
-    # zero flow (every gather in the pixel's own sector), the smooth flow
+    # K2, K3 and K4 at three more flows, drawn after every input above so
+    # that the digests above stay comparable with those of older checkouts:
+    # a zero flow (every gather in the pixel's own sector), the smooth flow
     # of the stage glue (+-8 px at (H/4, W/4), bilinear x4) and +-200 px;
-    # two flows at K2's and at K4's shape each, the one-flow forms on the
-    # first
+    # two flows at K2's and at K3's and K4's shape each, the one-flow forms
+    # on the first
     def uniform(*shape, scale):
         return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * scale
 
@@ -250,7 +253,13 @@ def main(root: str, tag: str) -> int:
                     r2d.resample2d_grad_flow_cuda(g, im, fl)),
                 f"K4{sfx}, two flows, {kind}": (
                     lambda g=g2, im=t_im, fl=fl4:
-                    r2d.resample2d_grad_flow_cuda(g, im, fl))})
+                    r2d.resample2d_grad_flow_cuda(g, im, fl)),
+                f"K3{sfx}, one flow, {kind}": (
+                    lambda im=t_im, fl=fl4_1:
+                    r2d.resample2d_tangents_cuda(im, fl)),
+                f"K3{sfx}, two flows, {kind}": (
+                    lambda im=t_im, fl=fl4:
+                    r2d.resample2d_tangents_cuda(im, fl))})
     for name, fn in {**bf16_kernels, **more_kernels}.items():
         times[name] = (time_ms(fn) if bf16(fn) is not None
                        else float("nan"))
