@@ -154,6 +154,26 @@ Phases (any failure raises and the script exits non-zero):
    warm-up and 10 timed steps per warp route, in turns, over the whole map
    and then under two bands, each counted (the tangent route's K3 bf16 in
    place of K2 and K4).
+5c. FlowNet2 trained from files on disk through the Trainer: 24 training
+   and 8 validation pairs in FlyingChairs' own format (.ppm frames, .flo
+   flows) at 384x512, drawn from a seeded generator, in a temporary
+   directory that is removed after.  The decoder route is printed (native,
+   or numpy with the build's reason; the numpy route only where the libpng
+   or libjpeg headers are missing).  FlyingChairs with crops of 384x448,
+   DataLoader(batch 8, shuffled, seed 0): the loader's batches/s alone,
+   and two epochs through device_prefetch, every device batch bit-equal to
+   its host batch.  fp32, TF32 off, cuDNN deterministic: run A,
+   Trainer.fit over 2 epochs of 3 steps (MultiScale, Adam 1e-4) with
+   validation at epoch 0; run B, epoch 0 into its own directory, then a new
+   model, optimizer, StepFactory and Trainer resumed from its
+   train-checkpoint for epoch 1: parameters, Adam's state, step count,
+   best EPE and logged losses bit-equal to run A's.  Each checkpoint save
+   and the restore timed, with its bytes.  Trainer.inference over the
+   validation pairs: 8 .flo and 8 PNG files, the .flo files bit-equal to
+   infer_step's flows, the EPE finite.  Then, with cuDNN's defaults, 2
+   timed epochs of 3 steps through the Trainer in fp32 and in bf16 (after
+   one epoch to warm up), ms/step with and without the loader's waits
+   beside phases 4 and 4b.
 6. Each kernel's time, its plain version's time, the card's bound for the
    same work and, where one PyTorch call computes the same function, that
    call's time, at the main-path shapes (K7 at one band of two; the bf16
@@ -195,6 +215,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -294,6 +315,9 @@ TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 ROUTES = ("grad_flow", "tangents")
 ROUTE_ROUNDS = 1
 SHARDS = 2
+# phase 5c: FlyingChairs-format files at FlyingChairs' size, trained on at
+# phase 4's crop and batch
+CHAIRS_TRAIN, CHAIRS_VAL, CHAIRS_HEIGHT, CHAIRS_WIDTH = 24, 8, 384, 512
 
 
 # The readings of the timed phases, printed where they are taken and again
@@ -559,6 +583,275 @@ def profile_families(run, n: int, families, smi: str, unit: str,
     for key, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3 / n:9.3f} ms/{unit}  {key[:100]}")
     return per_kernel, counts
+
+
+def trainer_phase(smi: str, phase4_ms: float, phase4b_ms: float) -> None:
+    """Phase 5c: FlowNet2 trained from files on disk through the Trainer.
+    FlyingChairs-format pairs in a temporary directory; the loader alone
+    and through ``device_prefetch`` (every device batch bit-equal to its
+    host batch); run A, ``Trainer.fit`` over 2 epochs of 3 fp32 steps with
+    validation at epoch 0, and run B, epoch 0, then a new model, optimizer,
+    StepFactory and Trainer resumed from B's train-checkpoint for epoch 1:
+    bit-equal to A in parameters, Adam's state, count, best EPE and logged
+    losses (cuDNN deterministic); ms/step through the Trainer in fp32 and
+    bf16 with cuDNN's defaults beside phases 4 and 4b; ``Trainer.inference``
+    over the validation pairs, its .flo files bit-equal to ``infer_step``'s
+    flows."""
+    import gc
+
+    import numpy as np
+    from PIL import Image
+
+    from flownet2_tpu_torch import native
+    from flownet2_tpu_torch.checkpoints import native as ckpt
+    from flownet2_tpu_torch.data import (DataLoader, DeviceLoader,
+                                         FlyingChairs, device_prefetch,
+                                         read_flo, write_flo)
+    from flownet2_tpu_torch.losses import MultiScale
+    from flownet2_tpu_torch.models import get_model
+    from flownet2_tpu_torch.train import (StepFactory, Trainer, TrainerConfig,
+                                          get_optimizer)
+    from flownet2_tpu_torch.train import trainer as trainer_module
+
+    t_phase = time.perf_counter()
+    print(f"phase 5c: FlowNet2 trained from FlyingChairs-format files "
+          f"({CHAIRS_TRAIN} training and {CHAIRS_VAL} validation pairs, "
+          f"{CHAIRS_HEIGHT}x{CHAIRS_WIDTH}) through the Trainer, crops "
+          f"{TRAIN_HEIGHT}x{TRAIN_WIDTH}, batch {TRAIN_BATCH}")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_5c_"))
+    try:
+        # -- data: FlyingChairs' own format, from a seeded generator
+        rng = np.random.default_rng(0)
+        for split, n in (("train", CHAIRS_TRAIN), ("val", CHAIRS_VAL)):
+            (work / split).mkdir()
+            for i in range(n):
+                for j in (1, 2):
+                    Image.fromarray(rng.integers(
+                        0, 256, (CHAIRS_HEIGHT, CHAIRS_WIDTH, 3),
+                        dtype=np.uint8)).save(
+                            work / split / f"{i:05d}_img{j}.ppm")
+                write_flo(work / split / f"{i:05d}_flow.flo",
+                          rng.standard_normal(
+                              (CHAIRS_HEIGHT, CHAIRS_WIDTH, 2),
+                              dtype=np.float32) * 4)
+        if native.available():
+            decoder = "native"
+        else:
+            reason = native.build_error()
+            lines = reason.splitlines()
+            decoder = "numpy ({})".format(next(
+                (line for line in lines if "error" in line), lines[0])
+                .strip()[:160])
+            # the numpy route only where the libpng or libjpeg headers are
+            # missing (or the switch is set)
+            if not any(k in reason for k in ("png.h", "jpeglib.h",
+                                             native.NO_NATIVE_ENV)):
+                raise AssertionError(f"the native decoders did not build: "
+                                     f"{reason}")
+        train_ds = FlyingChairs(root=str(work / "train"), is_cropped=True,
+                                crop_size=(TRAIN_HEIGHT, TRAIN_WIDTH))
+        val_ds = FlyingChairs(root=str(work / "val"))
+
+        def loader_of(ds):
+            return DataLoader(ds, batch_size=TRAIN_BATCH, shuffle=True,
+                              seed=0)
+
+        # -- the loader alone, then through device_prefetch onto the card
+        loader = loader_of(train_ds)
+
+        def two_epochs():
+            for epoch in (0, 1):
+                loader.set_epoch(epoch)
+                yield from loader
+
+        t0 = time.perf_counter()
+        host = list(two_epochs())
+        loader_s = time.perf_counter() - t0
+        prefetched = list(device_prefetch(two_epochs(), device=DEVICE))
+        torch.cuda.synchronize()
+        same = [torch.equal(d.images.cpu(), torch.from_numpy(h.images))
+                and torch.equal(d.flow.cpu(), torch.from_numpy(h.flow))
+                and d.n_valid == h.n_valid
+                and d.images.device.type == torch.device(DEVICE).type
+                for h, d in zip(host, prefetched)]
+        note(f"  phase 5c, loader: decoder route {decoder}; "
+             f"{len(host) / loader_s:.2f} batches/s alone ({len(host)} "
+             f"batches of {TRAIN_BATCH} pairs in {loader_s:.3f} s); "
+             f"device batches bit-equal to the host batches: "
+             f"{sum(same)} of {len(host)}")
+        if len(prefetched) != len(host) or not all(same):
+            raise AssertionError("device_prefetch: a device batch differs "
+                                 "from its host batch")
+        del host, prefetched
+
+        def on_card(ds):
+            return DeviceLoader(loader_of(ds), device=DEVICE)
+
+        saves, restores = [], []
+
+        def timed_save(directory, model, optimizer, epoch, best_epe,
+                       is_best=False, tag="train-checkpoint"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = ckpt.save_checkpoint(directory, model, optimizer, epoch,
+                                        best_epe, is_best, tag)
+            saves.append((tag, time.perf_counter() - t,
+                          (Path(path) / ckpt.STATE_FILE).stat().st_size))
+            return path
+
+        def build(save_dir, total_epochs, dtype=torch.float32):
+            model = get_model("FlowNet2", device=DEVICE, seed=0, dtype=dtype)
+            factory = StepFactory(model, MultiScale(),
+                                  get_optimizer("Adam", 1e-4))
+            trainer = Trainer(factory, TrainerConfig(
+                save_dir=str(work / save_dir), total_epochs=total_epochs,
+                validation_frequency=2, checkpoint_frequency=2))
+            epoch_s = []
+            train_epoch = trainer.train_epoch
+
+            def timed_epoch(loader, epoch, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = train_epoch(loader, epoch, **kw)
+                torch.cuda.synchronize()
+                epoch_s.append(time.perf_counter() - t)
+                return out
+
+            trainer.train_epoch = timed_epoch
+            return factory, trainer, epoch_s
+
+        def records(save_dir):
+            with open(work / save_dir / "run.metrics.jsonl") as f:
+                return [json.loads(line) for line in f]
+
+        def steps_of(recs):
+            return [(r["step"], r["split"], r["loss"], r["epe"])
+                    for r in recs]
+
+        def train_state(factory):
+            inner = factory.optimizer.inner.state_dict()["state"]
+            return ([p.detach() for p in factory.model.parameters()],
+                    [v for k in sorted(inner)
+                     for _, v in sorted(inner[k].items())],
+                    factory.optimizer.count)
+
+        # -- run A and run B (killed after epoch 0 and resumed), fp32
+        torch.backends.cudnn.deterministic = True
+        with mock.patch.object(trainer_module, "save_checkpoint",
+                               timed_save):
+            factory_a, trainer_a, epochs_a = build("a", 2)
+            trainer_a.fit(on_card(train_ds), on_card(val_ds))
+            factory_b, trainer_b, _ = build("b", 1)
+            trainer_b.fit(on_card(train_ds), on_card(val_ds))
+            del factory_b, trainer_b
+            gc.collect()
+            torch.cuda.empty_cache()
+            factory_b, trainer_b, _ = build("b", 2)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            meta = trainer_b.resume()
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t)
+            trainer_b.fit(on_card(train_ds), on_card(val_ds))
+        torch.backends.cudnn.deterministic = False
+        pa, ma, ca = train_state(factory_a)
+        pb, mb, cb = train_state(factory_b)
+        equal = {
+            "parameters": len(pa) == len(pb) and all(
+                torch.equal(x, y) for x, y in zip(pa, pb)),
+            "Adam state": len(ma) == len(mb) > 0 and all(
+                torch.equal(x, y) for x, y in zip(ma, mb)),
+            "step count": ca == cb == 2 * len(train_ds) // TRAIN_BATCH,
+            "best EPE": trainer_a.best_epe == trainer_b.best_epe
+            and math.isfinite(trainer_a.best_epe),
+            "logged losses": steps_of(records("a")) == steps_of(records("b")),
+        }
+        rec_a = records("a")
+        train_a = [r for r in rec_a if r["split"] == "train"]
+        load = [r["load_s"] for r in train_a]
+        note(f"  phase 5c, fp32 run B (killed after epoch 0, resumed at "
+             f"epoch {meta['epoch']}) against run A: "
+             + ", ".join(f"{k} bit-equal {v}" for k, v in equal.items())
+             + f"; {ca} steps, best EPE {trainer_a.best_epe:.6f}, last loss "
+             f"{train_a[-1]['loss']:.6f}")
+        if not all(equal.values()) or not all(
+                math.isfinite(r["loss"]) for r in rec_a):
+            raise AssertionError(f"the resumed run differs from run A: "
+                                 f"{equal}")
+        note(f"  phase 5c, fp32 through the Trainer, cuDNN deterministic: "
+             f"epochs {', '.join(f'{s * 1e3 / 3:.3f}' for s in epochs_a)} "
+             f"ms/step (3 steps an epoch, the loader's waits included); "
+             f"load_s mean {sum(load) / len(load) * 1e3:.3f} ms a batch, "
+             f"first of each epoch {load[0] * 1e3:.3f}, "
+             f"{load[len(load) // 2] * 1e3:.3f}  [{smi}]")
+        note("  phase 5c, checkpoints: " + "; ".join(
+            f"save {tag} {sec:.3f} s {size} bytes"
+            for tag, sec, size in saves)
+            + f"; restore {restores[0]:.3f} s")
+        del factory_b, trainer_b, pb, mb
+
+        # -- inference over the validation pairs, then ms/step with cuDNN's
+        # defaults, as phases 4 and 4b time the bare step
+        torch.backends.cudnn.deterministic = True
+        flo_dir, png_dir = work / "flows", work / "png"
+        n, means = trainer_a.inference(on_card(val_ds),
+                                       save_flow_dir=str(flo_dir),
+                                       visualize_dir=str(png_dir))
+        (val_batch,) = list(loader_of(val_ds))
+        flows = factory_a.infer_step()(
+            torch.from_numpy(val_batch.images).to(DEVICE)).float().cpu()
+        torch.backends.cudnn.deterministic = False
+        files = sorted(os.listdir(flo_dir))
+        written = [torch.from_numpy(read_flo(flo_dir / f)) for f in files]
+        match = len(written) == len(flows) and all(
+            torch.equal(a, b) for a, b in zip(written, flows))
+        note(f"  phase 5c, inference: {n} flows, {len(files)} .flo and "
+             f"{len(os.listdir(png_dir))} PNG files, bit-equal to "
+             f"infer_step's flows {match}; EPE {means['epe']:.6f} over "
+             f"{means['n_samples']} pairs")
+        if not (match and n == len(files) == CHAIRS_VAL
+                and len(os.listdir(png_dir)) == CHAIRS_VAL
+                and math.isfinite(means["epe"])):
+            raise AssertionError("Trainer.inference: the written flows are "
+                                 "not infer_step's")
+        del flows, written
+
+        def timed_trainer(trainer, epoch_s, save_dir, epochs):
+            """Train ``epochs`` through train_epoch; ms/step of the last two,
+            the same less the loader's waits (load_s) and the longest
+            wait, in ms."""
+            loader = on_card(train_ds)
+            for epoch in epochs:
+                loader.set_epoch(epoch)
+                trainer.train_epoch(loader, epoch)
+            n = 2 * len(loader)
+            load = [r["load_s"] for r in records(save_dir)
+                    if r["split"] == "train"][-n:]
+            wall = sum(epoch_s[-2:])
+            return (wall * 1e3 / n, (wall - sum(load)) * 1e3 / n,
+                    max(load) * 1e3)
+
+        fp32 = timed_trainer(trainer_a, epochs_a, "a", (2, 3))
+        del factory_a, trainer_a, pa, ma
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the bf16 model: one epoch to warm up, then two timed
+        factory16, trainer16, epochs16 = build("bf16", 3, torch.bfloat16)
+        bf16 = timed_trainer(trainer16, epochs16, "bf16", (0, 1, 2))
+        for what, (ms, less, wait), bare, phase in (
+                ("fp32", fp32, phase4_ms, "4"),
+                ("bf16", bf16, phase4b_ms, "4b")):
+            note(f"  phase 5c, {what} through the Trainer, cuDNN's defaults, "
+                 f"2 epochs of 3 steps: {ms:.3f} ms/step, {less:.3f} less "
+                 f"the loader's waits (the longest {wait:.3f} ms), against "
+                 f"the bare step's {bare:.3f} (phase {phase})  [{smi}]")
+        del factory16, trainer16
+        gc.collect()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    note(f"  phase 5c took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1853,6 +2146,12 @@ def main() -> int:
              f"{peak16_bands_gib:.2f} GiB allocated under bands  [{smi}]")
     del model16, step16
     torch.cuda.empty_cache()
+
+    # -- 5c. FlowNet2 trained from files through the Trainer --------------------
+    trainer_phase(smi, sum(route_ms[stage_glue.TRAIN_WARP])
+                  / len(route_ms[stage_glue.TRAIN_WARP]),
+                  sum(route16_ms[stage_glue.TRAIN_WARP])
+                  / len(route16_ms[stage_glue.TRAIN_WARP]))
 
     # -- 6. kernel times ------------------------------------------------------
     print("phase 6: kernel times at the main-path shapes")

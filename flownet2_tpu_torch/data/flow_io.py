@@ -1,5 +1,7 @@
 """Middlebury ``.flo`` I/O and flow visualisation: the port's copy of
-flownet2_tpu/data/flow_io.py (numpy only, without the native reader).
+flownet2_tpu/data/flow_io.py.  ``read_flo`` and ``write_flo`` go through
+the native decoders (``flownet2_tpu_torch.native``) where they are
+available, else through numpy; both give the same bytes and arrays.
 
 The .flo format is the magic 202021.25, little-endian int32 W and H, then
 H*W*2 float32 (dx, dy); the colour wheel is the reference's HSV rendering.
@@ -16,6 +18,9 @@ TAG_FLOAT = 202021.25
 
 def read_flo(path: str | pathlib.Path) -> np.ndarray:
     """Read a Middlebury .flo file -> (H, W, 2) float32 (dx, dy)."""
+    from .. import native
+    if native.available():
+        return native.read_flo(path)
     with open(path, "rb") as f:
         magic = np.frombuffer(f.read(4), np.float32)[0]
         if magic != np.float32(TAG_FLOAT):
@@ -34,6 +39,9 @@ def write_flo(path: str | pathlib.Path, flow: np.ndarray) -> None:
     flow = np.asarray(flow)
     if flow.ndim != 3 or flow.shape[2] != 2:
         raise ValueError(f"flow must be (H, W, 2), got {flow.shape}")
+    from .. import native
+    if native.available():
+        return native.write_flo(path, flow)
     h, w = flow.shape[:2]
     with open(path, "wb") as f:
         f.write(np.float32(TAG_FLOAT).tobytes())

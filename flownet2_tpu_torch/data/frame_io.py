@@ -1,5 +1,7 @@
 """Frame reading by extension: the port's copy of
-flownet2_tpu/data/frame_io.py, with images read through PIL only.
+flownet2_tpu/data/frame_io.py.  Images go through the native decoders
+(``flownet2_tpu_torch.native``) where they are available, else through
+PIL; both give the same pixels.
 
 png/jpg/jpeg/ppm -> (H, W, 3) uint8 RGB (alpha dropped, grey expanded);
 .flo -> float32 flow; .bin/.raw -> ``np.load``.
@@ -20,6 +22,9 @@ _IMG_EXTS = {".png", ".jpg", ".jpeg", ".ppm"}
 def read_gen(file_name: str | pathlib.Path) -> np.ndarray:
     ext = os.path.splitext(str(file_name))[-1].lower()
     if ext in _IMG_EXTS:
+        from .. import native
+        if native.available():
+            return native.read_image(file_name)
         from PIL import Image
         with Image.open(str(file_name)) as im:
             arr = np.asarray(im)

@@ -1,4 +1,6 @@
-"""Training: optimizers by name, the LR schedule and the train/eval steps."""
+"""Training: optimizers by name, the LR schedule, the train/eval steps and
+the epoch loop."""
 
-from .optim import LRSchedule, get_optimizer  # noqa: F401
+from .optim import OPTIMIZERS, LRSchedule, get_optimizer  # noqa: F401
 from .state import StepFactory  # noqa: F401
+from .trainer import Trainer, TrainerConfig  # noqa: F401

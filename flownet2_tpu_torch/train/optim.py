@@ -161,6 +161,21 @@ class Optimizer:
         self.inner.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """The step count (which drives the schedule) and the inner
+        ``torch.optim`` state, for a checkpoint."""
+        return {"name": self.name, "count": self.count,
+                "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Take back a ``state_dict`` of the same optimizer, bound to the
+        same parameters in the same order (``init`` first)."""
+        if state["name"] != self.name:
+            raise ValueError(f"a {state['name']} state for a {self.name} "
+                             "optimizer")
+        self.inner.load_state_dict(state["inner"])
+        self.count = int(state["count"])
+
 
 def get_optimizer(name: str, lr: float, schedule: Optional[LRSchedule] = None,
                   grad_clip: Optional[float] = None, **kwargs) -> Optimizer:

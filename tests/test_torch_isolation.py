@@ -46,15 +46,38 @@ def test_importing_every_module_pulls_in_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 20, proc.stdout
-    for module in ("sharding_hints", "correlation_spatial",
-                   "resample2d_spatial"):
-        assert f"flownet2_tpu_torch.ops.{module}" in proc.stdout.split()
+    for module in ("ops.sharding_hints", "ops.correlation_spatial",
+                   "ops.resample2d_spatial", "data.datasets", "data.loader",
+                   "native", "utils.tools", "utils.tensorboard",
+                   "checkpoints.native", "train.trainer"):
+        assert f"flownet2_tpu_torch.{module}" in proc.stdout.split()
+
+
+def test_native_decoders_load_the_ports_own_library(tmp_path):
+    """The port's native module builds its library into the build root and
+    never loads the JAX package's ``flownet2_tpu/native/_fileio_*.so``."""
+    script = (
+        "from flownet2_tpu_torch import native\n"
+        "from flownet2_tpu_torch.data import DataLoader, read_flo\n"
+        "print(native.available(), native.library_path())\n"
+        "for line in open('/proc/self/maps'):\n"
+        "    if 'fileio' in line: print(line.split()[-1])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["FLOWNET2_TORCH_BUILD_DIR"] = str(tmp_path)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    available, library, *mapped = proc.stdout.split()
+    assert pathlib.Path(library).parent == tmp_path
+    assert not any("flownet2_tpu/" in m or "_fileio_" in m for m in mapped)
+    if available == "True":
+        assert set(mapped) == {library}
 
 
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted(PACKAGE.rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "kernel_ab.py",
-                                 "step_ab.py")]
+                                 "step_ab.py", "trainer_ab.py")]
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
