@@ -61,7 +61,10 @@ Phases (any failure raises and the script exits non-zero):
    windows are staged in shared memory, half at +-200 px, gathered from
    global memory), at phase 2's tolerances; K3 and K4 (two flows, f32 and
    bf16) at (2, 3, 100, 136), where a bf16 K3 thread pair straddles the
-   row's end, likewise.
+   row's end, likewise.  The warp's image gradient (plain PyTorch, F4) at
+   K2's shape, one and two flows of +-8 px and +-200 px: two calls
+   bit-equal, within 1e-5 (of its largest magnitude) of a float64 sum, its
+   time printed.
 3. FlowNet2 inference, seeded random weights, b8 384x512 fp32: warm-up,
    then 10 timed batches with CUDA events, with the launch counters set to
    0 just before and read just after (1 K1 and 3 K2 launches per forward,
@@ -174,6 +177,29 @@ Phases (any failure raises and the script exits non-zero):
    timed epochs of 3 steps through the Trainer in fp32 and in bf16 (after
    one epoch to warm up), ms/step with and without the loader's waits
    beside phases 4 and 4b.
+5d. The command line and caffemodel import, FlowNet2 at full width, cuDNN
+   deterministic for the bit-equality gates, in a temporary directory:
+   a caffemodel of seeded weights (the release's V1 layout, the first
+   convolutions' BGR groups reversed, ~650 MB) converted by ``python -m
+   flownet2_tpu_torch.checkpoints.convert`` (exit 0, one JSON line,
+   162,518,834 parameters, the converted state dict bit-equal to the
+   seeded model's); ``cli.main --inference --save_flow --resume
+   <converted>`` over 17 ImagesFromFolder frames at 384x512, b8 (per
+   forward 1 K1, 2 one-flow and 1 two-flow K2, no plain-op call; the .flo
+   files bit-equal to ``infer_step`` of the seeded model), again with
+   ``--spatial_shards 2`` (K7 forward and the local-rows K2; bit-equal to
+   the whole map) and with ``--precision bf16`` (the bf16 entry points;
+   within the bf16 contract of the fp32 flows); one ``python -m
+   flownet2_tpu_torch.cli --inference`` subprocess of one batch (exit 0);
+   ``cli.main`` training from FlyingChairs-format files (crops of
+   384x448, b8, 2 epochs of 2 steps, validation each epoch) from a
+   ``.pth.tar`` of the seeded weights (the launches of the steps and the
+   validation forwards exact, no plain-op call; the final parameters and
+   the logged losses bit-equal to ``Trainer.fit`` built by hand from the
+   same pieces and files), then ``--resume <run>`` for a third epoch with
+   cuDNN's defaults (its launches exact, the count from 4 to 6).
+   ms/step through the command line beside phases 4 and 5c, the
+   conversion's seconds, inference seconds a batch.
 6. Each kernel's time, its plain version's time, the card's bound for the
    same work and, where one PyTorch call computes the same function, that
    call's time, at the main-path shapes (K7 at one band of two; the bf16
@@ -318,6 +344,11 @@ SHARDS = 2
 # phase 5c: FlyingChairs-format files at FlyingChairs' size, trained on at
 # phase 4's crop and batch
 CHAIRS_TRAIN, CHAIRS_VAL, CHAIRS_HEIGHT, CHAIRS_WIDTH = 24, 8, 384, 512
+# phase 5d: the command line on 17 frames (16 pairs, 2 batches), on 16
+# training pairs (2 steps an epoch) and 8 validation pairs, from the weights
+# of a caffemodel written from the seeded model
+CLI_FRAMES, CLI_TRAIN, CLI_VAL, CLI_SEED = 17, 16, 8, 5
+FLOWNET2_PARAMS = 162_518_834
 
 
 # The readings of the timed phases, printed where they are taken and again
@@ -546,6 +577,28 @@ def nondeterministic_ops(run) -> list:
     return sorted(named)
 
 
+def d_img_float64(r2d, g: torch.Tensor, img: torch.Tensor,
+                  flows: torch.Tensor) -> torch.Tensor:
+    """The warp's image gradient of ``ops/resample2d.py`` summed in float64
+    by ``scatter_add_`` (whose atomics leave an order-dependent error far
+    below float32's): phase 2's reference for F4."""
+    batch, channels, height, width = img.shape
+    out = torch.zeros(batch, channels, height * width, dtype=torch.float64,
+                      device=img.device)
+    for f in range(flows.shape[1]):
+        a, b, x_l, x_r, y_t, y_b = r2d._sample_point(flows[:, f], height,
+                                                     width)
+        gf = g[:, f].reshape(batch, channels, -1).double()
+        a = a.reshape(batch, 1, -1).double()
+        b = b.reshape(batch, 1, -1).double()
+        for yi, xi, w in ((y_t, x_l, (1 - a) * (1 - b)),
+                          (y_t, x_r, a * (1 - b)),
+                          (y_b, x_l, (1 - a) * b), (y_b, x_r, a * b)):
+            idx = (yi * width + xi).reshape(batch, 1, -1).expand_as(gf)
+            out.scatter_add_(2, idx, w * gf)
+    return out.reshape(img.shape)
+
+
 def profile_families(run, n: int, families, smi: str, unit: str,
                      say=print):
     """Profile ``run()`` (n repetitions of the work) and print (by ``say``)
@@ -585,7 +638,7 @@ def profile_families(run, n: int, families, smi: str, unit: str,
     return per_kernel, counts
 
 
-def trainer_phase(smi: str, phase4_ms: float, phase4b_ms: float) -> None:
+def trainer_phase(smi: str, phase4_ms: float, phase4b_ms: float) -> float:
     """Phase 5c: FlowNet2 trained from files on disk through the Trainer.
     FlyingChairs-format pairs in a temporary directory; the loader alone
     and through ``device_prefetch`` (every device batch bit-equal to its
@@ -596,7 +649,7 @@ def trainer_phase(smi: str, phase4_ms: float, phase4b_ms: float) -> None:
     losses (cuDNN deterministic); ms/step through the Trainer in fp32 and
     bf16 with cuDNN's defaults beside phases 4 and 4b; ``Trainer.inference``
     over the validation pairs, its .flo files bit-equal to ``infer_step``'s
-    flows."""
+    flows.  Returns the fp32 ms/step through the Trainer."""
     import gc
 
     import numpy as np
@@ -852,6 +905,389 @@ def trainer_phase(smi: str, phase4_ms: float, phase4b_ms: float) -> None:
         torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
     note(f"  phase 5c took {time.perf_counter() - t_phase:.1f} s")
+    return fp32[0]
+
+
+def write_caffemodel(path: Path, state: dict, model_name: str) -> None:
+    """A caffemodel in the release's V1 layout (NetParameter ``layers``)
+    whose import is ``state`` (a reference-keyed state dict): each layer's
+    weight, the first convolutions' BGR groups reversed, and its bias (a
+    zero bias blob where the port's module has none; the import drops
+    it)."""
+    import numpy as np
+
+    from flownet2_tpu_torch.checkpoints import caffe_import as ci
+
+    def varint(v: int) -> bytes:
+        out = bytearray()
+        while True:
+            low, v = v & 0x7F, v >> 7
+            if not v:
+                out.append(low)
+                return bytes(out)
+            out.append(low | 0x80)
+
+    def field(number: int, payload: bytes) -> bytes:  # length-delimited
+        return varint(number << 3 | 2) + varint(len(payload)) + payload
+
+    def blob(a) -> bytes:
+        dims = b"".join(varint(1 << 3) + varint(d) for d in a.shape)
+        return field(7, dims) + field(5, a.astype("<f4").tobytes())
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(field(1, b"net"))
+        for kind, cprefix, tprefix in ci._MODEL_NETS[model_name]:
+            first_conv, groups = ci._BGR[kind]
+            for key, module, style in ci._net_table(kind, cprefix):
+                mid = f"{module}.0" if style == ci.SEQ else module
+                weight = state[f"{tprefix}{mid}.weight"].numpy().copy()
+                if module == first_conv:
+                    for lo, hi in groups:
+                        weight[:, lo:hi] = weight[:, lo:hi][:, ::-1].copy()
+                bias = state.get(f"{tprefix}{mid}.bias")
+                bias = (np.zeros(weight.shape[1], np.float32) if bias is None
+                        else bias.numpy())
+                f.write(field(2, field(4, key.encode())
+                              + field(6, blob(weight))
+                              + field(6, blob(bias))))
+
+
+def cli_phase(smi: str, phase4_ms: float, phase5c_ms: float) -> None:
+    """Phase 5d: the command line and caffemodel import, FlowNet2 at full
+    width.  (a) A caffemodel of the seeded model's weights (the first
+    convolutions' BGR groups reversed) converted by ``python -m
+    flownet2_tpu_torch.checkpoints.convert``: exit 0, one JSON line, the
+    parameter count, the converted state dict bit-equal to the seeded
+    model's.  (b) ``cli.main --inference --save_flow --resume <converted>``
+    over 17 ImagesFromFolder frames at 384x512, b8, cuDNN deterministic:
+    the launches a forward (1 K1, 2 one-flow and 1 two-flow K2, no plain-op
+    call), the .flo files bit-equal to ``infer_step`` of the seeded model;
+    with ``--spatial_shards 2`` (K7 forward and the local-rows K2) bit-equal
+    to the whole map; with ``--precision bf16`` (the bf16 entry points)
+    within the bf16 contract of the fp32 flows.  (c) ``cli.main`` training
+    from FlyingChairs-format files (crops of 384x448, b8, 2 epochs of 2
+    steps, validation each epoch) from a ``.pth.tar`` of the seeded weights,
+    cuDNN deterministic: the launches of the steps and the validation
+    forwards, no plain-op call, the final parameters bit-equal to
+    ``Trainer.fit`` built by hand from the same pieces and files; then
+    ``--resume <run>`` for a third epoch (cuDNN's defaults): the
+    optimizer's count goes on from 4 to 6.  (d) One ``python -m
+    flownet2_tpu_torch.cli --inference`` subprocess, one batch: exit 0.
+    (e) ms/step through the command line beside phases 4 and 5c, inference
+    seconds a batch, the phase's seconds."""
+    import gc
+
+    import numpy as np
+    from PIL import Image
+
+    from flownet2_tpu_torch import cli, ops
+    from flownet2_tpu_torch.checkpoints import load_checkpoint
+    from flownet2_tpu_torch.checkpoints.native import STATE_FILE
+    from flownet2_tpu_torch.data import (DataLoader, DeviceLoader,
+                                         get_dataset, read_flo, write_flo)
+    from flownet2_tpu_torch.losses import MultiScale
+    from flownet2_tpu_torch.models import get_model
+    from flownet2_tpu_torch.ops import stage_glue
+    from flownet2_tpu_torch.train import (LRSchedule, StepFactory, Trainer,
+                                          TrainerConfig, get_optimizer,
+                                          optimizer_param_defaults)
+    from flownet2_tpu_torch.train import trainer as trainer_module
+
+    t_phase = time.perf_counter()
+    print(f"phase 5d: the command line and caffemodel import, FlowNet2 "
+          f"b{BATCH} {HEIGHT}x{WIDTH} inference and b{TRAIN_BATCH} "
+          f"{TRAIN_HEIGHT}x{TRAIN_WIDTH} training")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_5d_"))
+    rng = np.random.default_rng(1)
+    walls = {"train_epoch": [], "inference": []}
+
+    def timed(name):
+        """The Trainer's ``name`` method, its wall time (the card
+        synchronised at both ends) kept in ``walls[name]``."""
+        original = getattr(trainer_module.Trainer, name)
+
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = original(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t)
+            return out
+        return mock.patch.object(trainer_module.Trainer, name, run)
+
+    def run_cli(save, *argv):
+        """``cli.main`` in this process on the card; its launches and
+        plain-op calls over the whole call."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_counts()
+        with timed("train_epoch"), timed("inference"):
+            rc = cli.main([*argv, "--device", DEVICE, "--save",
+                           str(work / save)])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"cli.main {argv} returned {rc}")
+        return dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+
+    def check_launches(what, got, plain, want):
+        print(f"  {what}: launches {got}; plain-op calls {plain}")
+        if got != want or plain:
+            raise AssertionError(f"{what}: launches {got} / plain calls "
+                                 f"{plain}; expected {want} / {{}}")
+
+    def flo_files(save):
+        d = work / save / "inference" / "flows"
+        return [torch.from_numpy(read_flo(d / f))
+                for f in sorted(os.listdir(d))]
+
+    try:
+        # -- (a) a FlowNet2 caffemodel of the seeded weights, converted
+        state = get_model("FlowNet2", device="cpu", seed=CLI_SEED).state_dict()
+        caffemodel = work / "FlowNet2" / "FlowNet2_weights.caffemodel"
+        t = time.perf_counter()
+        write_caffemodel(caffemodel, state, "FlowNet2")
+        write_s = time.perf_counter() - t
+        nbytes = caffemodel.stat().st_size
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "flownet2_tpu_torch.checkpoints.convert",
+             str(caffemodel), str(work / "ckpts")], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        convert_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"convert exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        line = json.loads(lines[-1])
+        converted = line["checkpoint"]
+        timing = [ln for ln in proc.stderr.splitlines()
+                  if ln.startswith("convert:")]
+        got = torch.load(Path(converted) / STATE_FILE, map_location="cpu",
+                         weights_only=True)
+        equal = (list(got["model"]) == list(state) and all(
+            torch.equal(got["model"][k], v) for k, v in state.items())
+            and got["optimizer"] is None)
+        note(f"  phase 5d, convert: a {nbytes}-byte FlowNet2 caffemodel "
+             f"(written in {write_s:.3f} s) converted in {convert_s:.3f} s "
+             f"by the subprocess ({timing[0][9:] if timing else '?'}); "
+             f"exit 0, {len(lines)} line, arch {line['arch']}, "
+             f"{line['params']} parameters; bit-equal to the seeded model "
+             f"{equal}  [{smi}]")
+        if not (len(lines) == 1 and line["arch"] == "FlowNet2"
+                and line["params"] == FLOWNET2_PARAMS and equal):
+            raise AssertionError(f"convert: {line}, bit-equal {equal}")
+        del got
+        caffemodel.unlink()
+        pth = work / "FlowNet2_seeded.pth.tar"
+        torch.save({"arch": "FlowNet2", "epoch": 0, "best_EPE": 1e10,
+                    "state_dict": state}, pth)
+        del state
+        gc.collect()
+
+        # -- (b) inference through cli.main, from the converted weights
+        frames = work / "frames"
+        frames.mkdir()
+        for i in range(CLI_FRAMES):
+            Image.fromarray(rng.integers(0, 256, (HEIGHT, WIDTH, 3),
+                                         dtype=np.uint8)).save(
+                frames / f"{i:03d}.png")
+        infer_argv = ["--inference", "--save_flow", "--model", "FlowNet2",
+                      "--batch_size", str(BATCH), "--inference_dataset",
+                      "ImagesFromFolder", "--inference_dataset_root",
+                      str(frames), "--resume", converted]
+        n_fwd = -(-(CLI_FRAMES - 1) // BATCH)
+        fwd = {"correlation_fwd": 1, "resample2d_fwd": 2,
+               "resample2d_fwd_multi": 1}
+        cases = (("fp32", [], fwd),
+                 (f"{SHARDS} bands", ["--spatial_shards", str(SHARDS)],
+                  {"correlation_fwd_rows": SHARDS,
+                   "resample2d_fwd": 2 * SHARDS,
+                   "resample2d_fwd_multi": SHARDS}),
+                 ("bf16", ["--precision", "bf16"],
+                  {k + "_bf16": v for k, v in fwd.items()}))
+        torch.backends.cudnn.deterministic = True
+        flows, infer_s = {}, {}
+        for what, extra, per_fwd in cases:
+            got, plain = run_cli(f"infer {what}", *infer_argv, *extra)
+            check_launches(f"phase 5d, inference {what}, {n_fwd} forwards",
+                           got, plain,
+                           {k: v * n_fwd for k, v in per_fwd.items()})
+            flows[what] = flo_files(f"infer {what}")
+            infer_s[what] = walls["inference"][-1] / n_fwd
+        # infer_step of the seeded model on the same pairs
+        model = get_model("FlowNet2", device=DEVICE, seed=CLI_SEED)
+        infer = StepFactory(model, MultiScale(),
+                            get_optimizer("Adam", 1e-4)).infer_step()
+        want = []
+        for batch in DataLoader(get_dataset("ImagesFromFolder",
+                                            root=str(frames)),
+                                BATCH, shuffle=False, drop_last=False):
+            out = infer(torch.from_numpy(batch.images).to(DEVICE))
+            want.extend(out.float().cpu()[:batch.n_valid or len(out)])
+        del model, infer
+        same = {what: len(flows[what]) == len(want) == CLI_FRAMES - 1
+                and all(torch.equal(a, b) for a, b in zip(flows[what], ref))
+                for what, ref in (("fp32", want),
+                                  (f"{SHARDS} bands", flows["fp32"]))}
+        note(f"  phase 5d, inference through cli.main, {CLI_FRAMES - 1} "
+             f"pairs: .flo bit-equal to infer_step of the seeded model "
+             f"{same['fp32']}; {SHARDS} bands bit-equal to the whole map "
+             f"{same[f'{SHARDS} bands']}; "
+             + ", ".join(f"{what} {sec:.3f} s a batch"
+                         for what, sec in infer_s.items())
+             + f" (the first batch's decode and the .flo writes included)"
+             f"  [{smi}]")
+        if not all(same.values()):
+            raise AssertionError(f"cli inference: {same}")
+        bf16_contract(torch.stack(flows["bf16"]), torch.stack(flows["fp32"]),
+                      "phase 5d, bf16 inference through cli.main against "
+                      "fp32")
+        del want, flows
+
+        # -- (d) the real entry point, one batch
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "flownet2_tpu_torch.cli", *infer_argv,
+             "--inference_n_batches", "1", "--device", DEVICE, "--save",
+             str(work / "entry")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        entry_s = time.perf_counter() - t
+        written = len(os.listdir(work / "entry" / "inference" / "flows")) \
+            if proc.returncode == 0 else 0
+        note(f"  phase 5d, python -m flownet2_tpu_torch.cli --inference, one "
+             f"batch: exit {proc.returncode} in {entry_s:.1f} s, {written} "
+             f".flo files")
+        if proc.returncode != 0 or written != BATCH:
+            raise AssertionError(f"the entry point exited {proc.returncode}:"
+                                 f" {proc.stderr[-3000:]}")
+
+        # -- (c) training through cli.main from a .pth.tar of the weights
+        chairs = work / "chairs"
+        for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+            (chairs / split).mkdir(parents=True)
+            for i in range(n):
+                for j in (1, 2):
+                    Image.fromarray(rng.integers(
+                        0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).save(
+                            chairs / split / f"{i:05d}_img{j}.ppm")
+                write_flo(chairs / split / f"{i:05d}_flow.flo",
+                          rng.standard_normal((HEIGHT, WIDTH, 2),
+                                              dtype=np.float32) * 4)
+        train_argv = ["--model", "FlowNet2", "--batch_size", str(TRAIN_BATCH),
+                      "--training_dataset", "FlyingChairs",
+                      "--training_dataset_root", str(chairs / "train"),
+                      "--training_dataset_is_cropped", "--crop_size",
+                      str(TRAIN_HEIGHT), str(TRAIN_WIDTH),
+                      "--validation_dataset", "FlyingChairs",
+                      "--validation_dataset_root", str(chairs / "val"),
+                      "--validation_frequency", "1"]
+        steps_per_epoch = CLI_TRAIN // TRAIN_BATCH
+        val_per_epoch = -(-CLI_VAL // TRAIN_BATCH)
+        steps = 2 * steps_per_epoch
+
+        def train_launches(epochs):
+            """The launches of ``epochs`` epochs: their steps on the default
+            warp route and their validation forwards."""
+            n, n_val = epochs * steps_per_epoch, epochs * val_per_epoch
+            want = ({"resample2d_tangents": 2 * n,
+                     "resample2d_tangents_multi": n}
+                    if stage_glue.TRAIN_WARP == "tangents" else
+                    {"resample2d_fwd": 2 * n, "resample2d_fwd_multi": n,
+                     "resample2d_grad_flow": 2 * n,
+                     "resample2d_grad_flow_multi": n})
+            want.update(correlation_fwd=n, correlation_bwd_f1=n,
+                        correlation_bwd_f2=n)
+            for k, v in fwd.items():
+                want[k] = want.get(k, 0) + v * n_val
+            return want
+
+        n_epochs = len(walls["train_epoch"])
+        got, plain = run_cli("train", *train_argv, "--total_epochs", "2",
+                             "--resume_torch", str(pth))
+        check_launches(f"phase 5d, training through cli.main, 2 epochs of "
+                       f"{steps_per_epoch} steps and {val_per_epoch} "
+                       f"validation forward(s) each", got, plain,
+                       train_launches(2))
+        det_epochs = walls["train_epoch"][n_epochs:]
+
+        # Trainer.fit built by hand from the same pieces and files
+        model = get_model("FlowNet2", device=DEVICE, seed=1)
+        load_checkpoint(pth, model)
+        factory = StepFactory(model, MultiScale(), get_optimizer(
+            "Adam", 1e-4, schedule=LRSchedule(1e-4, 0, 10.0), grad_clip=None,
+            **optimizer_param_defaults("Adam")))
+        trainer = Trainer(factory, TrainerConfig(
+            total_epochs=2, validation_frequency=1,
+            save_dir=str(work / "hand")))
+        kw = dict(crop_size=(TRAIN_HEIGHT, TRAIN_WIDTH),
+                  inference_size=(-1, -1), seed=1, replicates=1)
+        train_ds = get_dataset("FlyingChairs", root=str(chairs / "train"),
+                               is_cropped=True, **kw)
+        val_ds = get_dataset("FlyingChairs", root=str(chairs / "val"),
+                             is_cropped=False, **kw)
+        trainer.fit(
+            DeviceLoader(DataLoader(train_ds, TRAIN_BATCH, shuffle=True,
+                                    drop_last=True, seed=1), device=DEVICE),
+            DeviceLoader(DataLoader(val_ds, TRAIN_BATCH, shuffle=False,
+                                    drop_last=False, seed=1), device=DEVICE))
+        saved = torch.load(work / "train" / "train-checkpoint" / STATE_FILE,
+                           map_location="cpu", weights_only=True)
+        hand = {k: v.cpu() for k, v in factory.model.state_dict().items()}
+        equal = list(saved["model"]) == list(hand) and all(
+            torch.equal(saved["model"][k], v) for k, v in hand.items())
+
+        def records(save):
+            with open(work / save / "run.metrics.jsonl") as f:
+                return [(r["step"], r["split"], r["loss"], r["epe"])
+                        for r in map(json.loads, f)]
+
+        logged = records("train") == records("hand")
+        count = saved["optimizer"]["count"]
+        del model, factory, trainer, hand, saved
+        torch.backends.cudnn.deterministic = False
+        note(f"  phase 5d, training through cli.main (cuDNN deterministic): "
+             f"final parameters bit-equal to Trainer.fit built by hand "
+             f"{equal}, logged losses equal {logged}; {count} steps")
+        if not (equal and logged and count == steps):
+            raise AssertionError(f"cli training differs from Trainer.fit: "
+                                 f"parameters {equal}, records {logged}, "
+                                 f"count {count}")
+
+        # --resume of the run for a third epoch, cuDNN's defaults
+        n_epochs = len(walls["train_epoch"])
+        got, plain = run_cli("train", *train_argv, "--total_epochs", "3",
+                             "--resume", str(work / "train"))
+        resumed = torch.load(work / "train" / "train-checkpoint" / STATE_FILE,
+                             map_location="cpu", weights_only=True)
+        steps3 = [r[0] for r in records("train") if r[1] == "train"]
+        count3 = resumed["optimizer"]["count"]
+        del resumed
+        check_launches("phase 5d, the resumed epoch", got, plain,
+                       train_launches(1))
+        note(f"  phase 5d, --resume of the run for a third epoch: the count "
+             f"{count} -> {count3}, train records of steps {steps3}")
+        if count3 != steps + steps_per_epoch or steps3[-2:] != [
+                steps + 1, steps + steps_per_epoch]:
+            raise AssertionError("the resumed run does not continue the "
+                                 "count")
+        (epoch3,) = walls["train_epoch"][n_epochs:]
+
+        # -- (e) timing
+        note(f"  phase 5d, ms/step through the command line: "
+             + ", ".join(f"{s * 1e3 / steps_per_epoch:.3f}"
+                         for s in det_epochs)
+             + f" (cuDNN deterministic), {epoch3 * 1e3 / steps_per_epoch:.3f} "
+             f"(cuDNN's defaults, the resumed epoch), {steps_per_epoch} steps "
+             f"an epoch, the loader's waits included; the bare step "
+             f"{phase4_ms:.3f} (phase 4), through the Trainer "
+             f"{phase5c_ms:.3f} (phase 5c)  [{smi}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.backends.cudnn.deterministic = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    note(f"  phase 5d took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1414,6 +1850,39 @@ def main() -> int:
                 ulp_err(k4, k4_plain, f"K4 bf16 warp flow gradient, {what}")
                 if sfx else max_err(k4, k4_plain, 1e-5, 1e-5,
                                     f"K4 warp flow gradient, {what}"))
+
+        # F4: the warp's image gradient (plain PyTorch, a fixed-order sum)
+        # at K2's shape, +-8 and +-200 px, one and two flows: two calls
+        # bit-equal, and within 1e-5 of a float64 sum (of its largest
+        # magnitude); its time printed, not gated; inputs of their own
+        # generator
+        dimg_gen = torch.Generator(device=dev).manual_seed(23)
+        dimg_img = randn(BATCH, 3, HEIGHT, WIDTH, gen=dimg_gen)
+        for px in (8, 200):
+            for nflows in (1, 2):
+                dimg_flows = (torch.rand(
+                    (BATCH, nflows, 2, HEIGHT, WIDTH), generator=dimg_gen,
+                    device=dev) * 2 - 1) * px
+                dimg_g = randn(BATCH, nflows, 3, HEIGHT, WIDTH, gen=dimg_gen)
+                first = r2d._d_img(dimg_g, dimg_img, dimg_flows)
+                second = r2d._d_img(dimg_g, dimg_img, dimg_flows)
+                ref = d_img_float64(r2d, dimg_g, dimg_img, dimg_flows)
+                err = (first.double() - ref).abs().max().item()
+                top = ref.abs().max().item()
+                dimg_ms = time_ms(
+                    lambda: r2d._d_img(dimg_g, dimg_img, dimg_flows), 3,
+                    warmup=1)
+                same = torch.equal(first, second)
+                print(f"  F4 warp image gradient, {nflows} flow(s) of +-{px} "
+                      f"px: two calls bit-equal {same}; max abs diff "
+                      f"{err:.3e} from a float64 sum (|max| {top:.3f}; "
+                      f"limit 1e-5 of it); {dimg_ms:.3f} ms  [{smi}]")
+                if not same or first.dtype != torch.float32 \
+                        or err > 1e-5 * top:
+                    raise AssertionError(f"F4 warp image gradient, {nflows} "
+                                         f"flow(s) of +-{px} px: not a "
+                                         "fixed sum of the taps")
+        del dimg_img, dimg_flows, dimg_g, first, second, ref
 
     # -- 3. FlowNet2 inference ----------------------------------------------
     print(f"phase 3: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, TF32 off")
@@ -2148,10 +2617,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5c. FlowNet2 trained from files through the Trainer --------------------
-    trainer_phase(smi, sum(route_ms[stage_glue.TRAIN_WARP])
-                  / len(route_ms[stage_glue.TRAIN_WARP]),
-                  sum(route16_ms[stage_glue.TRAIN_WARP])
-                  / len(route16_ms[stage_glue.TRAIN_WARP]))
+    # (phase4_ms: phase 4's mean on the default route, from phase 5)
+    phase5c_ms = trainer_phase(smi, phase4_ms,
+                               sum(route16_ms[stage_glue.TRAIN_WARP])
+                               / len(route16_ms[stage_glue.TRAIN_WARP]))
+
+    # -- 5d. the command line and caffemodel import -----------------------------
+    cli_phase(smi, phase4_ms, phase5c_ms)
 
     # -- 6. kernel times ------------------------------------------------------
     print("phase 6: kernel times at the main-path shapes")

@@ -44,6 +44,17 @@ def _ckpt_dir(base, tag) -> str:
         os.fspath(base), tag)
 
 
+def resume_location(path: str | os.PathLike):
+    """``(directory, tag)`` of the checkpoint that a resume path names: a
+    run directory that holds a ``train-checkpoint`` means that one, any
+    other path (``<run>/model_best``, a converted checkpoint) is the
+    checkpoint directory itself (tag None)."""
+    tag = "train-checkpoint"
+    if not os.path.isdir(os.path.join(path, tag)):
+        tag = None
+    return path, tag
+
+
 def _replace_dir(src: pathlib.Path, dst: pathlib.Path) -> None:
     """Rename-swap ``src`` into place at ``dst``.
 

@@ -33,8 +33,10 @@ The bilinear K=1 warp is differentiable in two ways, which agree:
   writes d1 = d out/d dx and d2 = d out/d dy per channel, so the backward
   is the elementwise ``d_flow = (sum_c g*d1, sum_c g*d2)``.
 
-The image gradient, a scatter-add of the four taps, is plain PyTorch on
-any device (the JAX package leaves it to an XLA scatter), computed only
+The image gradient, the transpose of the four taps' gather, is plain
+PyTorch on any device (the JAX package leaves it to an XLA scatter), summed
+in a fixed order that does not depend on the device's schedule (no
+``scatter_add_``, whose CUDA form adds with atomics), and computed only
 when the image needs a gradient, which no model's warp does.  Nearest and
 K > 1 are differentiated by autograd through the plain version, on the CPU.
 
@@ -201,12 +203,19 @@ def resample2d_grad_flow_plain(g: torch.Tensor, img: torch.Tensor,
 def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
            off: int = 0) -> torch.Tensor:
     """The image gradient of the bilinear warp: each flow's cotangent
-    (B, F, C, Ho, W) scattered back onto its four taps in the full-height
-    image, plain PyTorch on any device (the reference's and the JAX
-    package's scatter-add; bfloat16 summed in float32, rounded once)."""
+    (B, F, C, Ho, W), weighted, summed back onto its four taps in the
+    full-height image (the reference's and the JAX package's scatter-add).
+
+    The sum's order is fixed, so two calls give the same bits on any
+    device: the taps (flow, corner, pixel) are sorted stably by their
+    target pixel, each target's run of taps is summed as a pairwise tree
+    in that order, and each image pixel gathers its run's sum.  Nothing is
+    scattered.  bfloat16 is summed in float32 and rounded once."""
     batch, channels, height, width = img.shape
+    if not g.numel():
+        return torch.zeros_like(img)
     g = _cuda.widened(g)
-    d_img = torch.zeros_like(img, dtype=g.dtype).reshape(batch, channels, -1)
+    targets, values = [], []
     for f in range(flows.shape[1]):
         a, b, x_l, x_r, y_t, y_b = _sample_point(flows[:, f], height, width,
                                                  off)
@@ -215,8 +224,29 @@ def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
         for yi, xi, w in ((y_t, x_l, (1 - a) * (1 - b)),
                           (y_t, x_r, a * (1 - b)),
                           (y_b, x_l, (1 - a) * b), (y_b, x_r, a * b)):
-            idx = (yi * width + xi).reshape(batch, 1, -1).expand_as(gf)
-            d_img.scatter_add_(2, idx, w * gf)
+            targets.append((yi * width + xi).reshape(batch, -1))
+            values.append(w * gf)
+    targets, order = torch.sort(torch.cat(targets, 1), dim=1, stable=True)
+    values = torch.cat(values, 2)
+    values = values.gather(2, order.unsqueeze(1).expand_as(values))
+    # each tap's rank in its target's run, and the run's length
+    first = torch.searchsorted(targets, targets)
+    rank = torch.arange(targets.shape[1], device=g.device) - first
+    length = torch.searchsorted(targets, targets, right=True) - first
+    step = 1
+    longest = int(length.max())
+    while step < longest:
+        # the run's sum collects at its first tap
+        take = ((rank % (2 * step) == 0) & (rank + step < length))
+        shifted = torch.nn.functional.pad(values[..., step:], (0, step))
+        values = torch.where(take.unsqueeze(1), values + shifted, values)
+        step *= 2
+    pixels = torch.arange(height * width, device=g.device).repeat(batch, 1)
+    head = torch.searchsorted(targets, pixels).clamp_max(
+        targets.shape[1] - 1)
+    hit = targets.gather(1, head) == pixels
+    d_img = values.gather(2, head.unsqueeze(1).expand(batch, channels, -1))
+    d_img = torch.where(hit.unsqueeze(1), d_img, 0.0)
     return d_img.reshape(img.shape).to(img.dtype)
 
 

@@ -8,7 +8,10 @@ inside the square root and a second moment that starts at 0 (torch:
 alpha 0.99, eps outside); Adagrad's accumulator starts at 0.1 with eps
 1e-7 inside the square root (torch: 0 and 1e-10 outside).  Adam, AdamW,
 SGD and Momentum are torch.optim's, with those defaults; RMSprop and
-Adagrad are written out here.  ``grad_clip`` is optax's
+Adagrad are written out here, and so are Adam and AdamW with optax's
+``eps_root`` or ``nesterov`` (optax's Nesterov Adam, not torch's NAdam).
+Every numeric or boolean parameter of the optax constructors is taken,
+under optax's name (``optimizer_param_defaults``).  ``grad_clip`` is optax's
 ``clip_by_global_norm``: the gradients are scaled by
 ``clip / max(norm, clip)`` (``clip_grad_norm_`` adds 1e-6 to the norm).
 """
@@ -37,32 +40,73 @@ class LRSchedule:
                    self.floor)
 
 
+def _ema(moment: torch.Tensor, value: torch.Tensor,
+         decay: float) -> torch.Tensor:
+    """``moment`` <- (1 - decay)*value + decay*moment in place, in optax's
+    order of operations (``optax.tree.update_moment``)."""
+    return moment.mul_(decay).add_(value * (1 - decay))
+
+
+def _debias(decay: float, count: int) -> float:
+    """optax's bias correction 1 - decay^count, computed in float32 as
+    optax computes it."""
+    one = torch.tensor(1.0)
+    return float(one - torch.tensor(decay) ** count)
+
+
 class _RMSprop(torch.optim.Optimizer):
-    """optax.rmsprop (not centred, no momentum): nu = decay*nu +
-    (1-decay)*g^2 from ``initial_scale``, update -lr*g/sqrt(nu + eps)
-    (eps outside the root when ``eps_in_sqrt`` is False)."""
+    """optax.rmsprop: nu = decay*nu + (1-decay)*g^2 from ``initial_scale``
+    and, ``centered``, mu = decay*mu + (1-decay)*g from 0, both divided by
+    1 - decay^count with ``bias_correction``; the update -lr*g/sqrt(nu -
+    mu^2 + eps) (eps outside the root when ``eps_in_sqrt`` is False), then,
+    with a ``momentum``, the trace t = u + momentum*t and the update t, or
+    u + momentum*t with ``nesterov`` (which, as in optax, acts only with a
+    momentum)."""
 
     def __init__(self, params, lr, decay=0.9, eps=1e-8, initial_scale=0.0,
-                 eps_in_sqrt=True):
-        super().__init__(params, dict(lr=lr, decay=decay, eps=eps,
-                                      initial_scale=initial_scale,
-                                      eps_in_sqrt=eps_in_sqrt))
+                 eps_in_sqrt=True, centered=False, momentum=None,
+                 nesterov=False, bias_correction=False):
+        super().__init__(params, dict(
+            lr=lr, decay=decay, eps=eps, initial_scale=initial_scale,
+            eps_in_sqrt=eps_in_sqrt, centered=centered, momentum=momentum,
+            nesterov=nesterov, bias_correction=bias_correction))
 
     @torch.no_grad()
     def step(self):
         for group in self.param_groups:
+            decay, eps = group["decay"], group["eps"]
             for p in group["params"]:
                 if p.grad is None:
                     continue
+                g = p.grad
                 state = self.state[p]
                 if not state:
                     state["nu"] = torch.full_like(p, group["initial_scale"])
-                nu = state["nu"]
-                nu.mul_(group["decay"]).addcmul_(p.grad, p.grad,
-                                                 value=1 - group["decay"])
-                denom = ((nu + group["eps"]).sqrt() if group["eps_in_sqrt"]
-                         else nu.sqrt() + group["eps"])
-                p.addcdiv_(p.grad, denom, value=-group["lr"])
+                    if group["centered"]:
+                        state["mu"] = torch.zeros_like(p)
+                    if group["momentum"] is not None:
+                        state["trace"] = torch.zeros_like(p)
+                nu = _ema(state["nu"], g.square(), decay)
+                mu = state.get("mu")
+                if mu is not None:
+                    mu = _ema(mu, g, decay)
+                # (a state saved before the count was kept has none)
+                state["count"] = state.get("count", 0) + 1
+                if group["bias_correction"]:
+                    correction = _debias(decay, state["count"])
+                    nu = nu / correction
+                    mu = None if mu is None else mu / correction
+                if mu is not None:
+                    nu = nu - mu * mu
+                denom = ((nu + eps).sqrt() if group["eps_in_sqrt"]
+                         else nu.sqrt() + eps)
+                update = g / denom * -group["lr"]
+                trace = state.get("trace")
+                if trace is not None:
+                    trace.mul_(group["momentum"]).add_(update)
+                    update = (update + group["momentum"] * trace
+                              if group["nesterov"] else trace)
+                p.add_(update)
 
 
 class _Adagrad(torch.optim.Optimizer):
@@ -91,18 +135,71 @@ class _Adagrad(torch.optim.Optimizer):
                 p.add_(p.grad * scale, alpha=-group["lr"])
 
 
-def _adam(params, lr, b1=0.9, b2=0.999, eps=1e-8):
+class _OptaxAdam(torch.optim.Optimizer):
+    """optax.adam and optax.adamw (``optax.scale_by_adam``) where torch's
+    Adam does not compute the same update: mu = b1*mu + (1-b1)*g,
+    nu = b2*nu + (1-b2)*g^2, count += 1; mu_hat = mu/(1 - b1^count), or
+    with ``nesterov`` b1*mu/(1 - b1^(count+1)) + (1-b1)*g/(1 - b1^count);
+    nu_hat = nu/(1 - b2^count); the update -lr*(mu_hat/(sqrt(nu_hat +
+    eps_root) + eps) + weight_decay*p)."""
+
+    def __init__(self, params, lr, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
+                 nesterov=False, weight_decay=0.0):
+        super().__init__(params, dict(
+            lr=lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+            nesterov=nesterov, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2 = group["b1"], group["b2"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                    state["count"] = 0
+                mu = _ema(state["mu"], g, b1)
+                nu = _ema(state["nu"], g.square(), b2)
+                state["count"] += 1
+                count = state["count"]
+                if group["nesterov"]:
+                    mu_hat = (b1 * (mu / _debias(b1, count + 1))
+                              + (1 - b1) * (g / _debias(b1, count)))
+                else:
+                    mu_hat = mu / _debias(b1, count)
+                nu_hat = nu / _debias(b2, count)
+                update = mu_hat / ((nu_hat + group["eps_root"]).sqrt()
+                                   + group["eps"])
+                if group["weight_decay"]:
+                    update = update + group["weight_decay"] * p
+                p.add_(update, alpha=-group["lr"])
+
+
+def _adam(params, lr, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
+          nesterov=False):
+    if eps_root or nesterov:
+        return _OptaxAdam(params, lr, b1, b2, eps, eps_root, nesterov)
     return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps)
 
 
-def _adamw(params, lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4):
+def _adamw(params, lr, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
+           weight_decay=1e-4, nesterov=False):
+    if eps_root or nesterov:
+        return _OptaxAdam(params, lr, b1, b2, eps, eps_root, nesterov,
+                          weight_decay)
     return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps,
                              weight_decay=weight_decay)
 
 
 def _sgd(params, lr, momentum=None, nesterov=False):
+    # as in optax, Nesterov's form acts only with a momentum (torch's SGD
+    # refuses it without one)
     return torch.optim.SGD(params, lr=lr, momentum=momentum or 0.0,
-                           nesterov=nesterov)
+                           nesterov=bool(nesterov and momentum))
 
 
 def _momentum(params, lr, momentum=0.9, nesterov=False):
@@ -117,6 +214,31 @@ OPTIMIZERS = {
     "RMSprop": _RMSprop,
     "Adagrad": _Adagrad,
 }
+
+# The numeric and boolean parameters of each optimizer's optax constructor,
+# with their defaults (Momentum's own momentum), in the constructor's
+# order: the JAX package reads them off optax's signatures
+# (flownet2_tpu/train/optim.py, optimizer_param_defaults), and its command
+# line exposes each as --optimizer_<name>.  Parameters whose default is
+# None (SGD's and RMSprop's momentum) are not among them.
+_PARAM_DEFAULTS = {
+    "Adam": {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0,
+             "nesterov": False},
+    "AdamW": {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0,
+              "weight_decay": 1e-4, "nesterov": False},
+    "SGD": {"nesterov": False},
+    "Momentum": {"nesterov": False, "momentum": 0.9},
+    "RMSprop": {"decay": 0.9, "eps": 1e-8, "initial_scale": 0.0,
+                "eps_in_sqrt": True, "centered": False, "nesterov": False,
+                "bias_correction": False},
+    "Adagrad": {"initial_accumulator_value": 0.1, "eps": 1e-7},
+}
+
+
+def optimizer_param_defaults(name: str) -> dict:
+    """{parameter: default} of the named optimizer's tunable numeric and
+    boolean parameters (the learning rate apart)."""
+    return dict(_PARAM_DEFAULTS[name])
 
 
 class Optimizer:

@@ -27,6 +27,7 @@ import torch
 from ..checkpoints.native import (
     is_primary,
     restore_checkpoint,
+    resume_location,
     save_checkpoint,
 )
 from ..utils.tools import (
@@ -138,10 +139,8 @@ class Trainer:
         given (a run directory holding a ``train-checkpoint``, or a
         checkpoint directory such as ``<run>/model_best``), else from this
         run's save dir; returns the checkpoint's metadata."""
-        base = path or self.config.save_dir
-        tag = "train-checkpoint"
-        if path and not os.path.isdir(os.path.join(base, tag)):
-            tag = None  # path IS the checkpoint directory
+        base, tag = (resume_location(path) if path
+                     else (self.config.save_dir, "train-checkpoint"))
         meta = restore_checkpoint(base, self.factory.model,
                                   self.factory.optimizer, tag=tag)
         # start_epoch, when given, wins over the checkpoint's epoch
