@@ -200,6 +200,40 @@ Phases (any failure raises and the script exits non-zero):
    cuDNN's defaults (its launches exact, the count from 4 to 6).
    ms/step through the command line beside phases 4 and 5c, the
    conversion's seconds, inference seconds a batch.
+5e. Data parallel, in fresh processes started with torchrun's variables
+   (``torch.distributed.run``), after phase 5d; a global batch of phase 4's
+   size (8 pairs at 384x448) drawn by numpy from its own seed, FlowNet2 of
+   the seeded weights, TF32 off, cuDNN deterministic.  (a) Two ranks over
+   gloo on the one card (NCCL refuses two ranks on one device), 4 pairs
+   each, 3 steps of Adam 1e-4 through ``StepFactory(plan=...)``: the
+   parameters bit-equal on every rank after each step (all-gathered
+   digests); step 1's all-reduced gradients within 1e-6 in relative L2 of
+   the mean of the ranks' own gradients of the same forward (taken by
+   ``autograd.grad``, which DDP's hooks do not see); step 1's gradients
+   against the one-process batch-8 step per sub-net within 1e-3 in
+   relative L2 (flownetc and flownets_1 printed only) and the global loss
+   within 1e-5 relative; every rank's launches a step phase 4's exactly.
+   (b) One rank over NCCL, fp32 and bf16, 3 steps each: the parameters
+   bit-equal to the same steps without DistributedDataParallel.  (c)
+   ``cli.main`` as torchrun's one NCCL rank: training from phase 5d's files
+   and ``--inference --save_flow`` bit-equal to phase 5d's parameters,
+   records and flows.  ``python3 chip_smoke.py --data-parallel`` runs
+   phase 5e(d) alone, on every card the environment lists (more than one):
+   the cards' names, power limits and links (``nvidia-smi topo -m``,
+   ``nvidia-smi nvlink --status`` and peer access); each kernel
+   of the main path on every card (each wrapper picks its tensors' card)
+   against its plain version, f32 and bf16; (a)'s gates over NCCL on 2 and
+   on 4 cards; the plain command line on every card, which starts its own
+   ranks, against the same command on one card: 2 epochs from files by
+   SGD (every logged loss within 1e-4 relative, the validation loss after
+   two updates apart by at most 1e-2 of what they moved it) and by Adam (step 1's loss, before any update, at
+   1e-5 relative; the later gaps printed), and ``--inference --save_flow``
+   of the seeded weights (every flow written once, EPE < 1e-4 against one
+   card's); a failure there fails the run after the scaling table;
+   the all-reduce of a step's 162,518,834 float32 gradients alone (ms and
+   bus bandwidth) on 2 and 4 cards; weak scaling, FlowNet2 fp32 and bf16
+   train steps at 8 pairs a card: ms/step, frames/s and efficiency against
+   linear at 1, 2 and 4 cards.
 6. Each kernel's time, its plain version's time, the card's bound for the
    same work and, where one PyTorch call computes the same function, that
    call's time, at the main-path shapes (K7 at one band of two; the bf16
@@ -229,14 +263,16 @@ Phases (any failure raises and the script exits non-zero):
 8. The readings of phases 3 to 7 again, one JSON line listing the kernels;
    the last line is the result.
 
-Uses one card, the first the environment lists.  Exits non-zero, printing
-no result, where no CUDA device is available or the package is not beside
-this script.
+Uses one card, the first the environment lists (``--data-parallel``: every
+card it lists).  Exits non-zero, printing no result, where no CUDA device
+is available or the package is not beside this script.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import hashlib
 import json
 import math
 import os
@@ -250,9 +286,13 @@ import warnings
 from pathlib import Path
 from unittest import mock
 
-# one card: the first one the environment lists (before torch sees CUDA)
-os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
-    "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+# one card: the first one the environment lists (before torch sees CUDA);
+# phase 5e's multi-card part (--data-parallel) and its ranks (--rank-task)
+# see the cards the environment lists
+CARDS = os.environ.get("CUDA_VISIBLE_DEVICES")
+FIRST_CARD = (CARDS or "0").split(",")[0]
+if not {"--data-parallel", "--rank-task"} & set(sys.argv[1:2]):
+    os.environ["CUDA_VISIBLE_DEVICES"] = FIRST_CARD
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -349,6 +389,21 @@ CHAIRS_TRAIN, CHAIRS_VAL, CHAIRS_HEIGHT, CHAIRS_WIDTH = 24, 8, 384, 512
 # of a caffemodel written from the seeded model
 CLI_FRAMES, CLI_TRAIN, CLI_VAL, CLI_SEED = 17, 16, 8, 5
 FLOWNET2_PARAMS = 162_518_834
+# phase 5e: the global batch of phase 4's size, drawn by numpy from DP_SEED
+# (every rank draws it alike), DP_STEPS steps a run; weak scaling times
+# SCALE_STEPS steps after SCALE_WARMUP at TRAIN_BATCH pairs a card
+DP_SEED, DP_STEPS = 19, 3
+SCALE_STEPS, SCALE_WARMUP = 10, 2
+# the sub-nets whose gradients sit on the noise line between two forwards
+# that differ in the last bit (ROADMAP.md, section 3): printed, not gated
+DP_GATES = {"flownetc": None, "flownets_1": None, "flownets_2": 1e-3,
+            "flownets_d": 1e-3, "flownetfusion": 1e-3}
+# phase 5e(d)'s command line trains with SGD at DP_CLI_LR, whose update
+# scales with the gradient (Adam's first steps are about lr times its sign,
+# whatever its size): each logged loss on every card within DP_CLI_RTOL of
+# one card's, and the validation loss after two updates apart from one
+# card's by at most DP_CLI_SHARE of how far those updates moved it
+DP_CLI_LR, DP_CLI_RTOL, DP_CLI_SHARE = 3e-6, 1e-4, 1e-2
 
 
 # The readings of the timed phases, printed where they are taken and again
@@ -650,8 +705,6 @@ def trainer_phase(smi: str, phase4_ms: float, phase4b_ms: float) -> float:
     bf16 with cuDNN's defaults beside phases 4 and 4b; ``Trainer.inference``
     over the validation pairs, its .flo files bit-equal to ``infer_step``'s
     flows.  Returns the fp32 ms/step through the Trainer."""
-    import gc
-
     import numpy as np
     from PIL import Image
 
@@ -953,7 +1006,8 @@ def write_caffemodel(path: Path, state: dict, model_name: str) -> None:
                               + field(6, blob(bias))))
 
 
-def cli_phase(smi: str, phase4_ms: float, phase5c_ms: float) -> None:
+def cli_phase(smi: str, phase4_ms: float, phase5c_ms: float,
+              work: Path) -> dict:
     """Phase 5d: the command line and caffemodel import, FlowNet2 at full
     width.  (a) A caffemodel of the seeded model's weights (the first
     convolutions' BGR groups reversed) converted by ``python -m
@@ -975,9 +1029,8 @@ def cli_phase(smi: str, phase4_ms: float, phase5c_ms: float) -> None:
     optimizer's count goes on from 4 to 6.  (d) One ``python -m
     flownet2_tpu_torch.cli --inference`` subprocess, one batch: exit 0.
     (e) ms/step through the command line beside phases 4 and 5c, inference
-    seconds a batch, the phase's seconds."""
-    import gc
-
+    seconds a batch, the phase's seconds.  Its files stay in ``work`` for
+    phase 5e(c); returns what that phase needs of them."""
     import numpy as np
     from PIL import Image
 
@@ -998,7 +1051,6 @@ def cli_phase(smi: str, phase4_ms: float, phase5c_ms: float) -> None:
     print(f"phase 5d: the command line and caffemodel import, FlowNet2 "
           f"b{BATCH} {HEIGHT}x{WIDTH} inference and b{TRAIN_BATCH} "
           f"{TRAIN_HEIGHT}x{TRAIN_WIDTH} training")
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_5d_"))
     rng = np.random.default_rng(1)
     walls = {"train_epoch": [], "inference": []}
 
@@ -1283,11 +1335,740 @@ def cli_phase(smi: str, phase4_ms: float, phase5c_ms: float) -> None:
              f"{phase4_ms:.3f} (phase 4), through the Trainer "
              f"{phase5c_ms:.3f} (phase 5c)  [{smi}]")
     finally:
-        shutil.rmtree(work, ignore_errors=True)
         torch.backends.cudnn.deterministic = False
     gc.collect()
     torch.cuda.empty_cache()
     note(f"  phase 5d took {time.perf_counter() - t_phase:.1f} s")
+    return {"work": str(work), "train_argv": train_argv,
+            "infer_argv": infer_argv, "pth": str(pth), "steps": steps}
+
+
+# -- phase 5e: data parallel ------------------------------------------------
+
+def step_launches(route: str) -> dict:
+    """The kernel launches of one fp32 train step on the warp route
+    ``route``: phase 4's counts."""
+    each = {f"correlation_{k}": 1 for k in ("fwd", "bwd_f1", "bwd_f2")}
+    if route == "tangents":
+        each.update(resample2d_tangents=2, resample2d_tangents_multi=1)
+    else:
+        each.update(resample2d_fwd=2, resample2d_fwd_multi=1,
+                    resample2d_grad_flow=2, resample2d_grad_flow_multi=1)
+    return each
+
+
+def dp_batch():
+    """Phase 5e's global batch: TRAIN_BATCH pairs at TRAIN_HEIGHT x
+    TRAIN_WIDTH and their targets (as phase 4 draws them: pixels in [0,
+    255), flows in [0, 5)), from a numpy generator seeded with DP_SEED, so
+    that every rank draws the same."""
+    import numpy as np
+
+    rng = np.random.default_rng(DP_SEED)
+    images = rng.random((TRAIN_BATCH, 2, TRAIN_HEIGHT, TRAIN_WIDTH, 3),
+                        dtype=np.float32) * 255.0
+    target = rng.random((TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, 2),
+                        dtype=np.float32) * 5.0
+    return torch.from_numpy(images), torch.from_numpy(target)
+
+
+def state_digest(model) -> str:
+    """sha256 of every parameter's and buffer's bytes."""
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def rank_device(backend: str) -> torch.device:
+    """A rank's card: over NCCL its own (LOCAL_RANK); over gloo, where
+    phase 5e(a) runs two ranks on one card, the first one."""
+    from flownet2_tpu_torch import parallel
+
+    return torch.device("cuda", 0 if backend == "gloo"
+                        else parallel.local_rank())
+
+
+def start_rank(cfg: dict) -> torch.device:
+    """A rank's set-up: its card current, the group started from
+    torchrun's variables, TF32 off, cuDNN deterministic."""
+    from flownet2_tpu_torch import parallel
+
+    dev = rank_device(cfg["backend"])
+    torch.cuda.set_device(dev)
+    parallel.init_distributed(backend=cfg["backend"])
+    torch.backends.cudnn.deterministic = True
+    return dev
+
+
+def dp_steps_rank(cfg: dict) -> None:
+    """One rank of phase 5e's steps: FlowNet2 fp32 of the seeded weights,
+    this rank's stripe of the global batch, DP_STEPS steps of Adam 1e-4
+    through ``StepFactory(plan=...)``.  Rank 0 first takes the one-process
+    step's gradients and loss on the whole batch.  Step 1 runs one forward,
+    the rank's own gradients by ``autograd.grad`` (DDP's hooks do not run)
+    and then the backward through DDP: the all-reduced gradients against
+    the mean of the ranks' own (1e-6 in relative L2), and against the
+    one-process step per sub-net (1e-3 in relative L2, flownetc and
+    flownets_1 printed only), the global loss against its loss (1e-5
+    relative).  After every step the ranks' parameter digests are
+    all-gathered and must be one; steps 2 to DP_STEPS launch exactly phase
+    4's kernels a step on every rank."""
+    import torch.distributed as dist
+
+    from flownet2_tpu_torch import ops, parallel
+    from flownet2_tpu_torch.losses import MultiScale
+    from flownet2_tpu_torch.models import get_model
+    from flownet2_tpu_torch.ops import stage_glue
+    from flownet2_tpu_torch.train import StepFactory, get_optimizer
+
+    dev = start_rank(cfg)
+    plan = parallel.DataParallelPlan.current(dev)
+    rank, world = plan.rank, plan.world_size
+    images, target = dp_batch()
+    local = plan.local_batch_size(TRAIN_BATCH)
+    img = images[rank * local:(rank + 1) * local].to(dev)
+    tgt = target[rank * local:(rank + 1) * local].to(dev)
+    loss_fn = MultiScale()
+    model = get_model("FlowNet2", device=dev, seed=0)
+    if rank == 0:
+        model.train()
+        whole = loss_fn(model(images.to(dev)), target.to(dev))[0]
+        whole.backward()
+        single = {n: p.grad.detach().cpu()
+                  for n, p in model.named_parameters()}
+        single_loss = whole.item()
+        model.zero_grad(set_to_none=True)
+        del whole
+        torch.cuda.empty_cache()
+    factory = StepFactory(model, loss_fn, get_optimizer("Adam", 1e-4),
+                          plan=plan)
+    names, params = zip(*model.named_parameters())
+    digests = []
+
+    def same_on_every_rank(step: int) -> None:
+        got = [None] * world
+        dist.all_gather_object(got, state_digest(model))
+        if len(set(got)) != 1:
+            raise AssertionError(f"{cfg['what']}: after step {step} the "
+                                 f"ranks' parameters differ: {got}")
+        digests.append(got[0][:12])
+
+    # step 1: one forward; the rank's own gradients, then DDP's
+    net = factory.net
+    net.train()
+    factory.optimizer.zero_grad()
+    lossvalue, epevalue = loss_fn(net(img), tgt)
+    own = torch.autograd.grad(lossvalue, params, retain_graph=True)
+    lossvalue.backward()
+    mean_own = parallel.all_reduce_sum(
+        torch.cat([g.reshape(-1) for g in own])).double().div_(world)
+    reduced = torch.cat([p.grad.reshape(-1) for p in params]).double()
+    hook_rel = ((reduced - mean_own).norm() / mean_own.norm()).item()
+    del own, mean_own, reduced
+    grads = {n: p.grad.detach().cpu() for n, p in zip(names, params)}
+    factory.optimizer.step()
+    loss1 = float(parallel.all_reduce_sum(lossvalue.detach().clone())) / world
+    del lossvalue, epevalue
+    same_on_every_rank(1)
+
+    # steps 2..DP_STEPS as the Trainer takes them, their launches counted
+    step = factory.train_step()
+    want = step_launches(stage_glue.TRAIN_WARP)
+    for k in range(2, DP_STEPS + 1):
+        ops.reset_counts()
+        metrics = step(img, tgt)
+        torch.cuda.synchronize()
+        got, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        if got != want or plain or not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{cfg['what']}, rank {rank}, step {k}: "
+                                 f"launches {got}, plain-op calls {plain}, "
+                                 f"loss {float(metrics['loss'])}; expected "
+                                 f"{want}")
+        same_on_every_rank(k)
+    if hook_rel > 1e-6:
+        raise AssertionError(f"{cfg['what']}, rank {rank}: the all-reduced "
+                             f"gradients are {hook_rel:.3e} from the mean of "
+                             "the ranks' own in relative L2 (gate 1e-6)")
+    if rank == 0:
+        rel = abs(loss1 - single_loss) / abs(single_loss)
+        note(f"  phase 5e{cfg['part']}, {cfg['what']}: parameters bit-equal "
+             f"on every rank after each of {DP_STEPS} steps "
+             f"({', '.join(digests)}); step 1's all-reduced gradients "
+             f"{hook_rel:.3e} from the mean of the ranks' own in relative "
+             f"L2; loss {loss1:.6f} against the one-process batch-"
+             f"{TRAIN_BATCH} step's {single_loss:.6f} ({rel:.2e} relative); "
+             f"launches a step {want} on every rank")
+        if not rel <= 1e-5:
+            raise AssertionError(f"{cfg['what']}: the global loss is {rel:.2e}"
+                                 " from the one-process step's (gate 1e-5)")
+        subnets_close(grads, single, DP_GATES,
+                      f"phase 5e{cfg['part']}, {cfg['what']}, step 1's "
+                      f"gradients against the one-process batch-{TRAIN_BATCH}"
+                      " step")
+    dist.destroy_process_group()
+
+
+def one_rank_task(cfg: dict) -> None:
+    """Phase 5e(b) and (c) in one process on the card.  (b) One rank over
+    NCCL, fp32 and bf16: DP_STEPS steps through ``StepFactory(plan=...)``
+    leave the parameters bit-equal to the same steps without a plan.  (c)
+    ``cli.main`` under torchrun's variables (a world of one): training from
+    phase 5d's files and ``--inference --save_flow`` give phase 5d's
+    parameters, records and flows bit for bit."""
+    import torch.distributed as dist
+
+    from flownet2_tpu_torch import cli, parallel
+    from flownet2_tpu_torch.checkpoints.native import STATE_FILE
+    from flownet2_tpu_torch.data import read_flo
+    from flownet2_tpu_torch.losses import MultiScale
+    from flownet2_tpu_torch.models import get_model
+    from flownet2_tpu_torch.train import StepFactory, get_optimizer
+
+    dev = start_rank(cfg)
+    images, target = dp_batch()
+    img, tgt = images.to(dev), target.to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        states = []
+        for plan in (None, parallel.DataParallelPlan.current(dev)):
+            model = get_model("FlowNet2", device=dev, seed=0, dtype=dtype)
+            step = StepFactory(model, MultiScale(),
+                               get_optimizer("Adam", 1e-4),
+                               plan=plan).train_step()
+            for _ in range(DP_STEPS):
+                step(img, tgt)
+            states.append([t.detach().cpu()
+                           for t in model.state_dict().values()])
+            del model, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        equal = len(states[0]) == len(states[1]) and all(
+            torch.equal(a, b) for a, b in zip(*states))
+        note(f"  phase 5e(b), one rank over NCCL, {str(dtype)[6:]}: "
+             f"{DP_STEPS} steps through DistributedDataParallel bit-equal to "
+             f"the same steps without it {equal}")
+        if not equal:
+            raise AssertionError(f"phase 5e(b), {dtype}: one NCCL rank's "
+                                 "steps differ from the steps without DDP")
+        del states
+    dist.destroy_process_group()
+
+    # (c) the command line as the one rank of torchrun's environment
+    d = cfg["cli"]
+    work, out = Path(d["work"]), Path(cfg["out"])
+    runs = (("train", [*d["train_argv"], "--total_epochs", "2",
+                       "--resume_torch", d["pth"]]),
+            ("infer", d["infer_argv"]))
+    for what, argv in runs:
+        rc = cli.main([*argv, "--device", DEVICE, "--save", str(out / what)])
+        if rc != 0 or parallel.is_distributed():
+            raise AssertionError(f"phase 5e(c): cli.main {what} returned {rc}"
+                                 " or left its group running")
+
+    def records(save):
+        with open(save / "run.metrics.jsonl") as f:
+            return [(r["step"], r["split"], r["loss"], r["epe"])
+                    for r in map(json.loads, f)]
+
+    got, want = (torch.load(p / "train-checkpoint" / STATE_FILE,
+                            map_location="cpu", weights_only=True)["model"]
+                 for p in (out / "train", work / "hand"))
+    params = list(got) == list(want) and all(
+        torch.equal(got[k], v) for k, v in want.items())
+    logged = records(out / "train") == records(work / "hand")
+    flows = [[read_flo(p / "inference" / "flows" / f) for f in sorted(
+        os.listdir(p / "inference" / "flows"))]
+        for p in (out / "infer", work / "infer fp32")]
+    same_flows = len(flows[0]) == len(flows[1]) == CLI_FRAMES - 1 and all(
+        (a == b).all() for a, b in zip(*flows))
+    note(f"  phase 5e(c), the command line as torchrun's one NCCL rank: "
+         f"training from phase 5d's files, final parameters bit-equal "
+         f"{params}, logged losses equal {logged}; --inference --save_flow, "
+         f"{len(flows[0])} flows bit-equal to phase 5d's {same_flows}")
+    if not (params and logged and same_flows):
+        raise AssertionError("phase 5e(c): the command line under torchrun's "
+                             "environment differs from phase 5d")
+
+
+def scaling_rank(cfg: dict) -> None:
+    """One rank of phase 5e(d)'s weak scaling: FlowNet2 train steps at
+    TRAIN_BATCH pairs on this card (the whole of phase 5e's batch), fp32
+    then bf16, cuDNN's defaults; rank 0 writes the slowest rank's ms/step
+    of SCALE_STEPS steps after SCALE_WARMUP.  On more than one card the
+    all-reduce of a step's gradients alone is timed first."""
+    import torch.distributed as dist
+
+    from flownet2_tpu_torch import parallel
+    from flownet2_tpu_torch.losses import MultiScale
+    from flownet2_tpu_torch.models import get_model
+    from flownet2_tpu_torch.train import StepFactory, get_optimizer
+
+    dev = start_rank(cfg)
+    torch.backends.cudnn.deterministic = False
+    plan = parallel.DataParallelPlan.current(dev)
+    out = {}
+    if plan.world_size > 1:
+        # the all-reduce of a step's gradients alone: FLOWNET2_PARAMS float32
+        grads = torch.ones(FLOWNET2_PARAMS, device=dev)
+        for _ in range(2):
+            dist.all_reduce(grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dist.all_reduce(grads)
+        torch.cuda.synchronize()
+        out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+        del grads
+    images, target = dp_batch()
+    img, tgt = images.to(dev), target.to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = get_model("FlowNet2", device=dev, seed=0, dtype=dtype)
+        step = StepFactory(model, MultiScale(), get_optimizer("Adam", 1e-4),
+                           plan=plan).train_step()
+        for _ in range(SCALE_WARMUP):
+            step(img, tgt)
+        torch.cuda.synchronize()
+        parallel.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SCALE_STEPS):
+            metrics = step(img, tgt)
+        torch.cuda.synchronize()
+        ms = torch.tensor([(time.perf_counter() - t0) * 1e3 / SCALE_STEPS],
+                          device=dev)
+        dist.all_reduce(ms, op=dist.ReduceOp.MAX)
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"weak scaling, {dtype}: non-finite loss")
+        out[str(dtype)[6:]] = float(ms)
+        del model, step, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    if plan.rank == 0:
+        Path(cfg["out"]).write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+RANK_TASKS = {"steps": dp_steps_rank, "one_rank": one_rank_task,
+              "scaling": scaling_rank}
+# the script and arguments torchrun runs as each rank of run_task (the
+# task's configuration file follows)
+RANK_COMMAND = [str(ROOT / "chip_smoke.py"), "--rank-task"]
+
+
+def rank_task(config: str) -> int:
+    """``python3 chip_smoke.py --rank-task <config.json>``: one rank of a
+    phase 5e task, started by the phase with torchrun's variables."""
+    cfg = json.loads(Path(config).read_text())
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    RANK_TASKS[cfg["task"]](cfg)
+    if os.environ["RANK"] == "0":
+        Path(cfg["summary"]).write_text("\n".join(SUMMARY))
+    return 0
+
+
+def run_task(work: Path, name: str, world: int, env=None, **cfg) -> None:
+    """Run the task ``cfg["task"]`` as ``world`` ranks (fresh processes
+    started by torchrun) and keep rank 0's readings for the summary;
+    raises if any rank fails."""
+    path = work / f"{name}.json"
+    summary = work / f"{name}.summary"
+    path.write_text(json.dumps(dict(cfg, summary=str(summary))))
+    summary.unlink(missing_ok=True)
+    env = dict(os.environ if env is None else env)
+    env["PYTHONPATH"] = str(ROOT)
+    # torchrun sets one OpenMP thread where it starts several ranks: the
+    # same for every world size, so that the scaling table compares alike
+    env.setdefault("OMP_NUM_THREADS", "1")
+    t = time.perf_counter()
+    rc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={world}", *RANK_COMMAND, str(path)],
+        env=env).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 5e, {name}: a rank exited {rc}")
+    # the ranks printed these readings; the summary at the end repeats them
+    if summary.exists():
+        SUMMARY.extend(summary.read_text().splitlines())
+    print(f"  phase 5e, {name}: {world} rank(s) in "
+          f"{time.perf_counter() - t:.1f} s")
+
+
+def data_parallel_phase(smi: str, cli_run: dict) -> None:
+    """Phase 5e, on the one card: (a) two ranks over gloo with CUDA tensors
+    (NCCL refuses two ranks on one device), phase 5e's batch split in two,
+    ``dp_steps_rank``'s gates; (b) and (c), ``one_rank_task``."""
+    t_phase = time.perf_counter()
+    print(f"phase 5e: data parallel, FlowNet2 b{TRAIN_BATCH} {TRAIN_HEIGHT}x"
+          f"{TRAIN_WIDTH} fp32 (bf16 in (b)), TF32 off, cuDNN deterministic,"
+          " fresh processes")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_5e_"))
+    try:
+        run_task(work, "a", 2, task="steps", backend="gloo", part="(a)",
+                 what="2 ranks over gloo on one card")
+        run_task(work, "bc", 1, task="one_rank", backend="nccl",
+                 cli=cli_run, out=str(work / "cli"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    note(f"  phase 5e took {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+
+
+def kernels_on_device(dev: torch.device) -> dict:
+    """Each kernel of the main path on card ``dev`` (not the current one:
+    each wrapper picks its tensors' card) against its plain version at
+    phase 2's main-path shapes and tolerances, f32 and bf16: K1 at the
+    inference map, K5, K6 and K7 (both bands of two) at the training map,
+    K2 one and two flows at the inference image, K3 and K4 one and two
+    flows at the training image, and the local-rows K2, K3, K4 on the
+    bands of two bit-equal to the whole image's rows.  Returns the
+    launches."""
+    from flownet2_tpu_torch import ops
+    from flownet2_tpu_torch.ops import correlation as corr
+    from flownet2_tpu_torch.ops import correlation_spatial as corr_sp
+    from flownet2_tpu_torch.ops import resample2d as r2d
+
+    gen = torch.Generator(device=dev).manual_seed(dev.index or 0)
+    ops.reset_counts()
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def flow(*shape, dtype):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * 8.0).to(dtype)
+
+    def close(got, want, tol, what):
+        if got.device != dev:
+            raise AssertionError(f"{what}: output on {got.device}")
+        if got.dtype == torch.bfloat16:
+            ulp_err(got, want, what)
+        else:
+            max_err(got, want, tol, tol, what)
+
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{dev} {str(dtype)[6:]}"
+            f1, f2 = (randn(BATCH, 256, HEIGHT // 8, WIDTH // 8, dtype=dtype)
+                      for _ in range(2))
+            close(corr.correlation_cuda(f1, f2, 20, 1, 20, 1, 2),
+                  corr.correlation_plain(f1, f2, 20, 1, 20, 1, 2), 1e-4,
+                  f"K1 {tag}")
+            shape = (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8)
+            f1, f2 = (randn(*shape, dtype=dtype) for _ in range(2))
+            g = randn(shape[0], 21 * 21, *shape[2:], dtype=dtype)
+            for k, (a, b) in enumerate(zip(
+                    corr.correlation_bwd_cuda(g, f1, f2, 20, 2),
+                    corr.correlation_bwd_plain(g, f1, f2, 20, 2))):
+                close(a, b, 1e-4, f"K{5 + k} {tag}")
+            f2p = F.pad(f2, (0, 0, 20, 20))
+            rows_h = shape[2] // 2
+            for off in (0, rows_h):
+                rows = slice(off, off + rows_h)
+                args = (g[:, :, rows].contiguous(), f1[:, :, rows].contiguous(),
+                        f2p[:, :, off:off + rows_h + 40].contiguous())
+                got = (corr_sp.corr_slab_cuda(*args[1:], 20, 2),
+                       *corr_sp.corr_slab_bwd_cuda(*args, 20, 2))
+                want = (corr_sp.corr_slab_plain(*args[1:], 20, 2),
+                        *corr_sp.corr_slab_bwd_plain(*args, 20, 2))
+                for part, a, b in zip(("forward", "d_f1", "d_slab"), got,
+                                      want):
+                    close(a, b, 1e-5, f"K7 {part}, rows from {off}, {tag}")
+            img = randn(BATCH, 3, HEIGHT, WIDTH, dtype=dtype)
+            fl = flow(BATCH, 2, 2, HEIGHT, WIDTH, dtype=dtype)
+            close(r2d.resample2d_cuda(img, fl[:, 0].contiguous()),
+                  r2d.resample2d_plain(img, fl[:, 0].contiguous()), 1e-5,
+                  f"K2 one flow {tag}")
+            close(r2d.resample2d_multi_cuda(img, fl),
+                  r2d.resample2d_multi_plain(img, fl), 1e-5,
+                  f"K2 two flows {tag}")
+            img = randn(TRAIN_BATCH, 3, TRAIN_HEIGHT, TRAIN_WIDTH, dtype=dtype)
+            fls = flow(TRAIN_BATCH, 2, 2, TRAIN_HEIGHT, TRAIN_WIDTH,
+                       dtype=dtype)
+            for n_flows in (1, 2):
+                fl = fls[:, :n_flows].contiguous()
+                want = r2d.resample2d_tangents_plain(img, fl)
+                for part, a, b in zip(("out", "d1", "d2"),
+                                      r2d.resample2d_tangents_cuda(img, fl),
+                                      want):
+                    close(a, b, 1e-5, f"K3 {part}, {n_flows} flow(s) {tag}")
+                g = randn(*want[0].shape, dtype=dtype)
+                close(r2d.resample2d_grad_flow_cuda(g, img, fl),
+                      r2d.resample2d_grad_flow_plain(g, img, fl), 1e-5,
+                      f"K4 {n_flows} flow(s) {tag}")
+            whole = (r2d.resample2d_multi_cuda(img, fls),
+                     *r2d.resample2d_tangents_cuda(img, fls),
+                     r2d.resample2d_grad_flow_cuda(g, img, fls))
+            rows_h = TRAIN_HEIGHT // 2
+            for off in (0, rows_h):
+                rows = slice(off, off + rows_h)
+                fl_loc = fls[:, :, :, rows].contiguous()
+                got = (r2d.resample2d_multi_cuda(img, fl_loc, off),
+                       *r2d.resample2d_tangents_cuda(img, fl_loc, off),
+                       r2d.resample2d_grad_flow_cuda(
+                           g[:, :, :, rows].contiguous(), img, fl_loc, off))
+                for part, a, b in zip(("K2", "K3 out", "K3 d1", "K3 d2",
+                                       "K4"), got, whole):
+                    if not torch.equal(a, b[:, :, :, rows]):
+                        raise AssertionError(
+                            f"{part} local rows from {off}, {tag}: not the "
+                            "whole image's rows")
+            print(f"  local-rows K2, K3, K4 on the bands of two, {tag}: "
+                  "bit-equal to the whole image's rows")
+    torch.cuda.synchronize(dev)
+    return dict(ops.LAUNCHES)
+
+
+def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
+    """The plain command on every card against the same command on one:
+    ``python -m flownet2_tpu_torch.cli`` training FlowNet2 2 epochs from
+    FlyingChairs-format files (16 training pairs at 384x512, crops of
+    TRAIN_HEIGHT x TRAIN_WIDTH, batch TRAIN_BATCH, validation each epoch on
+    8) from a ``.pth.tar`` of the seeded weights, once by SGD at DP_CLI_LR
+    and once by the default Adam, then ``--inference --save_flow`` of the 8
+    validation pairs from the seeded weights.  On every card the command
+    starts its ranks itself.  Gates: the same records; step 1's loss (the
+    forward before any update) within 1e-5 relative for both optimizers;
+    the SGD run's every logged loss within DP_CLI_RTOL relative of one
+    card's, and its validation loss after two updates apart from one
+    card's by at most DP_CLI_SHARE of what the updates moved it (a wrong
+    scale or stripe of the all-reduced update moves it elsewhere); each
+    flow written once, within EPE 1e-4 of the one-card run's.  Printed: the Adam run's gaps and, for both
+    optimizers, the final parameters' difference between the two runs over
+    their displacement from the seeded weights per sub-net.  TF32 off, as
+    everywhere in this script."""
+    import numpy as np
+    from PIL import Image
+
+    from flownet2_tpu_torch.checkpoints.native import STATE_FILE
+    from flownet2_tpu_torch.data import read_flo, write_flo
+    from flownet2_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(CLI_SEED)
+    chairs = work / "chairs"
+    for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+        (chairs / split).mkdir(parents=True)
+        for i in range(n):
+            for j in (1, 2):
+                Image.fromarray(rng.integers(
+                    0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)).save(
+                        chairs / split / f"{i:05d}_img{j}.ppm")
+            write_flo(chairs / split / f"{i:05d}_flow.flo",
+                      rng.standard_normal((HEIGHT, WIDTH, 2),
+                                          dtype=np.float32) * 4)
+    pth = work / "FlowNet2_seeded.pth.tar"
+    seeded = get_model("FlowNet2", device="cpu", seed=CLI_SEED).state_dict()
+    torch.save({"arch": "FlowNet2", "epoch": 0, "best_EPE": 1e10,
+                "state_dict": seeded}, pth)
+    common = ["--model", "FlowNet2", "--batch_size", str(TRAIN_BATCH),
+              "--resume_torch", str(pth)]
+    train = [*common, "--total_epochs", "2",
+             "--training_dataset", "FlyingChairs",
+             "--training_dataset_root", str(chairs / "train"),
+             "--training_dataset_is_cropped", "--crop_size",
+             str(TRAIN_HEIGHT), str(TRAIN_WIDTH),
+             "--validation_dataset", "FlyingChairs",
+             "--validation_dataset_root", str(chairs / "val"),
+             "--validation_frequency", "1"]
+    runs = {"train SGD": [*train, "--optimizer", "SGD",
+                          "--optimizer_lr", str(DP_CLI_LR)],
+            "train Adam": train,
+            "infer": [*common, "--inference", "--save_flow",
+                      "--inference_dataset", "FlyingChairs",
+                      "--inference_dataset_root", str(chairs / "val")]}
+    # the parity configuration, TF32 off, in the command's processes too
+    # (cuDNN and cuBLAS read NVIDIA_TF32_OVERRIDE): with TF32 the two runs'
+    # convolutions, which cuDNN picks by batch size, differ by ~1e-3
+    every = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    one = dict(every, CUDA_VISIBLE_DEVICES=FIRST_CARD)
+    many = f"{n_cards} cards"
+    seconds = {}
+    for label, env in (("one card", one), (many, every)):
+        for what, argv in runs.items():
+            save = work / label / what
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "flownet2_tpu_torch.cli", *argv,
+                 "--save", str(save)], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=900)
+            seconds[label, what] = time.perf_counter() - t
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"phase 5e(d), cli {what} on {label}: exit "
+                    f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                    f"{proc.stderr[-4000:]}")
+            started = "starting " in proc.stderr
+            if started != (label != "one card"):
+                raise AssertionError(f"phase 5e(d), cli {what} on {label}: "
+                                     f"started ranks {started}")
+
+    def records(label, what):
+        with open(work / label / what / "run.metrics.jsonl") as f:
+            return [(r["step"], r["split"], r["loss"])
+                    for r in map(json.loads, f)]
+
+    def flows(label):
+        d = work / label / "infer" / "inference" / "flows"
+        return sorted(os.listdir(d)), [read_flo(d / f)
+                                       for f in sorted(os.listdir(d))]
+
+    def moved_apart(what):
+        """Per sub-net, |final parameters on every card - on one card|
+        over |final parameters on one card - the seeded ones| (L2)."""
+        a, b = (torch.load(work / label / what / "train-checkpoint"
+                           / STATE_FILE, map_location="cpu",
+                           weights_only=True)["model"]
+                for label in ("one card", many))
+        diff2, disp2 = {}, {}
+        for k, v in seeded.items():
+            sub = k.split(".")[0]
+            diff2[sub] = diff2.get(sub, 0.0) + float(
+                (b[k].double() - a[k].double()).square().sum())
+            disp2[sub] = disp2.get(sub, 0.0) + float(
+                (a[k].double() - v.double()).square().sum())
+        return ", ".join(
+            f"{sub} {(diff2[sub] / max(disp2[sub], 1e-300)) ** 0.5:.3e}"
+            for sub in sorted(diff2))
+
+    want_steps = [(0, "val"), (1, "train"), (2, "train"), (2, "val"),
+                  (3, "train"), (4, "train")]
+    ok = True
+    for what in ("train SGD", "train Adam"):
+        ra, rb = records("one card", what), records(many, what)
+        rel = [abs(b[2] - a[2]) / abs(a[2]) for a, b in zip(ra, rb)]
+        # the validation loss after two updates: what they moved it on one
+        # card, and the cards' gap as a share of that
+        moved = abs(ra[3][2] - ra[0][2]) / abs(ra[0][2])
+        share = abs(rb[3][2] - ra[3][2]) / max(abs(ra[3][2] - ra[0][2]),
+                                                1e-30)
+        note(f"  phase 5e(d), the plain command on {n_cards} cards (it "
+             f"started its ranks) against one card, {what}: records "
+             f"{[(s, sp) for s, sp, _ in rb]}, losses "
+             + ", ".join(f"{s} {sp} {b:.6f}/{a[2]:.6f} ({r:.2e})"
+                         for (s, sp, b), a, r in zip(rb, ra, rel))
+             + f"; the validation loss moved {moved:.2e} from step 0 to 2 "
+             f"on one card, the cards' gap {share:.2e} of that; "
+             f"final parameters apart over their displacement: "
+             f"{moved_apart(what)}")
+        ok = ok and [(s, sp) for s, sp, _ in ra] == [
+            (s, sp) for s, sp, _ in rb] == want_steps and rel[1] <= 1e-5
+        if what == "train SGD":
+            ok = ok and max(rel) <= DP_CLI_RTOL and share <= DP_CLI_SHARE
+    (names_a, fa), (names_b, fb) = flows("one card"), flows(many)
+    epe = [float(np.sqrt(((a - b) ** 2).sum(-1)).mean())
+           for a, b in zip(fa, fb)]
+    note(f"  phase 5e(d), the plain command on {n_cards} cards, --inference "
+         f"--save_flow of the seeded weights: {len(names_b)} flows written "
+         f"once, EPE against one card's at most {max(epe):.3e}; seconds "
+         + ", ".join(f"{w} on {lab} {sec:.1f}"
+                     for (lab, w), sec in seconds.items()) + f"  [{smi}]")
+    if not (ok and names_a == names_b == [f"{i:06d}.flo"
+                                          for i in range(CLI_VAL)]
+            and max(epe) < 1e-4):
+        raise AssertionError("phase 5e(d): the command line on every card "
+                             "differs from one card's")
+
+
+def multi_card_main() -> int:
+    """``python3 chip_smoke.py --data-parallel``: phase 5e(d), on every card
+    the environment lists (more than one): the cards and their links, the
+    build, each kernel against its plain version on every card, phase 5e's
+    step gates over NCCL on 2 and on 4 cards, the plain command line
+    starting its ranks, the all-reduce alone and the weak-scaling table."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    if not (ROOT / "flownet2_tpu_torch" / "__init__.py").is_file():
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"chip_smoke --data-parallel: {n_cards} card, needs more than "
+              "one", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from flownet2_tpu_torch.ops import _cuda
+
+    smi_all = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi_all)
+    smi = smi_all.splitlines()[0]
+    topo = {}
+    for what, cmd in (("nvidia-smi topo -m", ["nvidia-smi", "topo", "-m"]),
+                      ("nvidia-smi nvlink --status",
+                       ["nvidia-smi", "nvlink", "--status", "-i", "0"])):
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=60)
+        topo[what] = " ".join((proc.stdout + proc.stderr).split())[:600]
+        print(f"{what} (exit {proc.returncode}):")
+        print(proc.stdout + proc.stderr)
+    peers = [f"{i}->{j} {torch.cuda.can_device_access_peer(i, j)}"
+             for i in range(n_cards) for j in range(n_cards) if i != j]
+    note(f"  phase 5e(d), {n_cards} cards: {'; '.join(smi_all.splitlines())}; "
+         + "; ".join(f"{k}: {v}" for k, v in topo.items())
+         + f"; peer access {', '.join(peers)}")
+    t0 = time.perf_counter()
+    _cuda.build()
+    print(f"built in {time.perf_counter() - t0:.1f} s")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    print(f"phase 5e(d): data parallel on {n_cards} cards")
+    for k in range(n_cards):
+        launches = kernels_on_device(torch.device("cuda", k))
+        note(f"  phase 5e(d), cuda:{k}: every main-path kernel against its "
+             f"plain version, f32 and bf16; launches {launches}")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_5e_"))
+    try:
+        for world in (2, 4):
+            if world <= n_cards:
+                run_task(work, f"steps{world}", world, task="steps",
+                         backend="nccl", part="(d)",
+                         what=f"{world} ranks over NCCL on {world} cards")
+        # a failed command-line gate fails the run after the scaling table,
+        # so that one run on several cards reads everything
+        try:
+            multi_card_cli(smi, n_cards, work)
+            cli_failure = None
+        except AssertionError as e:
+            cli_failure = e
+        times = {}
+        for world in (1, 2, 4):
+            if world <= n_cards:
+                out = work / f"scaling{world}.out"
+                run_task(work, f"scaling{world}", world, task="scaling",
+                         backend="nccl", out=str(out))
+                times[world] = json.loads(out.read_text())
+        for n, t in times.items():
+            if n == 1:
+                continue
+            ms = t.pop("allreduce_ms")
+            # a ring moves 2 (n - 1) / n of the bytes through each link
+            bus = 2 * (n - 1) / n * 4 * FLOWNET2_PARAMS / ms / 1e6
+            note(f"  phase 5e(d), all-reduce of {FLOWNET2_PARAMS} float32 "
+                 f"(a step's gradients) over NCCL on {n} card(s): {ms:.3f} "
+                 f"ms, bus bandwidth {bus:.1f} GB/s  [{smi}]")
+        for dtype in ("float32", "bfloat16"):
+            base = times[1][dtype]
+            note(f"  phase 5e(d), weak scaling, FlowNet2 {dtype} train step, "
+                 f"{TRAIN_BATCH} pairs a card, {TRAIN_HEIGHT}x{TRAIN_WIDTH}, "
+                 "DDP over NCCL: " + "; ".join(
+                     f"{n} card(s) {t[dtype]:.3f} ms/step, "
+                     f"{n * TRAIN_BATCH / t[dtype] * 1e3:.2f} frames/s, "
+                     f"efficiency {base / t[dtype]:.4f}"
+                     for n, t in times.items()) + f"  [{smi}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("summary of the timed phases:")
+    for line in SUMMARY:
+        print(line)
+    if cli_failure is not None:
+        raise cli_failure
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": n_cards}}))
+    return 0
 
 
 def main() -> int:
@@ -2623,7 +3404,16 @@ def main() -> int:
                                / len(route16_ms[stage_glue.TRAIN_WARP]))
 
     # -- 5d. the command line and caffemodel import -----------------------------
-    cli_phase(smi, phase4_ms, phase5c_ms)
+    cli_work = Path(tempfile.mkdtemp(prefix="chip_smoke_5d_"))
+    try:
+        cli_run = cli_phase(smi, phase4_ms, phase5c_ms, cli_work)
+
+        # -- 5e. data parallel, in fresh processes --------------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        data_parallel_phase(smi, cli_run)
+    finally:
+        shutil.rmtree(cli_work, ignore_errors=True)
 
     # -- 6. kernel times ------------------------------------------------------
     print("phase 6: kernel times at the main-path shapes")
@@ -3134,4 +3924,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-task"]:
+        sys.exit(rank_task(sys.argv[2]))
+    if sys.argv[1:2] == ["--data-parallel"]:
+        sys.exit(multi_card_main())
     sys.exit(main())

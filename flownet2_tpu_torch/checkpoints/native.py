@@ -13,7 +13,12 @@ checkpoint that improved the best EPE, made of hard links where the file
 system allows them (no checkpoint file is written again once it is in
 place: a new save renames a new directory in).
 
-Where ``torch.distributed`` is initialised only rank 0 touches the files.
+Where ``torch.distributed`` is initialised every rank calls both
+functions: ``save_checkpoint`` is written by rank 0 alone, and every rank
+then meets the others at a barrier, so none goes on before the checkpoint
+is in place (the JAX save's barriers); ``restore_checkpoint`` recovers a
+``<tag>.old`` on rank 0 alone, meets the others at a barrier, and then
+every rank loads the checkpoint onto its own device.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import shutil
 from typing import Optional
 
 import torch
+
+from ..parallel import barrier
 
 STATE_FILE = "state.pt"
 
@@ -89,8 +96,15 @@ def save_checkpoint(directory: str | os.PathLike, model: torch.nn.Module,
     ``<directory>/model_best``.  Returns the checkpoint's path."""
     directory = pathlib.Path(directory)
     path = pathlib.Path(_ckpt_dir(directory, tag)).absolute()
-    if not is_primary():
-        return str(path)
+    if is_primary():
+        _write(directory, path, model, optimizer, epoch, best_epe, is_best)
+    barrier()
+    return str(path)
+
+
+def _write(directory: pathlib.Path, path: pathlib.Path, model, optimizer,
+           epoch: int, best_epe: float, is_best: bool) -> None:
+    """``save_checkpoint``'s files, written by one process."""
     tmp = path.with_name(path.name + ".tmp")
     path.parent.mkdir(parents=True, exist_ok=True)
     if tmp.exists():
@@ -110,7 +124,6 @@ def save_checkpoint(directory: str | os.PathLike, model: torch.nn.Module,
             shutil.rmtree(btmp)
         shutil.copytree(path, btmp, copy_function=_link_or_copy)
         _replace_dir(btmp, best)
-    return str(path)
 
 
 def restore_checkpoint(directory: str | os.PathLike, model: torch.nn.Module,
@@ -124,11 +137,9 @@ def restore_checkpoint(directory: str | os.PathLike, model: torch.nn.Module,
     # a crash inside _replace_dir's rename window parks the previous
     # checkpoint at <tag>.old
     old = path.with_name(path.name + ".old")
-    if not path.exists() and old.exists():
-        try:
-            old.rename(path)
-        except OSError:
-            pass  # another process won the rename on a shared file system
+    if is_primary() and not path.exists() and old.exists():
+        old.rename(path)
+    barrier()
     if not path.exists():
         raise FileNotFoundError(f"no checkpoint at {path}")
     # the host first: torch.optim keeps Adam's step count on the CPU and

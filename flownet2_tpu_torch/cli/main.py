@@ -8,6 +8,17 @@ read off the classes' signatures (the optimizers' off
 device; ``--device cpu`` runs the plain PyTorch ops on the CPU.  Without a
 CUDA device and without ``--device cpu`` the command raises.
 
+Several cards: as the JAX command line uses every device the global batch
+allows, the plain command with ``--device cuda`` on a machine with more than
+one card starts ``parallel.data_ranks(batch, cards)`` ranks of itself, one a
+card, through torchrun on this host, and fails if any rank fails.  Under
+torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) each process is one rank, on
+``cuda:LOCAL_RANK`` (gloo with ``--device cpu``; a named ``cuda:K`` raises
+there).  ``--device cpu`` and a named ``cuda:K`` never start ranks.
+``--batch_size`` is the global batch; each rank reads its stripe.
+``--spatial_shards`` splits the rows on each rank's own card.
+
 Examples:
 
   # training
@@ -19,6 +30,9 @@ Examples:
 
   # resume that run (its directory, or one of its checkpoints)
   python -m flownet2_tpu_torch.cli ... --resume ./work
+
+  # the same training on 4 cards, as 4 processes
+  torchrun --standalone --nproc_per_node=4 -m flownet2_tpu_torch.cli ...
 
   # inference from a reference checkpoint, or from a converted caffemodel
   python -m flownet2_tpu_torch.cli --inference --save_flow \\
@@ -35,9 +49,11 @@ import argparse
 import dataclasses
 import inspect
 import json
+import math
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 
 def _flag_type(default):
@@ -169,7 +185,7 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
                         "train steps into <save>/profile")
     p.add_argument("--spatial_shards", type=int, default=1,
                    help="row bands of the correlation and the warps (H "
-                        "split), on the one device")
+                        "split), on each rank's own device")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--skip_training", action="store_true")
 
@@ -237,25 +253,87 @@ def _git_hash() -> str:
         return "unknown"
 
 
+def _inference_batch(args: argparse.Namespace) -> int:
+    return (args.inference_batch_size if args.inference_batch_size > 0
+            else args.batch_size)
+
+
+def _ranks_to_start(args: argparse.Namespace) -> int:
+    """How many ranks the command starts itself: with ``--device cuda``,
+    outside torchrun's environment, on a machine with more than one card,
+    the JAX command line's data-axis size for the batches of the run;
+    otherwise 1 (this process is the run, or its rank)."""
+    import torch
+
+    from ..parallel import ENV_VARS, data_ranks
+
+    if (args.device != "cuda" or any(v in os.environ for v in ENV_VARS)
+            or torch.cuda.device_count() < 2):
+        return 1
+    return data_ranks(math.gcd(args.batch_size, _inference_batch(args)),
+                      torch.cuda.device_count())
+
+
+def _start_ranks(n_ranks: int, argv) -> int:
+    """Run this command as ``n_ranks`` ranks on this host, one a card,
+    through torchrun (``torch.distributed.run --standalone``), which gives
+    each rank its variables and fails when any rank fails; returns its
+    exit code."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(Path(__file__).resolve().parents[2]),
+                    env.get("PYTHONPATH")) if p)
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={n_ranks}", "-m", "flownet2_tpu_torch.cli",
+         *argv], env=env).returncode
+
+
 def main(argv=None) -> int:
+    import torch
+    import torch.distributed as dist
+
     from ..ops.sharding_hints import scoped_spatial_shards
+    from ..parallel import (ENV_VARS, init_distributed, is_distributed,
+                            local_rank, rank)
     from ..utils import resolve_device
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser(argv).parse_args(argv)
     dev = resolve_device(args.device)
     if args.precision == "fp16":
         raise NotImplementedError(
             "--precision fp16: no kernel of the port takes float16 yet "
             "(ROADMAP.md, M6)")
-    os.makedirs(args.save, exist_ok=True)
-    record = dict(vars(args))
-    record["git_hash"] = _git_hash()
-    with open(os.path.join(args.save, "args.json"), "w") as f:
-        json.dump(record, f, indent=2, default=str)
-    # --spatial_shards N: the correlation and the warps run as N row
-    # bands, for this run only
-    with scoped_spatial_shards(args.spatial_shards):
-        return _run(args, dev)
+    n_ranks = _ranks_to_start(args)
+    if n_ranks > 1:
+        print(f"starting {n_ranks} ranks on {torch.cuda.device_count()} "
+              "cards", file=sys.stderr)
+        return _start_ranks(n_ranks, argv)
+    ranked = is_distributed() or all(v in os.environ for v in ENV_VARS)
+    if ranked and dev.type == "cuda":
+        # each rank runs on its own card
+        if dev.index is not None:
+            raise ValueError(
+                f"--device {args.device} under a process group: every rank "
+                "runs on cuda:LOCAL_RANK, so pass --device cuda")
+        dev = torch.device("cuda", local_rank())
+    started = not is_distributed() and init_distributed(
+        backend="gloo" if dev.type == "cpu" else "nccl")
+    try:
+        os.makedirs(args.save, exist_ok=True)
+        if rank() == 0:
+            record = dict(vars(args))
+            record["git_hash"] = _git_hash()
+            with open(os.path.join(args.save, "args.json"), "w") as f:
+                json.dump(record, f, indent=2, default=str)
+        # --spatial_shards N: the correlation and the warps run as N row
+        # bands, for this run only
+        with scoped_spatial_shards(args.spatial_shards):
+            return _run(args, dev)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def _run(args: argparse.Namespace, dev) -> int:
@@ -266,10 +344,13 @@ def _run(args: argparse.Namespace, dev) -> int:
     from ..data import DataLoader, DeviceLoader
     from ..losses import get_loss
     from ..models import get_model
+    from ..parallel import DataParallelPlan, is_distributed
     from ..train import (LRSchedule, StepFactory, Trainer, TrainerConfig,
                          get_optimizer)
     from ..utils import TimerBlock
 
+    plan = DataParallelPlan.current(dev) if is_distributed() else None
+    world, rank = (plan.world_size, plan.rank) if plan else (1, 0)
     with TimerBlock("Building model") as block:
         dtype = torch.bfloat16 if args.precision == "bf16" else None
         model = get_model(args.model, device=dev, seed=args.seed,
@@ -291,8 +372,9 @@ def _run(args: argparse.Namespace, dev) -> int:
         fp16 = args.precision == "fp16"
         factory = StepFactory(model, loss, optimizer,
                               loss_scale=args.fp16_scale if fp16 else 1.0,
-                              skip_nonfinite_updates=fp16)
+                              skip_nonfinite_updates=fp16, plan=plan)
         block.log(f"model={args.model} loss={args.loss} device={dev} "
+                  f"world_size={world} rank={rank} "
                   f"precision={args.precision} "
                   f"spatial_shards={args.spatial_shards}")
 
@@ -311,10 +393,12 @@ def _run(args: argparse.Namespace, dev) -> int:
         def loader(ds, shuffle, drop_last=True, batch_size=None):
             # train drops the ragged tail; validation and inference score
             # every sample, so their tail batch is padded and masked
+            # (the global batch: each rank reads its stripe)
             return DeviceLoader(DataLoader(
                 ds, batch_size or args.batch_size, shuffle=shuffle,
                 drop_last=drop_last, num_workers=args.num_workers,
-                seed=args.seed), device=dev)
+                seed=args.seed, process_count=world, process_index=rank),
+                device=dev)
         train_ds = _build_dataset(args, "training_dataset")
         val_ds = _build_dataset(args, "validation_dataset")
         infer_ds = _build_dataset(args, "inference_dataset")
@@ -342,8 +426,7 @@ def _run(args: argparse.Namespace, dev) -> int:
             trainer.resume(args.resume)
             block.log(f"resumed at epoch {trainer.start_epoch}")
 
-    infer_batch = (args.inference_batch_size if args.inference_batch_size > 0
-                   else args.batch_size)
+    infer_batch = _inference_batch(args)
     flow_dir = os.path.join(args.save, "inference", "flows") \
         if args.save_flow else None
     viz_dir = os.path.join(args.save, "inference", "viz") \

@@ -130,6 +130,15 @@ class DataLoader:
                 yield Batch(images, flow, n_valid)
 
 
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with its index: a CUDA device named without one is the
+    calling thread's current device (the rank's, once it is set), which
+    the background thread must not read as its own."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class _Failure:
     """An exception of the background thread, handed to the consumer."""
 
@@ -181,8 +190,8 @@ class _PinnedRing:
 def device_prefetch(iterator: Iterable[Batch], size: int = 2,
                     device=None) -> Iterator[Batch]:
     """Yield the batches of ``iterator`` as tensors on ``device`` (None:
-    the CUDA device, which raises without one), up to ``size`` batches
-    ahead of the consumer.
+    the current CUDA device, which raises without one; in a data-parallel
+    run, the rank's device), up to ``size`` batches ahead of the consumer.
 
     A background thread runs ``iterator`` (the decoding), stages each batch
     into a ring of ``size + 1`` reused pinned buffers and copies it to the
@@ -194,7 +203,7 @@ def device_prefetch(iterator: Iterable[Batch], size: int = 2,
     """
     if size < 1:
         raise ValueError(f"size must be at least 1, got {size}")
-    dev = resolve_device(device)
+    dev = _indexed(resolve_device(device))
     cuda = dev.type == "cuda"
     ready: queue.Queue = queue.Queue(maxsize=size)
     stop = threading.Event()
@@ -211,6 +220,9 @@ def device_prefetch(iterator: Iterable[Batch], size: int = 2,
     def produce():
         it = iter(iterator)
         try:
+            # a new thread's current device is the first one: make the
+            # batches' device current, so that the side stream, its events
+            # and the pinned buffers belong to it
             with (torch.cuda.device(dev) if cuda
                   else contextlib.nullcontext()):
                 stream = torch.cuda.Stream(dev) if cuda else None

@@ -10,9 +10,11 @@ At first use ``g++`` builds the source into the port's build root (the
 directory that ``FLOWNET2_TORCH_BUILD_DIR`` names, else the checkout's
 ``build/flownet2_tpu_torch/``, as ``ops._cuda.build_root`` says), under a
 name keyed by the hash of the source and the command: the compiler writes a
-file named after its process, which ``os.replace`` then moves into place,
-so that several processes may build at once.  Nothing is written into the
-package.  Importing the module builds nothing.
+file named after its process, which ``os.replace`` then moves into place.
+Processes that find the library missing at once (the ranks of a
+data-parallel run) take the build root's lock (``ops._cuda.dir_lock``) in
+turn: the first compiles, the others find it built.  Nothing is written
+into the package.  Importing the module builds nothing.
 
 This is a host decoder, not a device kernel: where the build or the load
 fails, or ``FLOWNET2_TORCH_NO_NATIVE`` is set, ``available()`` is False,
@@ -33,7 +35,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ..ops._cuda import build_root
+from ..ops._cuda import build_root, dir_lock
 
 SRC = Path(__file__).resolve().parent / "src" / "fileio.cc"
 NO_NATIVE_ENV = "FLOWNET2_TORCH_NO_NATIVE"
@@ -61,8 +63,13 @@ def library_path() -> Path:
 
 def _build(so: Path) -> Optional[str]:
     """Compile to a file named after this process, then move it into
-    place; returns the reason of a failure, None on success."""
-    so.parent.mkdir(parents=True, exist_ok=True)
+    place, holding the build root's lock (unless another process built it
+    meanwhile); returns the reason of a failure, None on success."""
+    with dir_lock(so.parent):
+        return None if so.exists() else _compile(so)
+
+
+def _compile(so: Path) -> Optional[str]:
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = _command(tmp)
     try:

@@ -20,13 +20,22 @@ weights and U[0, 1) biases, drawn from the generator it is given.
 makes every convolution cast its input, weight and bias to bfloat16 at
 each call, so the output and the LeakyReLU after it are bfloat16.  One
 state_dict serves both.  BatchNorm has no bfloat16 form yet.
+
+``BatchNorm2d`` is ``nn.BatchNorm2d`` under the same keys; with
+``global_batch`` set (``set_global_batch_norm``, which ``StepFactory`` calls
+under a ``DataParallelPlan``) it normalises by the statistics of the whole
+global batch, over every rank, as the JAX package's BatchNorm does over a
+batch sharded on the mesh.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import sum_over_ranks
 
 LEAKY_SLOPE = 0.1
 
@@ -61,6 +70,56 @@ class ConvTranspose2d(nn.ConvTranspose2d):
             self.dilation)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that, with ``global_batch`` set, normalises in
+    ``train()`` mode by the mean and the biased variance of the global
+    batch: each rank's per-channel count, sum and sum of squares are
+    all-reduced (``parallel.sum_over_ranks``, whose backward all-reduces
+    the gradient too, over gloo and NCCL alike), and the
+    variance is E[x^2] - E[x]^2, as Flax computes it.  The running
+    statistics take the global mean and the unbiased global variance, as
+    torch's own BatchNorm2d takes its batch's."""
+
+    global_batch: bool = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.global_batch):
+            return super().forward(x)
+        if not dist.is_initialized():
+            raise RuntimeError("BatchNorm2d with global_batch set needs a "
+                               "process group (parallel.init_distributed)")
+        c = x.shape[1]
+        count = torch.full((1,), x.numel() // c, dtype=x.dtype,
+                           device=x.device)
+        stats = sum_over_ranks(torch.cat(
+            [x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp_min(stats[c:2 * c] / n - mean * mean, 0.0)
+        if self.track_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * var * n / (n - 1))
+                self.num_batches_tracked.add_(1)
+        # Flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
+        shape = (1, c, 1, 1)
+        mul = torch.rsqrt(var + self.eps)
+        if self.affine:
+            mul = mul * self.weight
+        y = (x - mean.view(shape)) * mul.view(shape)
+        return y + self.bias.view(shape) if self.affine else y
+
+
+def set_global_batch_norm(model: nn.Module) -> nn.Module:
+    """Make every ``BatchNorm2d`` of ``model`` normalise by the global
+    batch's statistics, and return ``model``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.global_batch = True
+    return model
+
+
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None):
     """Make every convolution of ``model`` cast to ``dtype`` at each call
     (None: no cast) and return ``model``.  BatchNorm has no bfloat16 form
@@ -87,7 +146,7 @@ def conv(in_planes: int, out_planes: int, kernel_size: int = 3,
     layers = [Conv2d(in_planes, out_planes, kernel_size, stride,
                      padding=(kernel_size - 1) // 2, bias=not batch_norm)]
     if batch_norm:
-        layers.append(nn.BatchNorm2d(out_planes))
+        layers.append(BatchNorm2d(out_planes))
     layers.append(nn.LeakyReLU(LEAKY_SLOPE, inplace=True))
     return nn.Sequential(*layers)
 
@@ -98,7 +157,7 @@ def i_conv(in_planes: int, out_planes: int, kernel_size: int = 3,
     layers = [Conv2d(in_planes, out_planes, kernel_size, stride,
                      padding=(kernel_size - 1) // 2, bias=bias)]
     if batch_norm:
-        layers.append(nn.BatchNorm2d(out_planes))
+        layers.append(BatchNorm2d(out_planes))
     return nn.Sequential(*layers)
 
 

@@ -10,7 +10,14 @@ each build, or else ``build/flownet2_tpu_torch/`` beside the package
 builds nothing.  The hash covers the
 sources, the headers and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  A missing ``nvcc`` or a failed build raises:
-there is no fallback.
+there is no fallback.  The ranks of a data-parallel run (and any other
+processes that share the build root) take the build directory's lock in
+turn (``dir_lock``): the first compiles, the others wait for it and find
+the libraries built, one build a host and not one a rank.  A lock and not
+a barrier: the first launch comes inside a rank's first forward, and a
+rank may launch before the others reach a collective (rank 0 alone
+running a reference step, say), where a barrier would wait for ever
+against the others' collective.
 
 Each C entry point takes raw pointers, sizes, the device index and the
 stream, launches on that stream without synchronising, and returns
@@ -24,7 +31,9 @@ show which path it took; ``reset_counts`` sets both to zero.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -83,11 +92,30 @@ def _nvcc() -> str:
 
 def build() -> dict[str, str]:
     """Compile every ``csrc/*.cu`` that is not yet built for this source
-    hash, one ``nvcc`` per source, all running at once.  Returns each
-    source's compiler output ("" for a library already built); raises if
-    any compile fails, after every compiler has exited."""
+    hash, one ``nvcc`` per source, all running at once, holding the lock of
+    the build directory.  Returns each source's compiler output ("" for a
+    library already built); raises if any compile fails, after every
+    compiler has exited."""
     out_dir = build_root() / source_hash()
-    out_dir.mkdir(parents=True, exist_ok=True)
+    with dir_lock(out_dir):
+        return _compile(out_dir)
+
+
+@contextlib.contextmanager
+def dir_lock(path: Path):
+    """Hold an exclusive ``flock`` on the directory ``path`` (made if
+    missing) for the body: one process at a time, whichever processes
+    share the directory; no file is added to it."""
+    path.mkdir(parents=True, exist_ok=True)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
+def _compile(out_dir: Path) -> dict[str, str]:
     jobs = []
     logs = {}
     for src in _sources():

@@ -1,0 +1,18 @@
+"""Data parallel over several devices: one process a rank, gradients
+all-reduced by ``DistributedDataParallel`` (the counterpart of
+flownet2_tpu/parallel)."""
+
+from .mesh import (  # noqa: F401
+    ENV_VARS,
+    DataParallelPlan,
+    all_gather_batch,
+    all_reduce_sum,
+    barrier,
+    data_ranks,
+    init_distributed,
+    is_distributed,
+    local_rank,
+    rank,
+    sum_over_ranks,
+    world_size,
+)

@@ -13,15 +13,29 @@ loss compares the bf16 flow with the float32 target in float32; the
 optimizer steps in float32.  The
 step number lives in the optimizer (``optimizer.count``), which feeds the
 LR schedule.
+
+With a ``parallel.DataParallelPlan`` the factory is one rank of a
+data-parallel run, the counterpart of the JAX factory's ``MeshPlan``: the
+train step runs the model wrapped in ``DistributedDataParallel`` on the
+plan's device, whose backward leaves every rank the mean of the ranks'
+gradients (the global batch's gradient), so the optimizer takes the same
+step everywhere and the gradient clip and the non-finite check see the
+same gradients; BatchNorm takes the global batch's statistics
+(``nn.layers.set_global_batch_norm``); the returned loss and EPE are the
+global batch's means, and the eval and infer-metrics sums are the global
+batch's, each rank masking the padding of its own stripe.  Each step's
+batch is the rank's stripe of the global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
+from ..nn.layers import set_global_batch_norm
+from ..parallel import DataParallelPlan, all_reduce_sum
 from .optim import Optimizer
 
 
@@ -37,14 +51,39 @@ class StepFactory:
     optimizer: Optimizer
     loss_scale: float = 1.0
     skip_nonfinite_updates: bool = False
+    plan: Optional[DataParallelPlan] = None
 
     def __post_init__(self):
         self.optimizer.init(self.model.parameters())
+        # the module the train step calls: the model, or under a plan its
+        # DistributedDataParallel wrapper (which broadcasts rank 0's
+        # parameters and buffers here, and the buffers before each forward)
+        self.net = self.model
+        if self.plan is not None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            dev = self.plan.device
+            if next(self.model.parameters()).device != dev:
+                raise ValueError(f"the model is not on the plan's device "
+                                 f"{dev}")
+            set_global_batch_norm(self.model)
+            # every parameter of the six models takes part in the loss
+            # (tests/test_torch_parallel.py), so DDP need not search the
+            # graph for unused ones
+            self.net = DistributedDataParallel(
+                self.model, device_ids=[dev] if dev.type == "cuda" else None)
+
+    def _global_mean(self, *values: torch.Tensor) -> torch.Tensor:
+        """The values stacked and, under a plan, averaged over the ranks."""
+        out = torch.stack([v.detach().float() for v in values])
+        if self.plan is not None:
+            all_reduce_sum(out).div_(self.plan.world_size)
+        return out
 
     def _train_step(self, images: torch.Tensor, flow: torch.Tensor):
-        self.model.train()
+        self.net.train()
         self.optimizer.zero_grad()
-        lossvalue, epevalue = self.loss_fn(self.model(images), flow)
+        lossvalue, epevalue = self.loss_fn(self.net(images), flow)
         (lossvalue * self.loss_scale).backward()
         grads = self.optimizer.grads()
         if self.loss_scale != 1.0:
@@ -53,22 +92,34 @@ class StepFactory:
         if not self.skip_nonfinite_updates or all(
                 bool(torch.isfinite(g).all()) for g in grads):
             self.optimizer.step()
-        return {"loss": lossvalue.detach(), "epe": epevalue.detach()}
+        if self.plan is None:
+            return {"loss": lossvalue.detach(), "epe": epevalue.detach()}
+        loss, epe = self._global_mean(lossvalue, epevalue)
+        return {"loss": loss, "epe": epe}
 
     def train_step(self) -> Callable:
         """``(images (B, 2, H, W, 3), flow (B, H, W, 2)) -> {"loss",
-        "epe"}``, one optimizer step; the gradients stay in ``.grad``."""
+        "epe"}``, one optimizer step; the gradients stay in ``.grad``.
+        Under a plan the batch is this rank's stripe and the metrics are
+        the global batch's."""
         return self._train_step
 
     def _metric_sums(self, pred, flow, n_valid: int):
         """Per-sample sums over the first ``n_valid`` samples: a padded
-        tail batch must not count its padding."""
+        tail batch must not count its padding.  Under a plan ``n_valid``
+        counts the global batch, this rank masks its own stripe, and the
+        sums are the global batch's."""
         loss_ps, epe_ps = self.loss_fn.per_sample(pred, flow)
-        mask = (torch.arange(loss_ps.shape[0], device=loss_ps.device)
-                < n_valid).to(loss_ps.dtype)
-        return {"loss_sum": torch.sum(loss_ps * mask),
-                "epe_sum": torch.sum(epe_ps * mask),
-                "count": n_valid}
+        local = loss_ps.shape[0]
+        valid = (n_valid if self.plan is None
+                 else self.plan.valid_in_stripe(n_valid, local))
+        mask = (torch.arange(local, device=loss_ps.device)
+                < valid).to(loss_ps.dtype)
+        sums = torch.stack([torch.sum(loss_ps * mask),
+                            torch.sum(epe_ps * mask)])
+        if self.plan is not None:
+            all_reduce_sum(sums)
+        return {"loss_sum": sums[0], "epe_sum": sums[1], "count": n_valid}
 
     def _eval_step(self, images: torch.Tensor, flow: torch.Tensor,
                    n_valid: int):

@@ -7,6 +7,13 @@ a ``TrainState``, this one works on ``factory.model`` and
 ``factory.optimizer`` and ``global_step`` follows the optimizer's count.
 ``TrainerConfig`` has the JAX package's fields and defaults.
 
+Under a ``DataParallelPlan`` every rank runs the Trainer on its stripe of
+each batch: the metrics, the validation and inference means and the best
+EPE are the global batch's, the same on every rank; rank 0 alone writes the
+metric file, TensorBoard, the profile and the flows, which
+``inference`` gathers from every rank first; every rank calls the
+checkpoint saves, which rank 0 writes.
+
 The host keeps ahead of the card: each logged step's metrics are copied to
 pinned host memory without blocking and read after the next step has been
 queued, so the host never waits for the step it has just queued (a
@@ -30,6 +37,7 @@ from ..checkpoints.native import (
     resume_location,
     save_checkpoint,
 )
+from ..parallel import all_gather_batch
 from ..utils.tools import (
     IteratorTimer,
     MetricLogger,
@@ -93,7 +101,7 @@ class Trainer:
         self.start_epoch = max(config.start_epoch, 0)
         self.global_step = factory.optimizer.count
         self._profiler = None
-        self._profiled = config.profile_steps <= 0
+        self._profiled = config.profile_steps <= 0 or not self.is_writer
         self.tb_train = self.tb_val = None
         if config.tensorboard and self.is_writer:
             from ..utils.tensorboard import SummaryWriter
@@ -275,8 +283,10 @@ class Trainer:
         """Forward each batch, reporting loss and EPE (against zero targets
         where the dataset has no ground truth), and write each real
         sample's flow as ``<n>.flo`` and as a PNG rendering where asked;
-        ``n_batches`` -1 takes the whole set.  Returns (flows written,
-        means)."""
+        ``n_batches`` -1 takes the whole set.  Under a plan each batch's
+        flows are gathered from every rank in rank order (the global
+        batch) and rank 0 writes them, numbered as one process numbers
+        them.  Returns (flows written, means)."""
         from ..data.flow_io import flow_to_image, write_flo
 
         step = self.factory.infer_metrics_step()
@@ -297,6 +307,9 @@ class Trainer:
             loss_sum += float(sums["loss_sum"])
             epe_sum += float(sums["epe_sum"])
             count += int(sums["count"])
+            if self.factory.plan is not None and (save_flow_dir
+                                                  or visualize_dir):
+                flows = all_gather_batch(flows.float())
             if (save_flow_dir or visualize_dir) and self.is_writer:
                 # this batch's real (unpadded) samples only
                 flows_np = flows[:n_valid].float().cpu().numpy()
