@@ -233,7 +233,32 @@ Phases (any failure raises and the script exits non-zero):
    the all-reduce of a step's 162,518,834 float32 gradients alone (ms and
    bus bandwidth) on 2 and 4 cards; weak scaling, FlowNet2 fp32 and bf16
    train steps at 8 pairs a card: ms/step, frames/s and efficiency against
-   linear at 1, 2 and 4 cards.
+   linear at 1, 2 and 4 cards; then phase 5f(d).
+5f. Row bands across ranks (``DataParallelPlan(spatial=2)``: each rank one
+   band of the height, the convolutions' halos exchanged, f2 and the warp's
+   image gathered over the band's group), after phase 5e, in fresh
+   processes: two ranks over gloo on the one card, FlowNet2 fp32 of the
+   seeded weights, TF32 off, cuDNN deterministic.  Inference of b8 384x512
+   pairs drawn by numpy from BAND_SEED, the bands and stripes gathered:
+   EPE < 1e-4 against one process; one Adam 1e-4 step of phase 5e's batch
+   through ``StepFactory(plan=...)``: the ranks' parameters bit-equal after
+   it, the global loss within 1e-5 relative and the gradients per sub-net
+   within 5e(a)'s gates of the one-process step's (flownetc and flownets_1
+   printed only); each rank's launches exact (a forward: one K7 forward,
+   two one-flow and one two-flow local-rows K2; a step adds one K7 d_f1
+   and d_slab and the local-rows K4 likewise; no plain-op call), and the
+   dispatch log names the process-group compositions of the correlation,
+   the warp, the convolutions and the upsample.  ``--data-parallel`` runs
+   phase 5f(d) after 5e(d): the same gates over NCCL at spatial 2 on 2
+   cards and at data 2 x spatial 2 on 4, each timed (10 steps after 2 with
+   cuDNN's defaults: ms/step and frames/s of the global batch of 8 at
+   384x448, beside the same step on one card without bands) and profiled
+   on rank 0 by family (NCCL all-gather: the halos and gathers; NCCL
+   all-reduce: DDP's gradients and the gathers' transposes); and the plain
+   command with ``--spatial_shards 2`` on 4 cards, which starts 4 ranks,
+   against one card: 2 epochs by SGD at 5e(d)'s gates and ``--inference
+   --save_flow`` of the seeded weights (EPE < 1e-4).  ``python3
+   chip_smoke.py --data-parallel --spatial`` runs phase 5f(d) alone.
 6. Each kernel's time, its plain version's time, the card's bound for the
    same work and, where one PyTorch call computes the same function, that
    call's time, at the main-path shapes (K7 at one band of two; the bf16
@@ -260,17 +285,21 @@ Phases (any failure raises and the script exits non-zero):
    port's kernels, Adam) with its layout-conversion launches a step; the
    fp32 and the bf16 step on the tangent route, 3 steps each, for K3's
    device time a step.  Raises if no device time is recorded.
-8. The readings of phases 3 to 7 again, one JSON line listing the kernels;
-   the last line is the result.
+8. The readings of phases 3 to 7 again, one JSON line listing the kernels
+   (the rows of the kernels phase 5f's step runs also carry
+   ``launches_bands_across_ranks``, a rank's launches of that step); the
+   last line is the result.
 
 Uses one card, the first the environment lists (``--data-parallel``: every
-card it lists).  Exits non-zero, printing no result, where no CUDA device
-is available or the package is not beside this script.
+card it lists; with ``--spatial``, phase 5f(d) alone).  Exits non-zero,
+printing no result, where no CUDA device is available or the package is
+not beside this script.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import gc
 import hashlib
 import json
@@ -394,6 +423,11 @@ FLOWNET2_PARAMS = 162_518_834
 # SCALE_STEPS steps after SCALE_WARMUP at TRAIN_BATCH pairs a card
 DP_SEED, DP_STEPS = 19, 3
 SCALE_STEPS, SCALE_WARMUP = 10, 2
+# phase 5f: the inference pairs of phase 3's size, drawn by numpy from
+# BAND_SEED (every rank draws them alike)
+BAND_SEED = 23
+# a collective that waits longer fails its rank, and torchrun the task
+GROUP_TIMEOUT = datetime.timedelta(minutes=5)
 # the sub-nets whose gradients sit on the noise line between two forwards
 # that differ in the last bit (ROADMAP.md, section 3): printed, not gated
 DP_GATES = {"flownetc": None, "flownets_1": None, "flownets_2": 1e-3,
@@ -1396,7 +1430,7 @@ def start_rank(cfg: dict) -> torch.device:
 
     dev = rank_device(cfg["backend"])
     torch.cuda.set_device(dev)
-    parallel.init_distributed(backend=cfg["backend"])
+    parallel.init_distributed(backend=cfg["backend"], timeout=GROUP_TIMEOUT)
     torch.backends.cudnn.deterministic = True
     return dev
 
@@ -1647,8 +1681,269 @@ def scaling_rank(cfg: dict) -> None:
     dist.destroy_process_group()
 
 
+# -- phase 5f: row bands across ranks -----------------------------------------
+
+def band_launches(forward_only: bool = False) -> dict:
+    """A rank's launches of one FlowNet2 fp32 forward (``forward_only``) or
+    train step on its band, default warp route: K7 for the correlation and
+    the local-rows K2 and K4."""
+    each = {"correlation_fwd_rows": 1, "resample2d_fwd": 2,
+            "resample2d_fwd_multi": 1}
+    if not forward_only:
+        each.update(correlation_bwd_f1_rows=1, correlation_bwd_f2_rows=1,
+                    resample2d_grad_flow=2, resample2d_grad_flow_multi=1)
+    return each
+
+
+def band_pairs():
+    """Phase 5f's inference batch: BATCH pairs at HEIGHT x WIDTH (pixels in
+    [0, 255)), from a numpy generator seeded with BAND_SEED, so that every
+    rank draws the same."""
+    import numpy as np
+
+    rng = np.random.default_rng(BAND_SEED)
+    return torch.from_numpy(rng.random((BATCH, 2, HEIGHT, WIDTH, 3),
+                                       dtype=np.float32) * 255.0)
+
+
+# the device time of a step's kernels by family, on the band path
+BAND_FAMILIES = (
+    ("NCCL all-gather (halos, f2 and image gathers)",
+     re.compile(r"nccl.*allgather", re.I)),
+    ("NCCL all-reduce (DDP's gradients, the gathers' transposes, the mean)",
+     re.compile(r"nccl.*allreduce", re.I)),
+    ("other NCCL", re.compile(r"nccl", re.I)),
+    ("K7 (correlation rows)", re.compile(r"correlation_")),
+    ("local-rows K2, K4", re.compile(r"resample2d")),
+    ("convolution", CONV),
+    ("other PyTorch kernels", re.compile(r".")),
+)
+
+
+def bands_rank(cfg: dict) -> None:
+    """One rank of phase 5f: FlowNet2 fp32 of the seeded weights as
+    ``cfg["spatial"]`` row bands across ranks (``DataParallelPlan(spatial=
+    ...)``), TF32 off, cuDNN deterministic.  Rank 0 first takes, in one
+    process, the inference of phase 5f's pairs (b BATCH, HEIGHT x WIDTH) and
+    the step gradients of phase 5e's batch (b TRAIN_BATCH, TRAIN_HEIGHT x
+    TRAIN_WIDTH).  Then every rank runs the inference of its band of its
+    stripe (its launches exactly ``band_launches(True)``, no plain-op
+    call); the bands and stripes gathered are within EPE 1e-4 of one
+    process's.  One step of Adam 1e-4 through ``StepFactory(plan=...)`` (its
+    launches exactly ``band_launches()``): the ranks' parameters bit-equal
+    after it (all-gathered digests), the global loss within 1e-5 relative
+    and the gradients per sub-net within DP_GATES of the one-process step's
+    in relative L2; the dispatch log names the process-group compositions.
+    With ``cfg["timed"]`` (NCCL on several cards, or one card without
+    bands, ``cfg["check"]`` False) SCALE_STEPS steps are timed after
+    SCALE_WARMUP with cuDNN's defaults (the slowest rank's ms/step) and
+    PROFILED_STEPS more profiled on rank 0 by kernel family.  Rank 0 writes
+    its readings to ``cfg["out"]``."""
+    import torch.distributed as dist
+
+    from flownet2_tpu_torch import ops, parallel
+    from flownet2_tpu_torch.losses import MultiScale
+    from flownet2_tpu_torch.models import get_model
+    from flownet2_tpu_torch.ops import sharding_hints
+    from flownet2_tpu_torch.train import StepFactory, get_optimizer
+
+    dev = start_rank(cfg)
+    plan = parallel.DataParallelPlan.current(dev, spatial=cfg["spatial"],
+                                             timeout=GROUP_TIMEOUT)
+    rank, world, check = plan.rank, plan.world_size, cfg.get("check", True)
+    tag = f"phase {cfg['part']}, {cfg['what']}"
+    images, target = dp_batch()
+    pairs = band_pairs()
+
+    def stripe(t):
+        n = t.shape[0] // plan.data_size
+        return t[plan.data_rank * n:(plan.data_rank + 1) * n].to(dev)
+
+    img, tgt, pair = stripe(images), stripe(target), stripe(pairs)
+    loss_fn = MultiScale()
+    model = get_model("FlowNet2", device=dev, seed=0)
+    out = {}
+    if rank == 0 and check:
+        model.eval()
+        with torch.inference_mode():
+            want_flow = model(pairs.to(dev)).cpu()
+        model.train()
+        whole = loss_fn(model(images.to(dev)), target.to(dev))[0]
+        whole.backward()
+        single = {n: p.grad.detach().cpu()
+                  for n, p in model.named_parameters()}
+        single_loss = whole.item()
+        model.zero_grad(set_to_none=True)
+        del whole
+        torch.cuda.empty_cache()
+    factory = StepFactory(model, loss_fn, get_optimizer("Adam", 1e-4),
+                          plan=plan)
+    if check:
+        sharding_hints.clear_dispatch_log()
+        ops.reset_counts()
+        flow = factory.infer_step()(pair)
+        torch.cuda.synchronize()
+        infer = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        flow = parallel.all_gather_batch(flow.float(), plan).cpu()
+        if infer != (band_launches(True), {}):
+            raise AssertionError(f"{tag}, rank {rank}: inference launches "
+                                 f"{infer}; expected {band_launches(True)}")
+        ops.reset_counts()
+        metrics = factory.train_step()(img, tgt)
+        torch.cuda.synchronize()
+        stepped = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        if stepped != (band_launches(), {}):
+            raise AssertionError(f"{tag}, rank {rank}: step launches "
+                                 f"{stepped}; expected {band_launches()}")
+        loss1 = float(metrics["loss"])
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in model.named_parameters()}
+        got = [None] * world
+        dist.all_gather_object(got, state_digest(model))
+        if len(set(got)) != 1:
+            raise AssertionError(f"{tag}: after the step the ranks' "
+                                 f"parameters differ: {got}")
+        log = sharding_hints.dispatch_log()
+        want_log = {
+            "correlation": f"process group(spatial={plan.spatial})+halo-slab,"
+                           " kernel=cuda-rows",
+            "resample2d": f"process group(spatial={plan.spatial})"
+                          "+halo-gather, kernel=cuda-rows",
+            "convolution": f"process group(spatial={plan.spatial})+halo rows",
+            "transposed convolution":
+                f"process group(spatial={plan.spatial})+halo rows",
+            "upsample_bilinear":
+                f"process group(spatial={plan.spatial})+halo rows"}
+        if any(log.get(k) != v for k, v in want_log.items()):
+            raise AssertionError(f"{tag}, rank {rank}: dispatch log {log}")
+        out.update(infer_launches=infer[0], step_launches=stepped[0])
+        if rank == 0:
+            epe = float(torch.sqrt(((flow - want_flow) ** 2).sum(-1)).mean())
+            rel = abs(loss1 - single_loss) / abs(single_loss)
+            note(f"  {tag}: inference b{BATCH} {HEIGHT}x{WIDTH}, the bands "
+                 f"and stripes gathered, EPE {epe:.3e} against one process "
+                 f"(largest |flow| {float(want_flow.abs().max()):.2f}); step "
+                 f"b{TRAIN_BATCH} {TRAIN_HEIGHT}x{TRAIN_WIDTH}: parameters "
+                 f"bit-equal on every rank ({got[0][:12]}), loss {loss1:.6f} "
+                 f"against one process's {single_loss:.6f} ({rel:.2e} "
+                 f"relative); launches a rank: forward {infer[0]}, step "
+                 f"{stepped[0]}; dispatch {log}")
+            subnets_close(grads, single, DP_GATES,
+                          f"{tag}, the step's gradients against one process")
+            if not (epe < 1e-4 and rel <= 1e-5):
+                raise AssertionError(f"{tag}: EPE {epe:.3e} (gate 1e-4) or "
+                                     f"loss {rel:.2e} (gate 1e-5) from one "
+                                     "process")
+        del grads
+    if cfg.get("timed"):
+        torch.backends.cudnn.deterministic = False
+        step = factory.train_step()
+        for _ in range(SCALE_WARMUP):
+            step(img, tgt)
+        torch.cuda.synchronize()
+        parallel.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SCALE_STEPS):
+            metrics = step(img, tgt)
+        torch.cuda.synchronize()
+        ms = torch.tensor([(time.perf_counter() - t0) * 1e3 / SCALE_STEPS],
+                          device=dev)
+        dist.all_reduce(ms, op=dist.ReduceOp.MAX)
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{tag}: non-finite loss")
+        out["ms"] = float(ms)
+        lines = []
+
+        def keep(line):
+            lines.append(line)
+
+        def run():
+            for _ in range(PROFILED_STEPS):
+                step(img, tgt)
+        if rank == 0:
+            per_kernel, _ = profile_families(run, PROFILED_STEPS,
+                                             BAND_FAMILIES, cfg["smi"],
+                                             "step", say=keep)
+            totals = {}
+            for key, us in per_kernel.items():
+                fam = next(n for n, rx in BAND_FAMILIES if rx.search(key))
+                totals[fam] = totals.get(fam, 0.0) + us / 1e3 / PROFILED_STEPS
+            out["families_ms"] = totals
+            # where the host's time goes: the ops by their own host time
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                t0 = time.perf_counter()
+                run()
+                host_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+            torch.cuda.synchronize()
+            keep(f"host, profiled: {host_ms:.3f} ms/step; the ops by their "
+                 "own host time a step:")
+            for ev in sorted(prof.key_averages(),
+                             key=lambda e: -e.self_cpu_time_total)[:15]:
+                keep(f"  {ev.self_cpu_time_total / 1e3 / PROFILED_STEPS:9.3f}"
+                     f" ms  {ev.count // PROFILED_STEPS:6d} calls  "
+                     f"{ev.key[:70]}")
+            out["profile"] = lines
+        else:
+            run()
+            run()
+        torch.cuda.synchronize()
+    if rank == 0:
+        Path(cfg["out"]).write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def bands_phase(smi: str) -> dict:
+    """Phase 5f, on the one card: two ranks over gloo with CUDA tensors
+    (NCCL refuses two ranks on one device) as two row bands,
+    ``bands_rank``'s gates.  Returns rank 0's launches."""
+    t_phase = time.perf_counter()
+    print(f"phase 5f: row bands across ranks, FlowNet2 fp32, spatial 2, "
+          "two gloo ranks on one card, TF32 off, cuDNN deterministic")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_5f_"))
+    try:
+        out = work / "f.out"
+        run_task(work, "f", 2, task="bands", backend="gloo", spatial=2,
+                 part="5f", what="2 ranks over gloo on one card",
+                 out=str(out), smi=smi)
+        got = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    note(f"  phase 5f took {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return got
+
+
+def multi_card_bands(smi: str, n_cards: int, work: Path) -> None:
+    """Phase 5f(d), on several cards over NCCL: ``bands_rank``'s gates and
+    timings at spatial 2 on 2 cards and at data 2 x spatial 2 on 4, beside
+    the one-card step of the same batch (no bands) in the same call."""
+    runs = [("one card, no bands", 1, 1, False)]
+    runs += [(f"spatial 2 on 2 cards", 2, 2, True)] if n_cards >= 2 else []
+    runs += [(f"data 2 x spatial 2 on 4 cards", 4, 2, True)] \
+        if n_cards >= 4 else []
+    got = {}
+    for what, world, spatial, check in runs:
+        out = work / f"bands{world}.out"
+        run_task(work, f"bands{world}", world, task="bands", backend="nccl",
+                 spatial=spatial, part="5f(d)", what=what, check=check,
+                 timed=True, out=str(out), smi=smi)
+        got[what] = json.loads(out.read_text())
+    base = got["one card, no bands"]["ms"]
+    for what, r in got.items():
+        note(f"  phase 5f(d), FlowNet2 fp32 train step b{TRAIN_BATCH} "
+             f"{TRAIN_HEIGHT}x{TRAIN_WIDTH} (the global batch), {what}: "
+             f"{r['ms']:.3f} ms/step, {TRAIN_BATCH / r['ms'] * 1e3:.2f} "
+             f"frames/s, {base / r['ms']:.3f}x the one-card step; device "
+             "time a step on rank 0: " + "; ".join(
+                 f"{k} {v:.3f} ms" for k, v in sorted(
+                     r["families_ms"].items(), key=lambda kv: -kv[1]))
+             + f"  [{smi}]")
+        for line in r["profile"]:
+            print(f"    {line}")
+
+
 RANK_TASKS = {"steps": dp_steps_rank, "one_rank": one_rank_task,
-              "scaling": scaling_rank}
+              "scaling": scaling_rank, "bands": bands_rank}
 # the script and arguments torchrun runs as each rank of run_task (the
 # task's configuration file follows)
 RANK_COMMAND = [str(ROOT / "chip_smoke.py"), "--rank-task"]
@@ -1656,7 +1951,7 @@ RANK_COMMAND = [str(ROOT / "chip_smoke.py"), "--rank-task"]
 
 def rank_task(config: str) -> int:
     """``python3 chip_smoke.py --rank-task <config.json>``: one rank of a
-    phase 5e task, started by the phase with torchrun's variables."""
+    phase 5e or 5f task, started by the phase with torchrun's variables."""
     cfg = json.loads(Path(config).read_text())
     sys.path.insert(0, str(ROOT))
     torch.backends.cudnn.allow_tf32 = False
@@ -1686,11 +1981,11 @@ def run_task(work: Path, name: str, world: int, env=None, **cfg) -> None:
          f"--nproc_per_node={world}", *RANK_COMMAND, str(path)],
         env=env).returncode
     if rc != 0:
-        raise AssertionError(f"phase 5e, {name}: a rank exited {rc}")
+        raise AssertionError(f"rank task {name}: a rank exited {rc}")
     # the ranks printed these readings; the summary at the end repeats them
     if summary.exists():
         SUMMARY.extend(summary.read_text().splitlines())
-    print(f"  phase 5e, {name}: {world} rank(s) in "
+    print(f"  rank task {name}: {world} rank(s) in "
           f"{time.perf_counter() - t:.1f} s")
 
 
@@ -1818,7 +2113,8 @@ def kernels_on_device(dev: torch.device) -> dict:
     return dict(ops.LAUNCHES)
 
 
-def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
+def multi_card_cli(smi: str, n_cards: int, work: Path, spatial: int = 1,
+                   wanted=("train SGD", "train Adam", "infer")) -> None:
     """The plain command on every card against the same command on one:
     ``python -m flownet2_tpu_torch.cli`` training FlowNet2 2 epochs from
     FlyingChairs-format files (16 training pairs at 384x512, crops of
@@ -1835,7 +2131,11 @@ def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
     flow written once, within EPE 1e-4 of the one-card run's.  Printed: the Adam run's gaps and, for both
     optimizers, the final parameters' difference between the two runs over
     their displacement from the seeded weights per sub-net.  TF32 off, as
-    everywhere in this script."""
+    everywhere in this script.  With ``spatial`` > 1 the command on every
+    card takes ``--spatial_shards spatial`` (phase 5f(d): it starts
+    data_ranks(batch, cards, spatial) * spatial ranks, each one band) and
+    only the runs in ``wanted`` are made; the one-card runs of an earlier
+    call in ``work`` are reused."""
     import numpy as np
     from PIL import Image
 
@@ -1846,6 +2146,8 @@ def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
     rng = np.random.default_rng(CLI_SEED)
     chairs = work / "chairs"
     for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+        if (chairs / split).exists():   # written by an earlier call
+            continue
         (chairs / split).mkdir(parents=True)
         for i in range(n):
             for j in (1, 2):
@@ -1880,11 +2182,17 @@ def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
     # convolutions, which cuDNN picks by batch size, differ by ~1e-3
     every = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
     one = dict(every, CUDA_VISIBLE_DEVICES=FIRST_CARD)
-    many = f"{n_cards} cards"
+    many = f"{n_cards} cards" + (f", --spatial_shards {spatial}"
+                                 if spatial > 1 else "")
+    bands = ["--spatial_shards", str(spatial)] if spatial > 1 else []
+    phase = "5e(d)" if spatial == 1 else "5f(d)"
     seconds = {}
     for label, env in (("one card", one), (many, every)):
-        for what, argv in runs.items():
+        for what in wanted:
             save = work / label / what
+            if save.exists():           # the one-card run of an earlier call
+                continue
+            argv = runs[what] + (bands if label == many else [])
             t = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", "flownet2_tpu_torch.cli", *argv,
@@ -1893,13 +2201,17 @@ def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
             seconds[label, what] = time.perf_counter() - t
             if proc.returncode != 0:
                 raise AssertionError(
-                    f"phase 5e(d), cli {what} on {label}: exit "
+                    f"phase {phase}, cli {what} on {label}: exit "
                     f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
                     f"{proc.stderr[-4000:]}")
             started = "starting " in proc.stderr
             if started != (label != "one card"):
-                raise AssertionError(f"phase 5e(d), cli {what} on {label}: "
+                raise AssertionError(f"phase {phase}, cli {what} on {label}: "
                                      f"started ranks {started}")
+            if label == many:
+                print(f"  phase {phase}, cli {what} on {label}: "
+                      + " ".join(line for line in proc.stderr.splitlines()
+                                 if line.startswith("starting ")))
 
     def records(label, what):
         with open(work / label / what / "run.metrics.jsonl") as f:
@@ -1932,7 +2244,7 @@ def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
     want_steps = [(0, "val"), (1, "train"), (2, "train"), (2, "val"),
                   (3, "train"), (4, "train")]
     ok = True
-    for what in ("train SGD", "train Adam"):
+    for what in (w for w in ("train SGD", "train Adam") if w in wanted):
         ra, rb = records("one card", what), records(many, what)
         rel = [abs(b[2] - a[2]) / abs(a[2]) for a, b in zip(ra, rb)]
         # the validation loss after two updates: what they moved it on one
@@ -1940,7 +2252,7 @@ def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
         moved = abs(ra[3][2] - ra[0][2]) / abs(ra[0][2])
         share = abs(rb[3][2] - ra[3][2]) / max(abs(ra[3][2] - ra[0][2]),
                                                 1e-30)
-        note(f"  phase 5e(d), the plain command on {n_cards} cards (it "
+        note(f"  phase {phase}, the plain command on {many} (it "
              f"started its ranks) against one card, {what}: records "
              f"{[(s, sp) for s, sp, _ in rb]}, losses "
              + ", ".join(f"{s} {sp} {b:.6f}/{a[2]:.6f} ({r:.2e})"
@@ -1956,7 +2268,7 @@ def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
     (names_a, fa), (names_b, fb) = flows("one card"), flows(many)
     epe = [float(np.sqrt(((a - b) ** 2).sum(-1)).mean())
            for a, b in zip(fa, fb)]
-    note(f"  phase 5e(d), the plain command on {n_cards} cards, --inference "
+    note(f"  phase {phase}, the plain command on {many}, --inference "
          f"--save_flow of the seeded weights: {len(names_b)} flows written "
          f"once, EPE against one card's at most {max(epe):.3e}; seconds "
          + ", ".join(f"{w} on {lab} {sec:.1f}"
@@ -1964,8 +2276,8 @@ def multi_card_cli(smi: str, n_cards: int, work: Path) -> None:
     if not (ok and names_a == names_b == [f"{i:06d}.flo"
                                           for i in range(CLI_VAL)]
             and max(epe) < 1e-4):
-        raise AssertionError("phase 5e(d): the command line on every card "
-                             "differs from one card's")
+        raise AssertionError(f"phase {phase}: the command line on every "
+                             "card differs from one card's")
 
 
 def multi_card_main() -> int:
@@ -1973,7 +2285,10 @@ def multi_card_main() -> int:
     the environment lists (more than one): the cards and their links, the
     build, each kernel against its plain version on every card, phase 5e's
     step gates over NCCL on 2 and on 4 cards, the plain command line
-    starting its ranks, the all-reduce alone and the weak-scaling table."""
+    starting its ranks, the all-reduce alone and the weak-scaling table;
+    then phase 5f(d), the row bands across cards.  With ``--spatial``
+    (``--data-parallel --spatial``) only the cards, the build and phase
+    5f(d)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2014,14 +2329,16 @@ def multi_card_main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    spatial_only = "--spatial" in sys.argv[2:]
     print(f"phase 5e(d): data parallel on {n_cards} cards")
-    for k in range(n_cards):
+    for k in range(0 if spatial_only else n_cards):
         launches = kernels_on_device(torch.device("cuda", k))
         note(f"  phase 5e(d), cuda:{k}: every main-path kernel against its "
              f"plain version, f32 and bf16; launches {launches}")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_5e_"))
+    cli_failure = None
     try:
-        for world in (2, 4):
+        for world in () if spatial_only else (2, 4):
             if world <= n_cards:
                 run_task(work, f"steps{world}", world, task="steps",
                          backend="nccl", part="(d)",
@@ -2029,12 +2346,12 @@ def multi_card_main() -> int:
         # a failed command-line gate fails the run after the scaling table,
         # so that one run on several cards reads everything
         try:
-            multi_card_cli(smi, n_cards, work)
-            cli_failure = None
+            if not spatial_only:
+                multi_card_cli(smi, n_cards, work)
         except AssertionError as e:
             cli_failure = e
         times = {}
-        for world in (1, 2, 4):
+        for world in () if spatial_only else (1, 2, 4):
             if world <= n_cards:
                 out = work / f"scaling{world}.out"
                 run_task(work, f"scaling{world}", world, task="scaling",
@@ -2049,7 +2366,7 @@ def multi_card_main() -> int:
             note(f"  phase 5e(d), all-reduce of {FLOWNET2_PARAMS} float32 "
                  f"(a step's gradients) over NCCL on {n} card(s): {ms:.3f} "
                  f"ms, bus bandwidth {bus:.1f} GB/s  [{smi}]")
-        for dtype in ("float32", "bfloat16"):
+        for dtype in ("float32", "bfloat16") if times else ():
             base = times[1][dtype]
             note(f"  phase 5e(d), weak scaling, FlowNet2 {dtype} train step, "
                  f"{TRAIN_BATCH} pairs a card, {TRAIN_HEIGHT}x{TRAIN_WIDTH}, "
@@ -2058,6 +2375,16 @@ def multi_card_main() -> int:
                      f"{n * TRAIN_BATCH / t[dtype] * 1e3:.2f} frames/s, "
                      f"efficiency {base / t[dtype]:.4f}"
                      for n, t in times.items()) + f"  [{smi}]")
+
+        # phase 5f(d): row bands across cards
+        print(f"phase 5f(d): row bands across {n_cards} cards")
+        multi_card_bands(smi, n_cards, work)
+        if n_cards >= 4:
+            try:
+                multi_card_cli(smi, n_cards, work, spatial=2,
+                               wanted=("train SGD", "infer"))
+            except AssertionError as e:
+                cli_failure = cli_failure or e
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print("summary of the timed phases:")
@@ -3415,6 +3742,11 @@ def main() -> int:
     finally:
         shutil.rmtree(cli_work, ignore_errors=True)
 
+    # -- 5f. row bands across ranks, in fresh processes ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    band_ranks = bands_phase(smi)
+
     # -- 6. kernel times ------------------------------------------------------
     print("phase 6: kernel times at the main-path shapes")
     rows = []
@@ -3712,6 +4044,10 @@ def main() -> int:
                 "launches": count, "max_abs_err": max(errs[name]),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": l_ms, **extra})
+            if name in band_ranks["step_launches"]:
+                # per rank, one step of phase 5f's bands across ranks
+                kernels[-1]["launches_bands_across_ranks"] = \
+                    band_ranks["step_launches"][name]
         del sampled, grid_leaf, sampled2, grid_leaf2
         by_name = {k["name"]: k for k in kernels}
 

@@ -17,7 +17,17 @@ torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``; a named ``cuda:K`` raises
 there).  ``--device cpu`` and a named ``cuda:K`` never start ranks.
 ``--batch_size`` is the global batch; each rank reads its stripe.
-``--spatial_shards`` splits the rows on each rank's own card.
+
+``--spatial_shards S`` splits the rows in S bands.  Where a process group
+holds a multiple of S ranks, the bands span ranks, as the JAX command
+line's (data, spatial) mesh spans devices: the ranks are laid out (ranks /
+S, S), each holds one band of its data rank's stripe and exchanges its
+halos with the others (``parallel.DataParallelPlan(spatial=S)``), and the
+plain command on a machine of S cards or more starts
+``parallel.data_ranks(batch, cards, S) * S`` ranks.  In one process, or on
+fewer cards than S, the bands run in turn on the process's own device.  A
+frame height whose bands would not be whole multiples of 64 rows raises
+before the first step.
 
 Examples:
 
@@ -184,8 +194,11 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
                    help="capture a torch.profiler Chrome trace over N early "
                         "train steps into <save>/profile")
     p.add_argument("--spatial_shards", type=int, default=1,
-                   help="row bands of the correlation and the warps (H "
-                        "split), on each rank's own device")
+                   help="row bands (H split): across ranks where the "
+                        "command runs as a multiple of S ranks (each rank "
+                        "one band; H/S a multiple of 64), else the "
+                        "correlation and the warps in turn on the one "
+                        "device")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--skip_training", action="store_true")
 
@@ -261,17 +274,37 @@ def _inference_batch(args: argparse.Namespace) -> int:
 def _ranks_to_start(args: argparse.Namespace) -> int:
     """How many ranks the command starts itself: with ``--device cuda``,
     outside torchrun's environment, on a machine with more than one card,
-    the JAX command line's data-axis size for the batches of the run;
-    otherwise 1 (this process is the run, or its rank)."""
+    the JAX command line's data-axis size for the batches of the run, times
+    ``--spatial_shards`` where the cards hold that many bands; otherwise 1
+    (this process is the run, or its rank)."""
     import torch
 
     from ..parallel import ENV_VARS, data_ranks
 
+    cards = torch.cuda.device_count()
     if (args.device != "cuda" or any(v in os.environ for v in ENV_VARS)
-            or torch.cuda.device_count() < 2):
+            or cards < 2):
         return 1
-    return data_ranks(math.gcd(args.batch_size, _inference_batch(args)),
-                      torch.cuda.device_count())
+    batch = math.gcd(args.batch_size, _inference_batch(args))
+    spatial = args.spatial_shards
+    if spatial > 1 and cards >= spatial:
+        return data_ranks(batch, cards, spatial) * spatial
+    return data_ranks(batch, cards)
+
+
+def _bands_span_ranks(args: argparse.Namespace) -> bool:
+    """Whether the row bands span the ranks: a process group of a multiple
+    of ``--spatial_shards`` (> 1) ranks."""
+    from ..parallel import is_distributed, world_size
+
+    return (args.spatial_shards > 1 and is_distributed()
+            and world_size() % args.spatial_shards == 0)
+
+
+def _frame_height(ds) -> int:
+    """The height of the frames a dataset gives: its crop or its render
+    size."""
+    return ds.crop_size[0] if ds.is_cropped else ds.render_size[0]
 
 
 def _start_ranks(n_ranks: int, argv) -> int:
@@ -327,16 +360,20 @@ def main(argv=None) -> int:
             record["git_hash"] = _git_hash()
             with open(os.path.join(args.save, "args.json"), "w") as f:
                 json.dump(record, f, indent=2, default=str)
-        # --spatial_shards N: the correlation and the warps run as N row
-        # bands, for this run only
-        with scoped_spatial_shards(args.spatial_shards):
-            return _run(args, dev)
+        # --spatial_shards N on one process: the correlation and the warps
+        # run as N row bands in turn, for this run only; across ranks the
+        # plan holds the bands
+        across = _bands_span_ranks(args)
+        with scoped_spatial_shards(1 if across else args.spatial_shards):
+            return _run(args, dev, args.spatial_shards if across else 1)
     finally:
         if started:
             dist.destroy_process_group()
 
 
-def _run(args: argparse.Namespace, dev) -> int:
+def _run(args: argparse.Namespace, dev, spatial: int = 1) -> int:
+    """The run of this process: ``spatial`` row bands across the ranks of
+    its process group (1: none)."""
     import torch
 
     from ..checkpoints import load_checkpoint, restore_checkpoint
@@ -349,8 +386,10 @@ def _run(args: argparse.Namespace, dev) -> int:
                          get_optimizer)
     from ..utils import TimerBlock
 
-    plan = DataParallelPlan.current(dev) if is_distributed() else None
-    world, rank = (plan.world_size, plan.rank) if plan else (1, 0)
+    plan = (DataParallelPlan.current(dev, spatial=spatial)
+            if is_distributed() else None)
+    # the loader's stripes: one a data rank
+    world, rank = (plan.data_size, plan.data_rank) if plan else (1, 0)
     with TimerBlock("Building model") as block:
         dtype = torch.bfloat16 if args.precision == "bf16" else None
         model = get_model(args.model, device=dev, seed=args.seed,
@@ -374,7 +413,8 @@ def _run(args: argparse.Namespace, dev) -> int:
                               loss_scale=args.fp16_scale if fp16 else 1.0,
                               skip_nonfinite_updates=fp16, plan=plan)
         block.log(f"model={args.model} loss={args.loss} device={dev} "
-                  f"world_size={world} rank={rank} "
+                  f"world_size={plan.world_size if plan else 1} "
+                  f"rank={plan.rank if plan else 0} data ranks={world} "
                   f"precision={args.precision} "
                   f"spatial_shards={args.spatial_shards}")
 
@@ -406,6 +446,10 @@ def _run(args: argparse.Namespace, dev) -> int:
                        ("infer", infer_ds)):
             if ds is not None:
                 block.log(f"{nm}: {len(ds)} samples, render {ds.render_size}")
+                if plan is not None and plan.spatial > 1:
+                    # a height the bands cannot split raises here, before
+                    # the first step
+                    plan.band_rows(_frame_height(ds))
     if (infer_ds or val_ds or train_ds) is None:
         print("no dataset given — nothing to do", file=sys.stderr)
         return 2

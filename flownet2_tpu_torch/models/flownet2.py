@@ -33,8 +33,10 @@ import torch
 from torch import nn
 
 from ..nn.layers import compute_dtype, set_compute_dtype
+from ..ops import sharding_hints
 from ..ops.stage_glue import fusion_glue, stage_glue
 from ..ops.upsample import upsample_bilinear, upsample_nearest
+from ..parallel.halo import mean_over_bands
 from .flownet_c import FlowNetC
 from .flownet_s import FlowNetS
 from .flownet_sd import FlowNetFusion, FlowNetSD
@@ -45,7 +47,10 @@ def normalize_pair(inputs: torch.Tensor, rgb_max: float,
     """Reference input normalisation: subtract the pair's per-channel mean
     and divide by ``rgb_max``, in float32.
 
-    inputs: (B, 2, H, W, 3) RGB, H and W multiples of 64.
+    inputs: (B, 2, H, W, 3) RGB, H and W multiples of 64.  Under a band
+    context ``inputs`` is this process's band of the rows, H/S rows (a
+    multiple of 64), and the mean is the whole frame's: the band's,
+    averaged over the bands.
     Returns (x1, x2), two (B, 3, H, W) frames, float32 or cast once to
     ``dtype`` (the bf16 model's one cast: everything after it, the glue and
     the warps included, runs in that dtype, as in the JAX package).
@@ -53,13 +58,21 @@ def normalize_pair(inputs: torch.Tensor, rgb_max: float,
     if inputs.dim() != 5 or inputs.shape[1] != 2 or inputs.shape[-1] != 3:
         raise ValueError(f"expected frame pairs shaped (B, 2, H, W, 3), got "
                          f"{tuple(inputs.shape)}")
+    band = sharding_hints.band()
     h, w = inputs.shape[2], inputs.shape[3]
+    if band is not None:
+        h *= band.size
     if h % 64 or w % 64:
         # without it the encoder/decoder skip connections misalign
         raise ValueError(f"input H, W must be multiples of 64 (got {h}x{w}); "
                          "crop or resize the frames")
     inputs = inputs.float()
-    rgb_mean = inputs.mean(dim=(2, 3), keepdim=True).mean(dim=1, keepdim=True)
+    rgb_mean = inputs.mean(dim=(2, 3), keepdim=True)
+    if band is not None:
+        # equal bands: the mean of the bands' means is the frame's
+        sharding_hints.check_band_height(h, band.size)
+        rgb_mean = mean_over_bands(rgb_mean, band)
+    rgb_mean = rgb_mean.mean(dim=1, keepdim=True)
     x = (inputs - rgb_mean) / rgb_max
     if dtype is not None:
         x = x.to(dtype)

@@ -21,6 +21,13 @@ makes every convolution cast its input, weight and bias to bfloat16 at
 each call, so the output and the LeakyReLU after it are bfloat16.  One
 state_dict serves both.  BatchNorm has no bfloat16 form yet.
 
+Under a band context (``ops.sharding_hints.scoped_band``, which
+``parallel.DataParallelPlan.band_context()`` enters) each process holds a
+band of the rows: ``Conv2d`` and ``ConvTranspose2d`` then fetch the halo
+rows their kernel, stride and padding need from the neighbouring bands
+(``parallel.halo_rows``, zero rows beyond the image), pad the width alone
+and convolve, so that each band's output is its rows of the whole map's.
+
 ``BatchNorm2d`` is ``nn.BatchNorm2d`` under the same keys; with
 ``global_batch`` set (``set_global_batch_norm``, which ``StepFactory`` calls
 under a ``DataParallelPlan``) it normalises by the statistics of the whole
@@ -35,6 +42,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import sharding_hints
+from ..parallel.halo import halo_rows
 from ..parallel.mesh import sum_over_ranks
 
 LEAKY_SLOPE = 0.1
@@ -44,30 +53,78 @@ def _cast(t: torch.Tensor | None, dtype: torch.dtype | None):
     return t if t is None or dtype is None else t.to(dtype)
 
 
+def _band_config(module: nn.Module, x: torch.Tensor, what: str):
+    """(kernel rows, stride, padding rows) of ``module`` on a band ``x``."""
+    (k, _), (s, _), (p, _) = (module.kernel_size, module.stride,
+                              module.padding)
+    if module.dilation[0] != 1 or module.padding_mode != "zeros":
+        raise NotImplementedError(f"{what} on row bands: dilation 1 and zero "
+                                  "padding only")
+    if what == "Conv2d" and x.shape[2] % s:
+        raise ValueError(f"{what} of stride {s} on a band of {x.shape[2]} "
+                         "rows")
+    return k, s, p
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose forward casts the input and its float32
-    parameters to ``compute_dtype`` (None: no cast)."""
+    parameters to ``compute_dtype`` (None: no cast).  Under a band context
+    output row ``o`` reads input rows ``[o*s - p, o*s - p + k)``: a band of
+    ``h`` rows takes ``p`` rows from the band above and ``k - s - p`` from
+    the band below (7x7 s2 p3: 3 and 2; 5x5 s2 p2: 2 and 1; 3x3 s1 p1: 1
+    and 1), and gives its ``h / s`` output rows."""
 
     compute_dtype: torch.dtype | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return self._conv_forward(_cast(x, dt), _cast(self.weight, dt),
-                                  _cast(self.bias, dt))
+        x, w, b = _cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt)
+        band = sharding_hints.band()
+        if band is None:
+            return self._conv_forward(x, w, b)
+        k, s, p = _band_config(self, x, "Conv2d")
+        bottom = k - s - p
+        x = halo_rows(x, p, max(bottom, 0), band)
+        if bottom < 0:
+            x = x[:, :, :bottom]
+        sharding_hints.record_dispatch(
+            "convolution", f"process group(spatial={band.size})+halo rows")
+        return F.conv2d(x, w, b, self.stride, (0, self.padding[1]),
+                        self.dilation, self.groups)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` (without ``output_size``) whose forward casts
-    like ``Conv2d``'s."""
+    like ``Conv2d``'s.  Under a band context output row ``o`` takes input
+    rows ``i`` with ``o + p - i*s`` in ``[0, k)``: a band of ``h`` rows
+    takes ``(k - 1 - p) // s`` rows from the band above and ``(p + s - 1)
+    // s`` from the band below (4x4 s2 p1: 1 and 1), is convolved without
+    padding in H and cropped to its ``s * h`` output rows."""
 
     compute_dtype: torch.dtype | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv_transpose2d(
-            _cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt),
-            self.stride, self.padding, self.output_padding, self.groups,
-            self.dilation)
+        x, w, b = _cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt)
+        band = sharding_hints.band()
+        if band is None:
+            return F.conv_transpose2d(
+                x, w, b, self.stride, self.padding, self.output_padding,
+                self.groups, self.dilation)
+        k, s, p = _band_config(self, x, "ConvTranspose2d")
+        if self.output_padding[0]:
+            raise NotImplementedError("ConvTranspose2d on row bands: no "
+                                      "output padding in H")
+        top, height = (k - 1 - p) // s, x.shape[2]
+        x = halo_rows(x, top, (p + s - 1) // s, band)
+        sharding_hints.record_dispatch(
+            "transposed convolution",
+            f"process group(spatial={band.size})+halo rows")
+        out = F.conv_transpose2d(
+            x, w, b, self.stride, (0, self.padding[1]),
+            (0, self.output_padding[1]), self.groups, self.dilation)
+        first = top * s + p
+        return out[:, :, first:first + s * height]
 
 
 class BatchNorm2d(nn.BatchNorm2d):

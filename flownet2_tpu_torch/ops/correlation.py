@@ -32,8 +32,9 @@ Other configurations run the plain forward under autograd (CPU only).
 Layout: NCHW in, ``(B, D*D, out_h, out_w)`` out.  A CPU tensor takes the
 plain versions; a CUDA tensor launches the kernels (K 1, s1 1,
 pad == maxd; float32, or bfloat16 with bfloat16 outputs) or raises.  With
-``sharding_hints.spatial_shards() > 1`` that configuration runs as row
-bands against halo slabs of f2 (``ops/correlation_spatial.py``).
+``sharding_hints.spatial_shards() > 1``, or under a band context across
+processes, that configuration runs as row bands against halo slabs of f2
+(``ops/correlation_spatial.py``); other configurations have no band form.
 """
 
 from __future__ import annotations
@@ -290,6 +291,11 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
     del corr_multiply
     if _kernel_config(pad_size, kernel_size, max_displacement, stride1,
                       stride2):
+        band = sharding_hints.band()
+        if band is not None:
+            from .correlation_spatial import band_wrapper
+
+            return band_wrapper(f1, f2, max_displacement, stride2, band)
         if sharding_hints.spatial_shards() > 1:
             from .correlation_spatial import spatial_wrapper
 
@@ -300,6 +306,9 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
             "correlation", "whole map, kernel="
             + ("plain" if _cuda.on_cpu(f1) else "cuda"))
         return _Correlation.apply(f1, f2, max_displacement, stride2)
+    if sharding_hints.band() is not None:
+        raise NotImplementedError("correlation on row bands: K 1, s1 1 and "
+                                  "pad == max_displacement only")
     if _cuda.on_cpu(f1):
         return correlation_plain(f1, f2, pad_size, kernel_size,
                                  max_displacement, stride1, stride2)

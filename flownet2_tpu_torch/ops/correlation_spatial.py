@@ -35,6 +35,14 @@ its transpose, which sums the bands' slab gradients into the padded array
 and crops it, is autograd of the slicing and the pad.  The forward and
 d_f1 are bit-equal to the whole-map op (the same sums in the same order);
 d_f2 differs by the one extra add per halo row.
+
+Across processes (a band context, ``sharding_hints.scoped_band``) each rank
+holds one band of f1 and of f2, as the JAX package's shards do:
+``band_wrapper`` gathers f2 over the band's group (``parallel.gather_rows``),
+pads it by maxd rows, cuts this band's slab and runs ``corr_slab`` on the
+local rows (JAX ``correlation_spatial.py`` ``spatial_wrapper``'s body).
+Its backward is K7's d_f1, local, and d_slab, whose transpose goes home
+through the gather's reduce-scatter.
 """
 
 from __future__ import annotations
@@ -217,6 +225,28 @@ def corr_slab(f1: torch.Tensor, slab: torch.Tensor, max_displacement: int = 20,
     against its halo slab (B, C, Hloc + 2*maxd, W), differentiable in
     both."""
     return _CorrSlab.apply(f1, slab, max_displacement, stride2)
+
+
+def band_wrapper(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int,
+                 stride2: int, band) -> torch.Tensor:
+    """The K 1, s1 1, pad == maxd cost volume of this process's band of
+    ``f1`` and ``f2`` (B, C, Hloc, W): band ``band.index`` of the whole
+    map's, against a slab of the f2 gathered over ``band.group``."""
+    from ..parallel.halo import gather_rows
+
+    if max_displacement % stride2 or f1.shape != f2.shape:
+        raise ValueError(f"correlation on row bands: max_displacement "
+                         f"{max_displacement} over stride2 {stride2}, f1 "
+                         f"{tuple(f1.shape)}, f2 {tuple(f2.shape)}")
+    maxd, local_h = max_displacement, f1.shape[2]
+    off = band.index * local_h
+    sharding_hints.record_dispatch(
+        "correlation", f"process group(spatial={band.size})+halo-slab, "
+        "kernel=" + ("plain" if _cuda.on_cpu(f1) else "cuda-rows"))
+    f2p = F.pad(gather_rows(f2, band), (0, 0, maxd, maxd))
+    return corr_slab(f1.contiguous(),
+                     f2p[:, :, off:off + local_h + 2 * maxd].contiguous(),
+                     maxd, stride2)
 
 
 def spatial_wrapper(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int,

@@ -50,8 +50,9 @@ A CPU tensor takes the plain PyTorch versions.  A CUDA tensor launches the
 kernels (bilinear, K=1; float32, or a bfloat16 image, flow and cotangent,
 over the whole image or its local rows) or raises; no tensor is cast to
 run a kernel of another type.  With
-``sharding_hints.spatial_shards() > 1`` the three differentiable entry
-points run as row bands (``ops/resample2d_spatial.py``).
+``sharding_hints.spatial_shards() > 1``, or under a band context across
+processes, the three differentiable entry points run as row bands
+(``ops/resample2d_spatial.py``); other warps have no band form.
 """
 
 from __future__ import annotations
@@ -459,6 +460,11 @@ def _warp(img: torch.Tensor, flows: torch.Tensor,
     """The differentiable bilinear K=1 warp of F flows, by the generic or
     the tangent route: as row bands where ``sharding_hints`` asks for them
     and the composition takes the shapes, else over the whole image."""
+    band = sharding_hints.band()
+    if band is not None:
+        from .resample2d_spatial import band_wrapper
+
+        return band_wrapper(img, flows, tangents, band)
     if sharding_hints.spatial_shards() > 1:
         from .resample2d_spatial import spatial_wrapper
 
@@ -476,6 +482,9 @@ def resample2d(img: torch.Tensor, flow: torch.Tensor, kernel_size: int = 1,
     """Backward-warp ``img`` (B, C, H, W) by ``flow`` (B, 2, H, W)."""
     if bilinear and kernel_size == 1:
         return _warp(img, flow.unsqueeze(1), False).squeeze(1)
+    if sharding_hints.band() is not None:
+        raise NotImplementedError("resample2d on row bands: bilinear, "
+                                  "kernel_size 1 only")
     if _cuda.on_cpu(img):
         return resample2d_plain(img, flow, kernel_size, bilinear)
     return resample2d_cuda(img, flow, kernel_size, bilinear)

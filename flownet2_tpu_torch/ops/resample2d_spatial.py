@@ -14,6 +14,13 @@ whole-image call.
 The flow gradient stays with its band.  The image gradient of a band is
 the plain scatter-add of its taps into the full-height image, and autograd
 sums the bands' images: the transpose of the gather.
+
+Across processes (a band context, ``sharding_hints.scoped_band``) each rank
+holds one band of the image and of the flows: ``band_wrapper`` gathers the
+image over the band's group (``parallel.gather_rows``) and warps its own
+flow rows at the band's offset through ``warp_rows``, one launch for the F
+flows (JAX ``resample2d_spatial.py`` ``spatial_wrapper``'s body); the
+image gradient goes home through the gather's reduce-scatter.
 """
 
 from __future__ import annotations
@@ -31,6 +38,23 @@ def warp_rows(img: torch.Tensor, flows_loc: torch.Tensor, off: int,
     (B, F, 2, Ho, W) -> (B, F, C, Ho, W); differentiable in both, by the
     generic route (K2, K4) or the tangent route (K3)."""
     return (_WarpTangents if tangents else _Warp).apply(img, flows_loc, off)
+
+
+def band_wrapper(img: torch.Tensor, flows: torch.Tensor, tangents: bool,
+                 band) -> torch.Tensor:
+    """The warp of this process's band of ``img`` (B, C, Hloc, W) by its
+    band of ``flows`` (B, F, 2, Hloc, W): band ``band.index`` of the whole
+    image's warp, over the image gathered over ``band.group``."""
+    from ..parallel.halo import gather_rows
+
+    if flows.shape[3] != img.shape[2]:
+        raise ValueError(f"warp on row bands: image {tuple(img.shape)}, "
+                         f"flows {tuple(flows.shape)}")
+    sharding_hints.record_dispatch(
+        "resample2d", f"process group(spatial={band.size})+halo-gather, "
+        "kernel=" + ("plain" if _cuda.on_cpu(img) else "cuda-rows"))
+    return warp_rows(gather_rows(img, band), flows.contiguous(),
+                     band.index * img.shape[2], tangents)
 
 
 def spatial_wrapper(img: torch.Tensor, flows: torch.Tensor,

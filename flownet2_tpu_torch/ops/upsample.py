@@ -11,6 +11,13 @@ order (``upsample_bilinear2d_backward_out_cuda``), so two backward passes
 over one forward give gradients that differ in their last bits.  The
 backward here is a fixed sum of gathered taps, the same bits on every
 run.
+
+Under a band context (``sharding_hints.scoped_band``) the bilinear upsample
+of a band takes one low-resolution row from each neighbouring band
+(``parallel.halo_rows``), or repeats its own edge row at the image's top
+and bottom, where ``F.interpolate`` clamps; it interpolates that and crops
+its ``scale * h`` rows.  Its backward is the same fixed sum, then the
+halo's transpose.  The nearest upsample and the pooling are row-local.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from . import sharding_hints
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,7 +94,22 @@ def upsample_bilinear(x: torch.Tensor, scale: int = 4) -> torch.Tensor:
     if int(scale) != scale or scale < 1:
         raise ValueError(f"upsample_bilinear: scale {scale} is not a "
                          "positive integer")
-    return _UpsampleBilinear.apply(x, int(scale))
+    scale = int(scale)
+    band = sharding_hints.band()
+    if band is None:
+        return _UpsampleBilinear.apply(x, scale)
+    from ..parallel.halo import halo_rows
+
+    # output rows [s*a, s*(a + h)) read source rows a - 1 .. a + h
+    height = x.shape[2]
+    x = halo_rows(x, 1, 1, band)
+    if band.index == 0:
+        x = torch.cat([x[:, :, 1:2], x[:, :, 1:]], dim=2)
+    if band.index == band.size - 1:
+        x = torch.cat([x[:, :, :-1], x[:, :, -2:-1]], dim=2)
+    sharding_hints.record_dispatch(
+        "upsample_bilinear", f"process group(spatial={band.size})+halo rows")
+    return _UpsampleBilinear.apply(x, scale)[:, :, scale:scale * (height + 1)]
 
 
 def upsample_nearest(x: torch.Tensor, scale: int = 4) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""Data parallel over several devices: one process a rank, gradients
-all-reduced by ``DistributedDataParallel`` (the counterpart of
+"""Data and spatial parallel over several devices: one process a rank,
+gradients all-reduced by ``DistributedDataParallel``, the height split in
+row bands whose halos the ranks exchange (the counterpart of
 flownet2_tpu/parallel)."""
 
+from .halo import gather_rows, halo_rows, mean_over_bands  # noqa: F401
 from .mesh import (  # noqa: F401
     ENV_VARS,
     DataParallelPlan,

@@ -25,10 +25,25 @@ same gradients; BatchNorm takes the global batch's statistics
 global batch's means, and the eval and infer-metrics sums are the global
 batch's, each rank masking the padding of its own stripe.  Each step's
 batch is the rank's stripe of the global batch.
+
+With row bands across ranks (a plan with ``spatial`` S > 1) each step takes
+its data rank's stripe at full height, cuts this rank's band of the rows
+(``plan.band_rows``, which raises unless H / S is a multiple of 64) and runs
+the model and the loss under ``plan.band_context()``.  The bands are equal,
+so each rank's loss, a mean over its band's rows, is one S-th of its
+stripe's share of the global loss, and DDP's mean of the D * S ranks'
+gradients is the global batch's gradient: the halo exchanges send each
+band's gradient home within the backward (tests/test_torch_spatial_ranks.py
+holds it against one process and against the JAX package's step on one
+device and on its (1, 2) mesh).  The per-sample metric sums take each
+sample's mean over its bands (the rank's per-sample means over S, summed
+over the group) and count each sample once; ``infer_step`` returns the
+rank's band of the flow.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -73,6 +88,19 @@ class StepFactory:
             self.net = DistributedDataParallel(
                 self.model, device_ids=[dev] if dev.type == "cuda" else None)
 
+    def _band(self, images: torch.Tensor, flow: Optional[torch.Tensor] = None):
+        """This rank's band of the rows of ``images`` (B, 2, H, W, 3) and
+        ``flow`` (B, H, W, 2) under a plan with row bands; else them."""
+        if self.plan is None or self.plan.spatial == 1:
+            return images, flow
+        rows = self.plan.band_rows(images.shape[2])
+        return images[:, :, rows], None if flow is None else flow[:, rows]
+
+    def _context(self):
+        """The band context the model runs in (none without row bands)."""
+        return (contextlib.nullcontext() if self.plan is None
+                else self.plan.band_context())
+
     def _global_mean(self, *values: torch.Tensor) -> torch.Tensor:
         """The values stacked and, under a plan, averaged over the ranks."""
         out = torch.stack([v.detach().float() for v in values])
@@ -83,7 +111,9 @@ class StepFactory:
     def _train_step(self, images: torch.Tensor, flow: torch.Tensor):
         self.net.train()
         self.optimizer.zero_grad()
-        lossvalue, epevalue = self.loss_fn(self.net(images), flow)
+        images, flow = self._band(images, flow)
+        with self._context():
+            lossvalue, epevalue = self.loss_fn(self.net(images), flow)
         (lossvalue * self.loss_scale).backward()
         grads = self.optimizer.grads()
         if self.loss_scale != 1.0:
@@ -100,16 +130,20 @@ class StepFactory:
     def train_step(self) -> Callable:
         """``(images (B, 2, H, W, 3), flow (B, H, W, 2)) -> {"loss",
         "epe"}``, one optimizer step; the gradients stay in ``.grad``.
-        Under a plan the batch is this rank's stripe and the metrics are
-        the global batch's."""
+        Under a plan the batch is this rank's stripe (at full height) and
+        the metrics are the global batch's."""
         return self._train_step
 
     def _metric_sums(self, pred, flow, n_valid: int):
         """Per-sample sums over the first ``n_valid`` samples: a padded
         tail batch must not count its padding.  Under a plan ``n_valid``
         counts the global batch, this rank masks its own stripe, and the
-        sums are the global batch's."""
+        sums are the global batch's; with row bands ``pred`` and ``flow``
+        are this rank's band, and a sample's mean is its bands' mean."""
         loss_ps, epe_ps = self.loss_fn.per_sample(pred, flow)
+        if self.plan is not None and self.plan.spatial > 1:
+            loss_ps, epe_ps = (t / self.plan.spatial for t in (loss_ps,
+                                                               epe_ps))
         local = loss_ps.shape[0]
         valid = (n_valid if self.plan is None
                  else self.plan.valid_in_stripe(n_valid, local))
@@ -132,18 +166,20 @@ class StepFactory:
 
     def _infer(self, images: torch.Tensor):
         self.model.eval()
-        with torch.inference_mode():
+        images, _ = self._band(images)
+        with torch.inference_mode(), self._context():
             return self.model(images)
 
     def infer_step(self) -> Callable:
         """``images -> flow`` in ``eval()`` mode, without gradients: flow
-        only, no targets."""
+        only, no targets.  With row bands, this rank's band of it."""
         return self._infer
 
     def _infer_metrics(self, images: torch.Tensor, flow: torch.Tensor,
                        n_valid: int):
         self.model.eval()
-        with torch.inference_mode():
+        images, flow = self._band(images, flow)
+        with torch.inference_mode(), self._context():
             pred = self.model(images)
             return pred, self._metric_sums(pred, flow, n_valid)
 
@@ -151,5 +187,6 @@ class StepFactory:
         """``(images, flow, n_valid) -> (flow, {"loss_sum", "epe_sum",
         "count"})``: the flow and the masked sums of the eval step (the
         reference's inference loop reports per-batch losses, against zero
-        targets where the dataset has no ground truth)."""
+        targets where the dataset has no ground truth).  With row bands
+        the flow is this rank's band of it."""
         return self._infer_metrics

@@ -12,7 +12,10 @@ each batch: the metrics, the validation and inference means and the best
 EPE are the global batch's, the same on every rank; rank 0 alone writes the
 metric file, TensorBoard, the profile and the flows, which
 ``inference`` gathers from every rank first; every rank calls the
-checkpoint saves, which rank 0 writes.
+checkpoint saves, which rank 0 writes.  With row bands across ranks
+(the plan's ``spatial``) the batches are the data rank's stripes at full
+height, each rank's step cuts its band, and ``inference`` gathers the bands
+and then the stripes.
 
 The host keeps ahead of the card: each logged step's metrics are copied to
 pinned host memory without blocking and read after the next step has been
@@ -309,7 +312,7 @@ class Trainer:
             count += int(sums["count"])
             if self.factory.plan is not None and (save_flow_dir
                                                   or visualize_dir):
-                flows = all_gather_batch(flows.float())
+                flows = all_gather_batch(flows.float(), self.factory.plan)
             if (save_flow_dir or visualize_dir) and self.is_writer:
                 # this batch's real (unpadded) samples only
                 flows_np = flows[:n_valid].float().cpu().numpy()
