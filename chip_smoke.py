@@ -248,17 +248,27 @@ Phases (any failure raises and the script exits non-zero):
    two one-flow and one two-flow local-rows K2; a step adds one K7 d_f1
    and d_slab and the local-rows K4 likewise; no plain-op call), and the
    dispatch log names the process-group compositions of the correlation,
-   the warp, the convolutions and the upsample.  ``--data-parallel`` runs
-   phase 5f(d) after 5e(d): the same gates over NCCL at spatial 2 on 2
-   cards and at data 2 x spatial 2 on 4, each timed (10 steps after 2 with
-   cuDNN's defaults: ms/step and frames/s of the global batch of 8 at
-   384x448, beside the same step on one card without bands) and profiled
-   on rank 0 by family (NCCL all-gather: the halos and gathers; NCCL
-   all-reduce: DDP's gradients and the gathers' transposes); and the plain
-   command with ``--spatial_shards 2`` on 4 cards, which starts 4 ranks,
-   against one card: 2 epochs by SGD at 5e(d)'s gates and ``--inference
-   --save_flow`` of the seeded weights (EPE < 1e-4).  ``python3
-   chip_smoke.py --data-parallel --spatial`` runs phase 5f(d) alone.
+   the warp, the convolutions and the upsample.  Then bands of unequal
+   height (granules of 64 rows): inference of b4 448x1024 pairs (MPI-Sintel
+   padded) as bands of 256 and 192 rows, in fp32 (EPE < 1e-4 against one
+   process) and in bf16 (the JAX package's bf16 contract of the one-process
+   bf16 model), the gathered flows bit-equal on both ranks, each rank's
+   launches exact; and whether gloo takes a bf16 all-reduce of CUDA
+   tensors.  ``--data-parallel`` runs phase 5f(d) after 5e(d): the same
+   gates over NCCL, in fp32 at spatial 2 on 2 cards, at data 2 x spatial 2
+   on 4 and at spatial 4 on 4 (bands of 128, 128, 64 and 64 rows), and in
+   bf16 (flows at the bf16 contract, loss at 5e-3, sub-nets at phase 5b's
+   gates) at spatial 2 on 2 cards and 2 x 2 on 4, each timed (10 steps
+   after 2 with cuDNN's defaults: ms/step and frames/s of the global batch
+   of 8 at 384x448, beside the same step and dtype on one card without
+   bands) and profiled on rank 0 by family (NCCL all-gather: the halos and
+   gathers; NCCL all-reduce: DDP's gradients and the gathers' transposes);
+   and the plain command with ``--spatial_shards 2`` and with
+   ``--spatial_shards 4`` (crops of 384x448 in bands of 128, 128, 64, 64)
+   on 4 cards, which starts 4 ranks, against one card: 2 epochs by SGD at
+   5e(d)'s gates and ``--inference --save_flow`` of the seeded weights
+   (EPE < 1e-4).  ``python3 chip_smoke.py --data-parallel --spatial`` runs
+   phase 5f(d) alone.
 6. Each kernel's time, its plain version's time, the card's bound for the
    same work and, where one PyTorch call computes the same function, that
    call's time, at the main-path shapes (K7 at one band of two; the bf16
@@ -287,8 +297,10 @@ Phases (any failure raises and the script exits non-zero):
    device time a step.  Raises if no device time is recorded.
 8. The readings of phases 3 to 7 again, one JSON line listing the kernels
    (the rows of the kernels phase 5f's step runs also carry
-   ``launches_bands_across_ranks``, a rank's launches of that step); the
-   last line is the result.
+   ``launches_bands_across_ranks``, a rank's launches of that step, and
+   those its bands of unequal height run ``launches_unequal_bands_across_
+   ranks``, a rank's launches of one such forward); the last line is the
+   result.
 
 Uses one card, the first the environment lists (``--data-parallel``: every
 card it lists; with ``--spatial``, phase 5f(d) alone).  Exits non-zero,
@@ -424,14 +436,20 @@ FLOWNET2_PARAMS = 162_518_834
 DP_SEED, DP_STEPS = 19, 3
 SCALE_STEPS, SCALE_WARMUP = 10, 2
 # phase 5f: the inference pairs of phase 3's size, drawn by numpy from
-# BAND_SEED (every rank draws them alike)
+# BAND_SEED (every rank draws them alike); and WIDE_BATCH pairs at
+# MPI-Sintel's width, its 436 rows padded to 448: two bands of unequal
+# height (256 and 192 rows), in fp32 and in bf16
 BAND_SEED = 23
+WIDE_BATCH, WIDE_HEIGHT, WIDE_WIDTH = 4, 448, 1024
 # a collective that waits longer fails its rank, and torchrun the task
 GROUP_TIMEOUT = datetime.timedelta(minutes=5)
 # the sub-nets whose gradients sit on the noise line between two forwards
 # that differ in the last bit (ROADMAP.md, section 3): printed, not gated
 DP_GATES = {"flownetc": None, "flownets_1": None, "flownets_2": 1e-3,
             "flownets_d": 1e-3, "flownetfusion": 1e-3}
+# the bf16 bands' step against one process's: phase 5b's gates (5e-2 in
+# relative L2; flownetc and flownets_1 printed only)
+BF16_BAND_GATES = {"flownetc": None, "flownets_1": None}
 # phase 5e(d)'s command line trains with SGD at DP_CLI_LR, whose update
 # scales with the gradient (Adam's first steps are about lr times its sign,
 # whatever its size): each logged loss on every card within DP_CLI_RTOL of
@@ -1683,16 +1701,17 @@ def scaling_rank(cfg: dict) -> None:
 
 # -- phase 5f: row bands across ranks -----------------------------------------
 
-def band_launches(forward_only: bool = False) -> dict:
-    """A rank's launches of one FlowNet2 fp32 forward (``forward_only``) or
-    train step on its band, default warp route: K7 for the correlation and
-    the local-rows K2 and K4."""
+def band_launches(forward_only: bool = False, bf16: bool = False) -> dict:
+    """A rank's launches of one FlowNet2 forward (``forward_only``) or
+    train step on its band, default warp route, whatever the band's
+    height: K7 for the correlation and the local-rows K2 and K4 (their
+    ``_bf16`` forms for the bf16 model)."""
     each = {"correlation_fwd_rows": 1, "resample2d_fwd": 2,
             "resample2d_fwd_multi": 1}
     if not forward_only:
         each.update(correlation_bwd_f1_rows=1, correlation_bwd_f2_rows=1,
                     resample2d_grad_flow=2, resample2d_grad_flow_multi=1)
-    return each
+    return {name + ("_bf16" if bf16 else ""): n for name, n in each.items()}
 
 
 def band_pairs():
@@ -1720,25 +1739,120 @@ BAND_FAMILIES = (
 )
 
 
+def wide_pairs():
+    """Phase 5f's wide inference batch: WIDE_BATCH pairs at WIDE_HEIGHT x
+    WIDE_WIDTH (pixels in [0, 255)), from a numpy generator seeded with
+    BAND_SEED + 1, so that every rank draws the same."""
+    import numpy as np
+
+    rng = np.random.default_rng(BAND_SEED + 1)
+    return torch.from_numpy(rng.random(
+        (WIDE_BATCH, 2, WIDE_HEIGHT, WIDE_WIDTH, 3), dtype=np.float32)
+        * 255.0)
+
+
+def wide_inference(plan, dev, factory, tag: str) -> dict:
+    """Phase 5f's bands of unequal height: FlowNet2 inference of
+    ``wide_pairs()`` (WIDE_HEIGHT rows over the plan's bands: 256 and 192
+    at spatial 2) through ``StepFactory(plan=...).infer_step()``, in fp32
+    (``factory``'s model) and in bf16 (the same weights), against rank 0's
+    one process: fp32 within EPE 1e-4, bf16 within the JAX package's bf16
+    contract of the one-process bf16 model; the gathered flows bit-equal
+    on every rank; each rank's launches exactly ``band_launches(True)``
+    and no plain-op call.  Returns this rank's rows and launches."""
+    import torch.distributed as dist
+
+    from flownet2_tpu_torch import ops, parallel
+    from flownet2_tpu_torch.losses import MultiScale
+    from flownet2_tpu_torch.models import get_model
+    from flownet2_tpu_torch.ops.sharding_hints import band_edges
+    from flownet2_tpu_torch.train import StepFactory, get_optimizer
+
+    pairs = wide_pairs()
+    n = WIDE_BATCH // plan.data_size
+    stripe = pairs[plan.data_rank * n:(plan.data_rank + 1) * n].to(dev)
+    rows = plan.band_rows(WIDE_HEIGHT)
+    out = {"rows": [rows.start, rows.stop], "launches": {}}
+    for dtype in (None, torch.bfloat16):
+        bf16 = dtype is not None
+        name = "bf16" if bf16 else "fp32"
+        if bf16:
+            net = get_model("FlowNet2", device=dev, dtype=dtype)
+            net.load_state_dict(factory.model.state_dict())
+        else:
+            net = factory.model
+        want = None
+        if plan.rank == 0:
+            net.eval()
+            with torch.inference_mode():
+                want = net(pairs.to(dev)).float().cpu()
+            torch.cuda.empty_cache()
+        if bf16:
+            factory = StepFactory(net, MultiScale(),
+                                  get_optimizer("Adam", 1e-4), plan=plan)
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        flow = factory.infer_step()(stripe)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        if launches != (band_launches(True, bf16), {}):
+            raise AssertionError(
+                f"{tag}, rank {plan.rank}, {name} {WIDE_HEIGHT}x{WIDE_WIDTH}"
+                f": launches {launches}; expected {band_launches(True, bf16)}")
+        out["launches"][name] = launches[0]
+        gathered = parallel.all_gather_batch(flow.float(), plan).cpu()
+        digests = [None] * plan.world_size
+        dist.all_gather_object(digests, hashlib.sha256(
+            gathered.numpy().tobytes()).hexdigest())
+        if len(set(digests)) != 1:
+            raise AssertionError(f"{tag}: the gathered {name} flows differ "
+                                 "between ranks")
+        if plan.rank == 0:
+            what = (f"{tag}: {name} inference b{WIDE_BATCH} {WIDE_HEIGHT}x"
+                    f"{WIDE_WIDTH} as the bands of rows "
+                    f"{band_edges(WIDE_HEIGHT, plan.spatial)}, gathered, "
+                    "against one process")
+            if bf16:
+                bf16_contract(gathered, want, what)
+            else:
+                epe = float(torch.sqrt(((gathered - want) ** 2).sum(-1))
+                            .mean())
+                note(f"  {what}: EPE {epe:.3e} (largest |flow| "
+                     f"{float(want.abs().max()):.2f})")
+                if not epe < 1e-4:
+                    raise AssertionError(f"{what}: EPE {epe:.3e} (gate "
+                                         "1e-4)")
+            note(f"  {tag}: {name} band inference {seconds:.3f} s (first "
+                 f"call); launches a rank {launches[0]}")
+        del net, flow, gathered, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def bands_rank(cfg: dict) -> None:
-    """One rank of phase 5f: FlowNet2 fp32 of the seeded weights as
-    ``cfg["spatial"]`` row bands across ranks (``DataParallelPlan(spatial=
-    ...)``), TF32 off, cuDNN deterministic.  Rank 0 first takes, in one
-    process, the inference of phase 5f's pairs (b BATCH, HEIGHT x WIDTH) and
-    the step gradients of phase 5e's batch (b TRAIN_BATCH, TRAIN_HEIGHT x
-    TRAIN_WIDTH).  Then every rank runs the inference of its band of its
-    stripe (its launches exactly ``band_launches(True)``, no plain-op
-    call); the bands and stripes gathered are within EPE 1e-4 of one
-    process's.  One step of Adam 1e-4 through ``StepFactory(plan=...)`` (its
-    launches exactly ``band_launches()``): the ranks' parameters bit-equal
-    after it (all-gathered digests), the global loss within 1e-5 relative
-    and the gradients per sub-net within DP_GATES of the one-process step's
-    in relative L2; the dispatch log names the process-group compositions.
-    With ``cfg["timed"]`` (NCCL on several cards, or one card without
-    bands, ``cfg["check"]`` False) SCALE_STEPS steps are timed after
-    SCALE_WARMUP with cuDNN's defaults (the slowest rank's ms/step) and
-    PROFILED_STEPS more profiled on rank 0 by kernel family.  Rank 0 writes
-    its readings to ``cfg["out"]``."""
+    """One rank of phase 5f: FlowNet2 of the seeded weights, fp32 or with
+    ``cfg["dtype"]`` "bfloat16" the bf16 model, as ``cfg["spatial"]`` row
+    bands across ranks (``DataParallelPlan(spatial=...)``; bands of unequal
+    height where the granules of 64 rows do not divide evenly), TF32 off,
+    cuDNN deterministic.  Rank 0 first takes, in one process, the inference
+    of phase 5f's pairs (b BATCH, HEIGHT x WIDTH) and the step gradients of
+    phase 5e's batch (b TRAIN_BATCH, TRAIN_HEIGHT x TRAIN_WIDTH).  Then
+    every rank runs the inference of its band of its stripe (its launches
+    exactly ``band_launches(True)``, no plain-op call); the bands and
+    stripes gathered are within EPE 1e-4 of one process's (bf16: the JAX
+    package's bf16 contract).  One step of Adam 1e-4 through
+    ``StepFactory(plan=...)`` (its launches exactly ``band_launches()``):
+    the ranks' parameters bit-equal after it (all-gathered digests), the
+    global loss within 1e-5 relative (bf16: 5e-3) and the gradients per
+    sub-net within DP_GATES (bf16: BF16_BAND_GATES) of the one-process
+    step's in relative L2; the dispatch log names the process-group
+    compositions.  With ``cfg["wide"]``, ``wide_inference``.  With
+    ``cfg["timed"]`` (NCCL on several cards, or one card without bands,
+    ``cfg["check"]`` False) SCALE_STEPS steps are timed after SCALE_WARMUP
+    with cuDNN's defaults (the slowest rank's ms/step) and PROFILED_STEPS
+    more profiled on rank 0 by kernel family.  Rank 0 writes its readings
+    to ``cfg["out"]``."""
     import torch.distributed as dist
 
     from flownet2_tpu_torch import ops, parallel
@@ -1751,6 +1865,7 @@ def bands_rank(cfg: dict) -> None:
     plan = parallel.DataParallelPlan.current(dev, spatial=cfg["spatial"],
                                              timeout=GROUP_TIMEOUT)
     rank, world, check = plan.rank, plan.world_size, cfg.get("check", True)
+    bf16 = cfg.get("dtype") == "bfloat16"
     tag = f"phase {cfg['part']}, {cfg['what']}"
     images, target = dp_batch()
     pairs = band_pairs()
@@ -1761,12 +1876,26 @@ def bands_rank(cfg: dict) -> None:
 
     img, tgt, pair = stripe(images), stripe(target), stripe(pairs)
     loss_fn = MultiScale()
-    model = get_model("FlowNet2", device=dev, seed=0)
+    model = get_model("FlowNet2", device=dev, seed=0,
+                      dtype=torch.bfloat16 if bf16 else None)
     out = {}
+    if cfg.get("wide") and cfg["backend"] == "gloo":
+        # whether this build's gloo adds bf16 CUDA tensors, as the bf16
+        # band path needs
+        probe = torch.ones(4, dtype=torch.bfloat16, device=dev)
+        try:
+            dist.all_reduce(probe, group=plan.spatial_group)
+            out["gloo_bf16_all_reduce"] = f"taken, {probe.tolist()}"
+        except (RuntimeError, ValueError) as e:
+            out["gloo_bf16_all_reduce"] = f"refused: {str(e)[:120]}"
+        if rank == 0:
+            note(f"  {tag}: gloo's all-reduce of bf16 CUDA tensors "
+                 f"(torch {torch.__version__}): "
+                 f"{out['gloo_bf16_all_reduce']}")
     if rank == 0 and check:
         model.eval()
         with torch.inference_mode():
-            want_flow = model(pairs.to(dev)).cpu()
+            want_flow = model(pairs.to(dev)).float().cpu()
         model.train()
         whole = loss_fn(model(images.to(dev)), target.to(dev))[0]
         whole.backward()
@@ -1785,16 +1914,18 @@ def bands_rank(cfg: dict) -> None:
         torch.cuda.synchronize()
         infer = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
         flow = parallel.all_gather_batch(flow.float(), plan).cpu()
-        if infer != (band_launches(True), {}):
+        if infer != (band_launches(True, bf16), {}):
             raise AssertionError(f"{tag}, rank {rank}: inference launches "
-                                 f"{infer}; expected {band_launches(True)}")
+                                 f"{infer}; expected "
+                                 f"{band_launches(True, bf16)}")
         ops.reset_counts()
         metrics = factory.train_step()(img, tgt)
         torch.cuda.synchronize()
         stepped = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
-        if stepped != (band_launches(), {}):
+        if stepped != (band_launches(bf16=bf16), {}):
             raise AssertionError(f"{tag}, rank {rank}: step launches "
-                                 f"{stepped}; expected {band_launches()}")
+                                 f"{stepped}; expected "
+                                 f"{band_launches(bf16=bf16)}")
         loss1 = float(metrics["loss"])
         grads = {n: p.grad.detach().cpu()
                  for n, p in model.named_parameters()}
@@ -1820,21 +1951,31 @@ def bands_rank(cfg: dict) -> None:
         if rank == 0:
             epe = float(torch.sqrt(((flow - want_flow) ** 2).sum(-1)).mean())
             rel = abs(loss1 - single_loss) / abs(single_loss)
+            bands = [plan.band_rows(h) for h in (HEIGHT, TRAIN_HEIGHT)]
             note(f"  {tag}: inference b{BATCH} {HEIGHT}x{WIDTH}, the bands "
                  f"and stripes gathered, EPE {epe:.3e} against one process "
                  f"(largest |flow| {float(want_flow.abs().max()):.2f}); step "
                  f"b{TRAIN_BATCH} {TRAIN_HEIGHT}x{TRAIN_WIDTH}: parameters "
                  f"bit-equal on every rank ({got[0][:12]}), loss {loss1:.6f} "
                  f"against one process's {single_loss:.6f} ({rel:.2e} "
-                 f"relative); launches a rank: forward {infer[0]}, step "
-                 f"{stepped[0]}; dispatch {log}")
-            subnets_close(grads, single, DP_GATES,
+                 f"relative); rank 0's rows {bands[0]} and {bands[1]}; "
+                 f"launches a rank: forward {infer[0]}, step {stepped[0]}; "
+                 f"dispatch {log}")
+            subnets_close(grads, single,
+                          BF16_BAND_GATES if bf16 else DP_GATES,
                           f"{tag}, the step's gradients against one process")
-            if not (epe < 1e-4 and rel <= 1e-5):
+            if bf16:
+                bf16_contract(flow, want_flow, f"{tag}, the gathered bf16 "
+                              "inference against one process")
+            if not ((bf16 or epe < 1e-4)
+                    and rel <= (5e-3 if bf16 else 1e-5)):
                 raise AssertionError(f"{tag}: EPE {epe:.3e} (gate 1e-4) or "
-                                     f"loss {rel:.2e} (gate 1e-5) from one "
+                                     f"loss {rel:.2e} (gate "
+                                     f"{5e-3 if bf16 else 1e-5:g}) from one "
                                      "process")
         del grads
+    if cfg.get("wide"):
+        out["wide"] = wide_inference(plan, dev, factory, tag)
     if cfg.get("timed"):
         torch.backends.cudnn.deterministic = False
         step = factory.train_step()
@@ -1899,13 +2040,15 @@ def bands_phase(smi: str) -> dict:
     ``bands_rank``'s gates.  Returns rank 0's launches."""
     t_phase = time.perf_counter()
     print(f"phase 5f: row bands across ranks, FlowNet2 fp32, spatial 2, "
-          "two gloo ranks on one card, TF32 off, cuDNN deterministic")
+          "two gloo ranks on one card, TF32 off, cuDNN deterministic; "
+          f"then fp32 and bf16 inference of {WIDE_HEIGHT}x{WIDE_WIDTH} "
+          "pairs as bands of unequal height")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_5f_"))
     try:
         out = work / "f.out"
         run_task(work, "f", 2, task="bands", backend="gloo", spatial=2,
                  part="5f", what="2 ranks over gloo on one card",
-                 out=str(out), smi=smi)
+                 out=str(out), smi=smi, wide=True)
         got = json.loads(out.read_text())
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1915,22 +2058,32 @@ def bands_phase(smi: str) -> dict:
 
 def multi_card_bands(smi: str, n_cards: int, work: Path) -> None:
     """Phase 5f(d), on several cards over NCCL: ``bands_rank``'s gates and
-    timings at spatial 2 on 2 cards and at data 2 x spatial 2 on 4, beside
-    the one-card step of the same batch (no bands) in the same call."""
-    runs = [("one card, no bands", 1, 1, False)]
-    runs += [(f"spatial 2 on 2 cards", 2, 2, True)] if n_cards >= 2 else []
-    runs += [(f"data 2 x spatial 2 on 4 cards", 4, 2, True)] \
-        if n_cards >= 4 else []
+    timings, in fp32 at spatial 2 on 2 cards, at data 2 x spatial 2 on 4
+    and at spatial 4 on 4 (bands of 128, 128, 64 and 64 rows), and in bf16
+    at spatial 2 on 2 cards and 2 x 2 on 4, each beside the one-card step
+    of the same batch and dtype (no bands) in the same call."""
+    from flownet2_tpu_torch.ops.sharding_hints import band_edges
+
+    rows = ", ".join(str(b - a) for a, b in band_edges(TRAIN_HEIGHT, 4))
+    runs = []
+    for dtype in ("float32", "bfloat16"):
+        runs += [(dtype, "one card, no bands", 1, 1, False)]
+        runs += [(dtype, "spatial 2 on 2 cards", 2, 2, True)] \
+            if n_cards >= 2 else []
+        runs += [(dtype, "data 2 x spatial 2 on 4 cards", 4, 2, True)] \
+            if n_cards >= 4 else []
+        runs += [(dtype, f"spatial 4 on 4 cards (bands of {rows} rows)", 4,
+                  4, True)] if n_cards >= 4 and dtype == "float32" else []
     got = {}
-    for what, world, spatial, check in runs:
-        out = work / f"bands{world}.out"
-        run_task(work, f"bands{world}", world, task="bands", backend="nccl",
-                 spatial=spatial, part="5f(d)", what=what, check=check,
-                 timed=True, out=str(out), smi=smi)
-        got[what] = json.loads(out.read_text())
-    base = got["one card, no bands"]["ms"]
-    for what, r in got.items():
-        note(f"  phase 5f(d), FlowNet2 fp32 train step b{TRAIN_BATCH} "
+    for k, (dtype, what, world, spatial, check) in enumerate(runs):
+        out = work / f"bands{k}.out"
+        run_task(work, f"bands{k}", world, task="bands", backend="nccl",
+                 spatial=spatial, part="5f(d)", what=f"{dtype}, {what}",
+                 check=check, timed=True, out=str(out), smi=smi, dtype=dtype)
+        got[dtype, what] = json.loads(out.read_text())
+    for (dtype, what), r in got.items():
+        base = got[dtype, "one card, no bands"]["ms"]
+        note(f"  phase 5f(d), FlowNet2 {dtype} train step b{TRAIN_BATCH} "
              f"{TRAIN_HEIGHT}x{TRAIN_WIDTH} (the global batch), {what}: "
              f"{r['ms']:.3f} ms/step, {TRAIN_BATCH / r['ms'] * 1e3:.2f} "
              f"frames/s, {base / r['ms']:.3f}x the one-card step; device "
@@ -2382,6 +2535,13 @@ def multi_card_main() -> int:
         if n_cards >= 4:
             try:
                 multi_card_cli(smi, n_cards, work, spatial=2,
+                               wanted=("train SGD", "infer"))
+            except AssertionError as e:
+                cli_failure = cli_failure or e
+            # four bands of unequal height: 128, 128, 64, 64 rows of the
+            # 384-row crops and frames
+            try:
+                multi_card_cli(smi, n_cards, work, spatial=4,
                                wanted=("train SGD", "infer"))
             except AssertionError as e:
                 cli_failure = cli_failure or e
@@ -4048,6 +4208,13 @@ def main() -> int:
                 # per rank, one step of phase 5f's bands across ranks
                 kernels[-1]["launches_bands_across_ranks"] = \
                     band_ranks["step_launches"][name]
+            wide = {**band_ranks["wide"]["launches"]["fp32"],
+                    **band_ranks["wide"]["launches"]["bf16"]}
+            if name in wide:
+                # per rank, one forward of phase 5f's bands of 256 and 192
+                # rows
+                kernels[-1]["launches_unequal_bands_across_ranks"] = \
+                    wide[name]
         del sampled, grid_leaf, sampled2, grid_leaf2
         by_name = {k["name"]: k for k in kernels}
 

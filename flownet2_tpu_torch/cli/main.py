@@ -24,10 +24,12 @@ line's (data, spatial) mesh spans devices: the ranks are laid out (ranks /
 S, S), each holds one band of its data rank's stripe and exchanges its
 halos with the others (``parallel.DataParallelPlan(spatial=S)``), and the
 plain command on a machine of S cards or more starts
-``parallel.data_ranks(batch, cards, S) * S`` ranks.  In one process, or on
-fewer cards than S, the bands run in turn on the process's own device.  A
-frame height whose bands would not be whole multiples of 64 rows raises
-before the first step.
+``parallel.data_ranks(batch, cards, S) * S`` ranks.  The bands are cut on
+granules of 64 rows, the first bands one granule taller where S does not
+divide them (``--crop_size 384 448`` over 4: 128, 128, 64 and 64 rows).  In
+one process, or on fewer cards than S, the bands run in turn on the
+process's own device.  A frame height that is not a multiple of 64 with a
+granule a band raises before the first step.
 
 Examples:
 
@@ -196,7 +198,8 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
     p.add_argument("--spatial_shards", type=int, default=1,
                    help="row bands (H split): across ranks where the "
                         "command runs as a multiple of S ranks (each rank "
-                        "one band; H/S a multiple of 64), else the "
+                        "one band, cut on granules of 64 rows; H a multiple "
+                        "of 64 with a granule a band), else the "
                         "correlation and the warps in turn on the one "
                         "device")
     p.add_argument("--num_workers", type=int, default=4)

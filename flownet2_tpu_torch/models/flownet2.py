@@ -48,9 +48,10 @@ def normalize_pair(inputs: torch.Tensor, rgb_max: float,
     and divide by ``rgb_max``, in float32.
 
     inputs: (B, 2, H, W, 3) RGB, H and W multiples of 64.  Under a band
-    context ``inputs`` is this process's band of the rows, H/S rows (a
-    multiple of 64), and the mean is the whole frame's: the band's,
-    averaged over the bands.
+    context ``inputs`` is this process's band of the rows (its edges in
+    granules of 64 rows, ``sharding_hints.band_edges``), and the mean is
+    the whole frame's: the bands' means weighted by their shares of the
+    rows.
     Returns (x1, x2), two (B, 3, H, W) frames, float32 or cast once to
     ``dtype`` (the bf16 model's one cast: everything after it, the glue and
     the warps included, runs in that dtype, as in the JAX package).
@@ -61,7 +62,7 @@ def normalize_pair(inputs: torch.Tensor, rgb_max: float,
     band = sharding_hints.band()
     h, w = inputs.shape[2], inputs.shape[3]
     if band is not None:
-        h *= band.size
+        h = band.spans(h)[-1][1]
     if h % 64 or w % 64:
         # without it the encoder/decoder skip connections misalign
         raise ValueError(f"input H, W must be multiples of 64 (got {h}x{w}); "
@@ -69,8 +70,12 @@ def normalize_pair(inputs: torch.Tensor, rgb_max: float,
     inputs = inputs.float()
     rgb_mean = inputs.mean(dim=(2, 3), keepdim=True)
     if band is not None:
-        # equal bands: the mean of the bands' means is the frame's
-        sharding_hints.check_band_height(h, band.size)
+        # the bands' edges are the rule's for this height (or it raises)
+        if band.spans(inputs.shape[2]) != list(
+                sharding_hints.band_edges(h, band.size)):
+            raise ValueError(f"band {band.index} of {inputs.shape[2]} rows: "
+                             f"not a band of {h} rows cut in {band.size} "
+                             "on granules of 64 rows")
         rgb_mean = mean_over_bands(rgb_mean, band)
     rgb_mean = rgb_mean.mean(dim=1, keepdim=True)
     x = (inputs - rgb_mean) / rgb_max

@@ -22,17 +22,20 @@ each call, so the output and the LeakyReLU after it are bfloat16.  One
 state_dict serves both.  BatchNorm has no bfloat16 form yet.
 
 Under a band context (``ops.sharding_hints.scoped_band``, which
-``parallel.DataParallelPlan.band_context()`` enters) each process holds a
-band of the rows: ``Conv2d`` and ``ConvTranspose2d`` then fetch the halo
-rows their kernel, stride and padding need from the neighbouring bands
-(``parallel.halo_rows``, zero rows beyond the image), pad the width alone
-and convolve, so that each band's output is its rows of the whole map's.
+``parallel.DataParallelPlan.band_context(height)`` enters) each process
+holds a band of the rows, whose height may differ from the other bands'
+(granules of 64 frame rows, whole rows at every level): ``Conv2d`` and
+``ConvTranspose2d`` then fetch the halo rows their kernel, stride and
+padding need from the neighbouring bands (``parallel.halo_rows``, zero rows
+beyond the image), pad the width alone and convolve, so that each band's
+output is its rows of the whole map's.
 
 ``BatchNorm2d`` is ``nn.BatchNorm2d`` under the same keys; with
 ``global_batch`` set (``set_global_batch_norm``, which ``StepFactory`` calls
 under a ``DataParallelPlan``) it normalises by the statistics of the whole
 global batch, over every rank, as the JAX package's BatchNorm does over a
-batch sharded on the mesh.
+batch sharded on the mesh; each rank's sums count its own elements, so
+bands of unequal height weigh by their rows.
 """
 
 from __future__ import annotations

@@ -37,7 +37,8 @@ d_f1 are bit-equal to the whole-map op (the same sums in the same order);
 d_f2 differs by the one extra add per halo row.
 
 Across processes (a band context, ``sharding_hints.scoped_band``) each rank
-holds one band of f1 and of f2, as the JAX package's shards do:
+holds one band of f1 and of f2, as the JAX package's shards do (the bands
+may differ in height; the band's edges give its offset):
 ``band_wrapper`` gathers f2 over the band's group (``parallel.gather_rows``),
 pads it by maxd rows, cuts this band's slab and runs ``corr_slab`` on the
 local rows (JAX ``correlation_spatial.py`` ``spatial_wrapper``'s body).
@@ -239,7 +240,7 @@ def band_wrapper(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int,
                          f"{max_displacement} over stride2 {stride2}, f1 "
                          f"{tuple(f1.shape)}, f2 {tuple(f2.shape)}")
     maxd, local_h = max_displacement, f1.shape[2]
-    off = band.index * local_h
+    off = band.spans(local_h)[band.index][0]
     sharding_hints.record_dispatch(
         "correlation", f"process group(spatial={band.size})+halo-slab, "
         "kernel=" + ("plain" if _cuda.on_cpu(f1) else "cuda-rows"))

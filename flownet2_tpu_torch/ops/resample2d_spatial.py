@@ -16,9 +16,10 @@ the plain scatter-add of its taps into the full-height image, and autograd
 sums the bands' images: the transpose of the gather.
 
 Across processes (a band context, ``sharding_hints.scoped_band``) each rank
-holds one band of the image and of the flows: ``band_wrapper`` gathers the
-image over the band's group (``parallel.gather_rows``) and warps its own
-flow rows at the band's offset through ``warp_rows``, one launch for the F
+holds one band of the image and of the flows (the bands may differ in
+height): ``band_wrapper`` gathers the image over the band's group
+(``parallel.gather_rows``) and warps its own flow rows at the band's
+offset, read off its edges, through ``warp_rows``, one launch for the F
 flows (JAX ``resample2d_spatial.py`` ``spatial_wrapper``'s body); the
 image gradient goes home through the gather's reduce-scatter.
 """
@@ -54,7 +55,7 @@ def band_wrapper(img: torch.Tensor, flows: torch.Tensor, tangents: bool,
         "resample2d", f"process group(spatial={band.size})+halo-gather, "
         "kernel=" + ("plain" if _cuda.on_cpu(img) else "cuda-rows"))
     return warp_rows(gather_rows(img, band), flows.contiguous(),
-                     band.index * img.shape[2], tangents)
+                     band.spans(img.shape[2])[band.index][0], tangents)
 
 
 def spatial_wrapper(img: torch.Tensor, flows: torch.Tensor,

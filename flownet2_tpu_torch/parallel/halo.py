@@ -4,15 +4,21 @@ an H-sharded convolution and of ``jax.lax.all_gather`` / ``psum_scatter``
 over the ``spatial`` mesh axis).
 
 Every function takes the caller's ``band`` (``ops.sharding_hints.Band``:
-the group, the number of bands and this process's index, rank ``i`` of the
-group holding band ``i``) and works on NCHW tensors whose rows (axis 2) are
-this band's.  Each is a ``torch.autograd.Function`` that makes one
-collective call in its forward and one in its backward, on every rank of
-the group alike, so the ranks issue them in one order.  They use only
-``all_gather`` and ``all_reduce``: a reduce-scatter is an all-reduce and a
-slice, and where gloo holds CUDA tensors, whose all-gather it does not
-take, an all-gather is an all-reduce of the bands' pieces, each in its own
-slot of a zeroed buffer (a sum with zeros, exact).
+the group, the number of bands, this process's index, rank ``i`` of the
+group holding band ``i``, and every band's edges) and works on NCHW
+tensors whose rows (axis 2) are this band's.  The bands may differ in
+height (``sharding_hints.band_edges``): each function reads every band's
+rows at its level off ``band.spans``.  Each is a
+``torch.autograd.Function`` that makes one collective call in its forward
+and one in its backward, on every rank of the group alike, so the ranks
+issue them in one order.  They use only ``all_gather`` and
+``all_reduce``: a reduce-scatter is an all-reduce and a slice, an
+all-gather of bands of unequal height pads each band to the tallest and
+cuts the padding off again, and where gloo holds CUDA tensors, whose
+all-gather it does not take, an all-gather is an all-reduce of the bands'
+pieces, each in its own slot of a zeroed buffer (a sum with zeros, exact).
+bfloat16 takes the same collectives (gloo adds bf16 tensors, on the CPU and
+on CUDA).
 
 - ``halo_rows(x, top, bottom, band)``: ``x`` with the ``top`` rows of the
   band above and the ``bottom`` rows of the band below around it, zero rows
@@ -20,8 +26,10 @@ slot of a zeroed buffer (a sum with zeros, exact).
   gradient home and adds it there.
 - ``gather_rows(x, band)``: every band, concatenated along the height (the
   whole map); the backward is the reduce-scatter of the map's gradient.
-- ``mean_over_bands(x, band)``: the mean of ``x`` over the bands; the
-  backward is the mean of the bands' gradients.
+- ``mean_over_bands(x, band)``: the bands' ``x`` weighted by their shares
+  of the rows and summed, the whole frame's mean where ``x`` is the mean
+  over a band's rows; the backward gives each band its share of the summed
+  gradient.
 
 The sums of the backward passes run in a fixed order.
 """
@@ -55,6 +63,20 @@ def all_gather_list(t: torch.Tensor, n: int, index: int, group) -> list:
 
 def _all_gather(t: torch.Tensor, band) -> list:
     return all_gather_list(t, band.size, band.index, band.group)
+
+
+def gather_band_rows(x: torch.Tensor, band, dim: int = 2) -> list:
+    """Every band's ``x``, whose axis ``dim`` holds this band's rows, in
+    band order: each band padded to the tallest band's rows for the
+    all-gather and cut to its own rows after it."""
+    spans = band.spans(x.shape[dim])
+    tallest = max(b - a for a, b in spans)
+    pad = tallest - x.shape[dim]
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:dim] + (pad,)
+                                      + x.shape[dim + 1:])], dim=dim)
+    return [part.narrow(dim, 0, b - a)
+            for part, (a, b) in zip(_all_gather(x, band), spans)]
 
 
 class _HaloRows(torch.autograd.Function):
@@ -108,24 +130,23 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, band):
         ctx.band = band
-        return torch.cat(_all_gather(x, band), dim=2)
+        ctx.rows = band.spans(x.shape[2])[band.index]
+        return torch.cat(gather_band_rows(x, band), dim=2)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        band = ctx.band
         # reduce-scatter: the whole map's gradient summed over the bands,
         # then this band's rows
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=band.group)
-        height = g.shape[2] // band.size
-        rows = slice(band.index * height, (band.index + 1) * height)
-        return g[:, :, rows].contiguous(), None
+        dist.all_reduce(g, group=ctx.band.group)
+        start, stop = ctx.rows
+        return g[:, :, start:stop].contiguous(), None
 
 
 def gather_rows(x: torch.Tensor, band) -> torch.Tensor:
     """Every band's ``x`` (N, C, h, W) in band order along the height: the
-    whole map (N, C, size * h, W), the same on every rank."""
+    whole map (N, C, H, W), the same on every rank."""
     return _GatherRows.apply(x, band)
 
 
@@ -133,18 +154,20 @@ class _MeanOverBands(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, band):
         ctx.band = band
-        out = x.contiguous().clone()
+        out = (x * band.share()).contiguous()
         dist.all_reduce(out, group=band.group)
-        return out.div_(band.size)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.band.group)
-        return g.div_(ctx.band.size), None
+        return g.mul_(ctx.band.share()), None
 
 
 def mean_over_bands(x: torch.Tensor, band) -> torch.Tensor:
-    """The mean of every band's ``x`` (any shape), the same on every rank."""
+    """Every band's ``x`` (any shape) weighted by the band's share of the
+    rows and summed, the same on every rank: where ``x`` is a mean over
+    each band's rows, the whole frame's mean."""
     return _MeanOverBands.apply(x, band)

@@ -20,21 +20,26 @@ BatchNorm takes its statistics by.
 Row bands across ranks (the ``spatial`` axis): a plan with ``spatial`` S > 1
 lays the ranks out as the JAX mesh reshapes its devices, ``(world / S,
 S)`` with the spatial axis innermost: rank ``r`` is data rank ``r // S``
-and holds band ``r % S`` of the height, rows ``[b * H / S, (b + 1) * H /
-S)`` of its data rank's stripe.  ``DataParallelPlan.current(spatial=S)``
-builds one process group over the S bands of each data rank and one over
-the data ranks of each band (``dist.new_group``, in one order on every
-rank); the steps cut their band (``band_rows``) and run the model under
-``band_context()``, whose ops exchange their halos over the band's group
-(``parallel/halo.py``).  Gradients, BatchNorm's statistics and the
-metrics are still summed over every rank, data and spatial: with equal
-bands each rank's loss is one (D * S)-th of the global batch's.
+and holds band ``r % S`` of the height, the rows
+``ops.sharding_hints.band_edges(H, S)[r % S]`` of its data rank's stripe
+(granules of 64 rows, the first bands one granule taller where S does not
+divide them: 384 rows over 4 are 128, 128, 64 and 64).
+``DataParallelPlan.current(spatial=S)`` builds one process group over the
+S bands of each data rank and one over the data ranks of each band
+(``dist.new_group``, in one order on every rank); the steps cut their band
+(``band_rows``) and run the model under ``band_context(H)``, whose ops
+exchange their halos over the band's group (``parallel/halo.py``).
+Gradients, BatchNorm's statistics and the metrics are still summed over
+every rank, data and spatial; each rank weights its loss by S times its
+band's share of the rows, so that DDP's mean over the D * S ranks is the
+global batch's gradient (``train/state.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import os
 from typing import Any, Optional
 
@@ -208,20 +213,23 @@ class DataParallelPlan:
                    local_batch)
 
     def band_rows(self, height: int) -> slice:
-        """This rank's rows of a stripe ``height`` rows high; raises
-        ``ValueError`` unless height / spatial is a multiple of 64."""
-        from ..ops.sharding_hints import check_band_height
+        """This rank's rows of a stripe ``height`` rows high
+        (``sharding_hints.band_edges``, which raises ``ValueError`` unless
+        the height is a multiple of 64 with a granule a band)."""
+        from ..ops.sharding_hints import band_edges
 
-        rows = check_band_height(height, self.spatial)
-        return slice(self.band * rows, (self.band + 1) * rows)
+        return slice(*band_edges(height, self.spatial)[self.band])
 
-    def band_context(self):
-        """The context the model's ops run in on this rank: this band over
-        ``spatial_group``, or the whole map where ``spatial`` is 1."""
-        from ..ops.sharding_hints import Band, scoped_band
+    def band_context(self, height: int):
+        """The context the model's ops run in on this rank for frames
+        ``height`` rows high: this band of ``band_edges(height, spatial)``
+        over ``spatial_group``, or the whole map where ``spatial`` is 1."""
+        from ..ops.sharding_hints import Band, band_edges, scoped_band
 
-        return scoped_band(Band(self.spatial_group, self.spatial, self.band)
-                           if self.spatial > 1 else None)
+        if self.spatial == 1:
+            return scoped_band(None)
+        return scoped_band(Band(self.spatial_group, self.spatial, self.band,
+                                band_edges(height, self.spatial)))
 
 
 def barrier() -> None:
@@ -264,15 +272,22 @@ def all_gather_batch(t: torch.Tensor,
     """Every rank's ``t`` (one stripe of a batch) concatenated on the first
     axis in rank order: the global batch (``t`` itself without a group).
     Under a plan with row bands, ``t`` is this rank's band of its stripe,
-    NHWC: the bands are gathered first along the height (axis 1), then
-    the stripes."""
+    NHWC: the bands, of any heights, are gathered first along the height
+    (axis 1), then the stripes."""
     if not is_distributed() or world_size() == 1:
         return t
-    from .halo import all_gather_list
+    from .halo import all_gather_list, gather_band_rows
 
     if plan is not None and plan.spatial > 1:
-        t = torch.cat(all_gather_list(t, plan.spatial, plan.band,
-                                      plan.spatial_group), dim=1)
+        from ..ops.sharding_hints import Band
+
+        # the bands' heights, which may differ, give their edges
+        heights = all_gather_list(torch.tensor([t.shape[1]], device=t.device),
+                                  plan.spatial, plan.band, plan.spatial_group)
+        stops = list(itertools.accumulate(int(h) for h in heights))
+        band = Band(plan.spatial_group, plan.spatial, plan.band,
+                    tuple(zip([0] + stops[:-1], stops)))
+        t = torch.cat(gather_band_rows(t, band, dim=1), dim=1)
         if plan.data_size == 1:
             return t
         return torch.cat(all_gather_list(t, plan.data_size, plan.data_rank,

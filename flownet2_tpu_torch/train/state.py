@@ -28,17 +28,18 @@ batch is the rank's stripe of the global batch.
 
 With row bands across ranks (a plan with ``spatial`` S > 1) each step takes
 its data rank's stripe at full height, cuts this rank's band of the rows
-(``plan.band_rows``, which raises unless H / S is a multiple of 64) and runs
-the model and the loss under ``plan.band_context()``.  The bands are equal,
-so each rank's loss, a mean over its band's rows, is one S-th of its
-stripe's share of the global loss, and DDP's mean of the D * S ranks'
-gradients is the global batch's gradient: the halo exchanges send each
-band's gradient home within the backward (tests/test_torch_spatial_ranks.py
-holds it against one process and against the JAX package's step on one
-device and on its (1, 2) mesh).  The per-sample metric sums take each
-sample's mean over its bands (the rank's per-sample means over S, summed
-over the group) and count each sample once; ``infer_step`` returns the
-rank's band of the flow.
+(``plan.band_rows``: granules of 64 rows, the first bands one granule
+taller where S does not divide them) and runs the model and the loss under
+``plan.band_context(H)``.  Each rank's loss is a mean over its band's rows
+at every MultiScale level, and its band holds the same share r_i / H of
+the rows at every level, so the rank weights it by S * r_i / H: then DDP's
+mean of the D * S ranks' gradients is the global batch's gradient, the
+halo exchanges sending each band's gradient home within the backward
+(tests/test_torch_spatial_ranks.py holds it against one process and
+against the JAX package's step on one device and on its (1, 2) mesh).  The
+per-sample metric sums take each sample's mean over its bands weighted by
+r_i / H (summed over the group) and count each sample once;
+``infer_step`` returns the rank's band of the flow.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..nn.layers import set_global_batch_norm
+from ..ops import sharding_hints
 from ..parallel import DataParallelPlan, all_reduce_sum
 from .optim import Optimizer
 
@@ -90,16 +92,23 @@ class StepFactory:
 
     def _band(self, images: torch.Tensor, flow: Optional[torch.Tensor] = None):
         """This rank's band of the rows of ``images`` (B, 2, H, W, 3) and
-        ``flow`` (B, H, W, 2) under a plan with row bands; else them."""
-        if self.plan is None or self.plan.spatial == 1:
-            return images, flow
-        rows = self.plan.band_rows(images.shape[2])
-        return images[:, :, rows], None if flow is None else flow[:, rows]
+        ``flow`` (B, H, W, 2), and the band context the model runs in; them
+        and no context without row bands."""
+        if self.plan is None:
+            return images, flow, contextlib.nullcontext()
+        height = images.shape[2]
+        context = self.plan.band_context(height)
+        if self.plan.spatial == 1:
+            return images, flow, context
+        rows = self.plan.band_rows(height)
+        return (images[:, :, rows], None if flow is None else flow[:, rows],
+                context)
 
-    def _context(self):
-        """The band context the model runs in (none without row bands)."""
-        return (contextlib.nullcontext() if self.plan is None
-                else self.plan.band_context())
+    def _band_weight(self) -> float:
+        """S times this rank's band's share of the rows: 1 for equal
+        bands or none (read inside the band context)."""
+        band = sharding_hints.band()
+        return 1.0 if band is None else band.size * band.share()
 
     def _global_mean(self, *values: torch.Tensor) -> torch.Tensor:
         """The values stacked and, under a plan, averaged over the ranks."""
@@ -111,9 +120,12 @@ class StepFactory:
     def _train_step(self, images: torch.Tensor, flow: torch.Tensor):
         self.net.train()
         self.optimizer.zero_grad()
-        images, flow = self._band(images, flow)
-        with self._context():
+        images, flow, context = self._band(images, flow)
+        with context:
             lossvalue, epevalue = self.loss_fn(self.net(images), flow)
+            weight = self._band_weight()
+        if weight != 1.0:
+            lossvalue, epevalue = lossvalue * weight, epevalue * weight
         (lossvalue * self.loss_scale).backward()
         grads = self.optimizer.grads()
         if self.loss_scale != 1.0:
@@ -139,11 +151,12 @@ class StepFactory:
         tail batch must not count its padding.  Under a plan ``n_valid``
         counts the global batch, this rank masks its own stripe, and the
         sums are the global batch's; with row bands ``pred`` and ``flow``
-        are this rank's band, and a sample's mean is its bands' mean."""
+        are this rank's band (read inside the band context), and a sample's
+        mean is its bands' means weighted by their shares of the rows."""
         loss_ps, epe_ps = self.loss_fn.per_sample(pred, flow)
-        if self.plan is not None and self.plan.spatial > 1:
-            loss_ps, epe_ps = (t / self.plan.spatial for t in (loss_ps,
-                                                               epe_ps))
+        band = sharding_hints.band()
+        if band is not None:
+            loss_ps, epe_ps = (t * band.share() for t in (loss_ps, epe_ps))
         local = loss_ps.shape[0]
         valid = (n_valid if self.plan is None
                  else self.plan.valid_in_stripe(n_valid, local))
@@ -166,8 +179,8 @@ class StepFactory:
 
     def _infer(self, images: torch.Tensor):
         self.model.eval()
-        images, _ = self._band(images)
-        with torch.inference_mode(), self._context():
+        images, _, context = self._band(images)
+        with torch.inference_mode(), context:
             return self.model(images)
 
     def infer_step(self) -> Callable:
@@ -178,8 +191,8 @@ class StepFactory:
     def _infer_metrics(self, images: torch.Tensor, flow: torch.Tensor,
                        n_valid: int):
         self.model.eval()
-        images, flow = self._band(images, flow)
-        with torch.inference_mode(), self._context():
+        images, flow, context = self._band(images, flow)
+        with torch.inference_mode(), context:
             pred = self.model(images)
             return pred, self._metric_sums(pred, flow, n_valid)
 

@@ -223,7 +223,17 @@ def data(tmp_path_factory):
         pth[name] = root / f"{name}_checkpoint.pth.tar"
         torch.save({"arch": name, "epoch": 0, "best_EPE": 1e10,
                     "state_dict": model.state_dict()}, pth[name])
-    return {"root": root, "sintel": sintel, "frames": frames, "pth": pth}
+    yield {"root": root, "sintel": sintel, "frames": frames, "pth": pth}
+    # the runs' checkpoints: gone once the module's tests have read them
+    shutil.rmtree(root, ignore_errors=True)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed after the test: the runs it holds
+    write FlowNet2S checkpoints, which no later test reads."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _sintel_args(data, save, *extra):

@@ -6,6 +6,8 @@ package's own importer, and into the port's ``load_checkpoint`` and
 ``run_a_pair`` entry point.
 """
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,7 +61,9 @@ def checkpoint(port_model, tmp_path_factory):
     path = tmp_path_factory.mktemp("ckpt") / "FlowNet2_checkpoint.pth.tar"
     torch.save({"arch": "FlowNet2", "epoch": 0,
                 "state_dict": port_model.state_dict(), "best_EPE": 1.5}, path)
-    return path
+    yield path
+    # 650 MB: gone once the module's tests have read it
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def _assert_flow_close(got, want):

@@ -33,6 +33,7 @@ import datetime
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 from unittest import mock
@@ -448,7 +449,9 @@ def dp(tmp_path_factory):
         _join(procs)
     ranks = [torch.load(root / f"rank{r}.pt", weights_only=False)
              for r in range(WORLD)]
-    return {"root": root, "ref": ref, "ranks": ranks}
+    yield {"root": root, "ref": ref, "ranks": ranks}
+    # the ranks' checkpoints and FlowNet2-size rank files: gone once read
+    shutil.rmtree(root, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ cases

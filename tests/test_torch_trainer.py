@@ -12,6 +12,7 @@ not stopped.
 
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -401,7 +402,9 @@ def slice_runs(tmp_path_factory):
     _port_run(data, variables, root / "b", epochs=(0, 1))
     run_b = _port_run(data, variables, root / "b", epochs=(1, 2),
                       resume=True)
-    return dict(root=root, a=run_a, b=run_b)
+    yield dict(root=root, a=run_a, b=run_b)
+    # the runs' checkpoints: gone once the module's tests have read them
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_trainer_matches_jax(slice_runs):
