@@ -64,7 +64,17 @@ Phases (any failure raises and the script exits non-zero):
    row's end, likewise.  The warp's image gradient (plain PyTorch, F4) at
    K2's shape, one and two flows of +-8 px and +-200 px: two calls
    bit-equal, within 1e-5 (of its largest magnitude) of a float64 sum, its
-   time printed.
+   time printed.  The fp16 forms (``fp16_kernels``): every fp16 entry
+   point at the bf16 forms' cases, each element within one fp16 ulp
+   (rtol 2^-10, atol 1e-6 of the largest |out|) of its plain version and
+   at most 1% of them not bit-equal (the flip rates of K1, K5 and K6 fp16
+   printed), K3's float32 d1 and d2 at 1e-5, K4 fp16 also against the
+   tangent route's fp16 flow gradient, the smooth flow and both routes in
+   one launch; K7 fp16 on the bands of 1, 2 and 4 (forward and d_f1
+   bit-equal to K1 and K5 fp16's rows, one band's d_slab rows
+   [20, 20 + H) K6 fp16's, the top, a middle and the bottom band at one
+   ulp of the plain version); the fp16 local-rows K2, K3 and K4 bit-equal
+   to the whole image's rows.
 3. FlowNet2 inference, seeded random weights, b8 384x512 fp32: warm-up,
    then 10 timed batches with CUDA events, with the launch counters set to
    0 just before and read just after (1 K1 and 3 K2 launches per forward,
@@ -85,6 +95,26 @@ Phases (any failure raises and the script exits non-zero):
    against the plain-op model with deterministic ones.  The bf16 model is
    then freed (phase 7 builds it again), so that phase 4 runs beside the
    one fp32 model, as it did before.
+3c. FlowNet2 fp16 inference (``get_model(..., dtype=torch.float16)``),
+   phase 3's weights and pairs: 10 timed batches counted as in phase 3 (1
+   correlation_fwd_fp16, 2 resample2d_fwd_fp16 and 1
+   resample2d_fwd_multi_fp16 a forward, no plain-op call); the output
+   finite, (8, 384, 512, 2) and fp16, within the bf16 contract of the
+   plain-op fp16 model on the card, of the fp32 model and, on the small
+   pair, of the fp16 model on the CPU; under two row bands, cuDNN
+   deterministic, within the same contract of the whole map, that
+   forward's launches exact (2 correlation_fwd_rows_fp16, 4 and 2 fp16
+   K2).  Printed: ms/batch, frames/s, the peak memory and the host's time
+   to enqueue a forward.  The fp16 model is then freed.
+3d. BatchNorm in low precision (``batchnorm_phase``): FlowNet2S with
+   BatchNorm at b8 384x512, one MultiScale Adam step each in fp32, bf16 and
+   fp16 (loss scale 1024, non-finite updates skipped), cuDNN
+   deterministic: the low-precision train-mode forward (each scale in the
+   compute dtype) and loss within the bf16 contract of fp32's; every
+   gradient float32 and finite, no update skipped; each BatchNorm's
+   running statistics float32, within 1e-5 of the update by the float64
+   statistics of its own low-precision input, and within the bf16
+   contract of the fp32 model's, layer by layer.
 4. FlowNet2 training through StepFactory, b8 384x448 fp32, MultiScale,
    Adam 1e-4, seeded weights, random images x255 and flow x5: the first
    step's loss and every parameter's gradient against the plain-op model
@@ -108,7 +138,10 @@ Phases (any failure raises and the script exits non-zero):
    place of the port's are printed beside, and its two backward passes
    must differ in flownetc, or the check of the port's is not shown to
    see what it checks for.  The small step against the CPU is also read,
-   not gated, on three more draws.
+   not gated, on three more draws; on each draw, FlowNetC's first warp's
+   sample point nearest an integer column is moved across it (dx by as
+   few ulps as it takes) and how far that carries FlowNetC's gradients is
+   printed beside their gap to the CPU and the 1e-3 gate.
 4b. FlowNet2 bf16 training (``get_model(..., dtype=torch.bfloat16)``:
    float32 master weights, bf16 convolutions, glue and warps, the loss and
    Adam in float32), phase 4's weights and batch: with cuDNN deterministic
@@ -128,6 +161,18 @@ Phases (any failure raises and the script exits non-zero):
    f32 kernel, no plain-op call), after phase 4's determinism checks on
    the bf16 model.  The bf16 model is then freed, so that phase 5 runs as
    it did before.
+4c. FlowNet2 fp16 training, phase 4's weights and batch, loss scale 1024
+   (the command line's default), non-finite updates skipped: with cuDNN
+   deterministic and the forward shared, the fp16 backward kernels against
+   the plain backward on both warp routes (loss bit-equal, each sub-net's
+   gradients within 5e-2 in relative L2, the worst tensor printed); the
+   loss and EPE, unscaled, within the bf16 contract of the fp32 step's;
+   the same step as two row bands on the card against the whole map (loss
+   and EPE at 5e-3 relative, sub-nets at 5e-2, flownetc and flownets_1
+   printed), its launches exact (2 of each K7 fp16 entry point, twice the
+   step's fp16 warps); then 2 warm-up and 10 timed steps per route, in
+   turns, counted as in phase 4 with the fp16 entry points; the skipped
+   updates printed, and the phase fails if every update was skipped.
 5. The row-band path: with ``set_spatial_shards(2)`` the correlation runs
    as two bands against halo slabs on K7 and every warp as two bands on
    the local-rows K2, K3 and K4, all on this card in turn.  The phase 3
@@ -189,7 +234,10 @@ Phases (any failure raises and the script exits non-zero):
    files bit-equal to ``infer_step`` of the seeded model), again with
    ``--spatial_shards 2`` (K7 forward and the local-rows K2; bit-equal to
    the whole map) and with ``--precision bf16`` (the bf16 entry points;
-   within the bf16 contract of the fp32 flows); one ``python -m
+   within the bf16 contract of the fp32 flows), with ``--precision fp16``
+   and with ``--precision fp16 --spatial_shards 2`` (the fp16 entry points;
+   within the bf16 contract of the fp32 flows, and the bands of the whole
+   fp16 map); one ``python -m
    flownet2_tpu_torch.cli --inference`` subprocess of one batch (exit 0);
    ``cli.main`` training from FlyingChairs-format files (crops of
    384x448, b8, 2 epochs of 2 steps, validation each epoch) from a
@@ -197,7 +245,11 @@ Phases (any failure raises and the script exits non-zero):
    validation forwards exact, no plain-op call; the final parameters and
    the logged losses bit-equal to ``Trainer.fit`` built by hand from the
    same pieces and files), then ``--resume <run>`` for a third epoch with
-   cuDNN's defaults (its launches exact, the count from 4 to 6).
+   cuDNN's defaults (its launches exact, the count from 4 to 6); one
+   ``--precision fp16`` epoch from the same ``.pth.tar`` (its launches the
+   fp16 entry points, exact; every record finite, each train record's
+   ``skipped`` 0 or 1 and not all 1, the first step's loss and EPE, before
+   any update, within the bf16 contract of the fp32 run's: unscaled).
    ms/step through the command line beside phases 4 and 5c, the
    conversion's seconds, inference seconds a batch.
 5e. Data parallel, in fresh processes started with torchrun's variables
@@ -276,7 +328,10 @@ Phases (any failure raises and the script exits non-zero):
    the bf16 step's, their operations at the bf16 tensor-core rate and,
    for the warps, whose bodies upcast and sum in f32, also at the f32
    rate; K7 bf16 at one band of two of the bf16 forward's and step's maps,
-   likewise), each beside
+   likewise; the fp16 forms at the bf16 forms' shapes and fp16 bytes, their
+   operations at the fp16 tensor-core rate and, since their bodies sum in
+   f32, also at the f32 rate, the warps beside ``F.grid_sample`` on fp16
+   tensors, whose fp16 grid's error in pixels is printed), each beside
    the SM clock, the two-flow K4 (+-8 px and +-200 px at (8, 3, 384, 448))
    among them, and K3's four forms with their share of the bound beside
    their times before the row tiles; K2, K3 and K4, one and two flows, f32
@@ -456,6 +511,9 @@ BF16_BAND_GATES = {"flownetc": None, "flownets_1": None}
 # one card's, and the validation loss after two updates apart from one
 # card's by at most DP_CLI_SHARE of how far those updates moved it
 DP_CLI_LR, DP_CLI_RTOL, DP_CLI_SHARE = 3e-6, 1e-4, 1e-2
+# the fp16 phases' static loss scale: the command line's --fp16_scale
+# default
+FP16_SCALE = 1024.0
 
 
 # The readings of the timed phases, printed where they are taken and again
@@ -550,24 +608,31 @@ def max_err(got: torch.Tensor, want: torch.Tensor, rtol: float,
     return err
 
 
+# The low-precision element types: the bits of their significand after
+# the point (one ulp is 2**-bits relative), and their short names
+ULP_BITS = {torch.bfloat16: (7, "bf16"), torch.float16: (10, "fp16")}
+
+
 def ulp_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
-    """A bfloat16 kernel against its plain version: every element within
-    one bf16 ulp (rtol 2**-7, atol 1e-6 of the largest |want|) and at most
-    1% of the elements not bit-equal."""
+    """A bfloat16 or float16 kernel against its plain version (both of one
+    dtype): every element within one ulp of that dtype (rtol 2**-7 for
+    bf16, 2**-10 for fp16, atol 1e-6 of the largest |want|) and at most 1%
+    of the elements not bit-equal."""
     torch.cuda.synchronize()
-    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+    if got.dtype not in ULP_BITS or want.dtype != got.dtype:
         raise AssertionError(f"{what}: {got.dtype} and {want.dtype}, not "
-                             "bfloat16")
+                             "one bfloat16 or float16 dtype")
+    bits, short = ULP_BITS[got.dtype]
     g, w = got.float(), want.float()
     err = (g - w).abs().max().item()
     flips = (got != want).float().mean().item()
     atol = 1e-6 * w.abs().max().item()
     print(f"  {what}: max abs diff {err:.3e}, not bit-equal {flips:.4%} "
-          f"(rtol 2^-7, atol {atol:.2e}; at most 1%)")
+          f"(rtol 2^-{bits}, atol {atol:.2e}; at most 1%)")
     if got.shape != want.shape or not torch.allclose(
-            g, w, rtol=2.0 ** -7, atol=atol) or flips > 0.01:
-        raise AssertionError(f"{what}: bf16 kernel disagrees with its plain "
-                             "version")
+            g, w, rtol=2.0 ** -bits, atol=atol) or flips > 0.01:
+        raise AssertionError(f"{what}: {short} kernel disagrees with its "
+                             "plain version")
     return err
 
 
@@ -1209,7 +1274,14 @@ def cli_phase(smi: str, phase4_ms: float, phase5c_ms: float,
                    "resample2d_fwd": 2 * SHARDS,
                    "resample2d_fwd_multi": SHARDS}),
                  ("bf16", ["--precision", "bf16"],
-                  {k + "_bf16": v for k, v in fwd.items()}))
+                  {k + "_bf16": v for k, v in fwd.items()}),
+                 ("fp16", ["--precision", "fp16"],
+                  {k + "_fp16": v for k, v in fwd.items()}),
+                 (f"fp16 {SHARDS} bands", ["--precision", "fp16",
+                                          "--spatial_shards", str(SHARDS)],
+                  {"correlation_fwd_rows_fp16": SHARDS,
+                   "resample2d_fwd_fp16": 2 * SHARDS,
+                   "resample2d_fwd_multi_fp16": SHARDS}))
         torch.backends.cudnn.deterministic = True
         flows, infer_s = {}, {}
         for what, extra, per_fwd in cases:
@@ -1247,7 +1319,14 @@ def cli_phase(smi: str, phase4_ms: float, phase5c_ms: float,
         bf16_contract(torch.stack(flows["bf16"]), torch.stack(flows["fp32"]),
                       "phase 5d, bf16 inference through cli.main against "
                       "fp32")
-        del want, flows
+        bf16_contract(torch.stack(flows["fp16"]), torch.stack(flows["fp32"]),
+                      "phase 5d, fp16 inference through cli.main against "
+                      "fp32")
+        bands16 = torch.stack(flows[f"fp16 {SHARDS} bands"])
+        bf16_contract(bands16, torch.stack(flows["fp16"]),
+                      f"phase 5d, fp16 inference through cli.main, {SHARDS} "
+                      "bands against the whole map")
+        del want, flows, bands16
 
         # -- (d) the real entry point, one batch
         t = time.perf_counter()
@@ -1376,6 +1455,37 @@ def cli_phase(smi: str, phase4_ms: float, phase5c_ms: float,
             raise AssertionError("the resumed run does not continue the "
                                  "count")
         (epoch3,) = walls["train_epoch"][n_epochs:]
+
+        # one fp16 epoch from the same .pth.tar (--fp16_scale's default):
+        # its launches exact, every record finite and unscaled, the first
+        # step's loss (before any update) within the bf16 contract of the
+        # fp32 run's
+        got, plain = run_cli("train fp16", *train_argv, "--total_epochs",
+                             "1", "--precision", "fp16", "--resume_torch",
+                             str(pth))
+        check_launches("phase 5d, one fp16 training epoch", got, plain,
+                       {k + "_fp16": v
+                        for k, v in train_launches(1).items()})
+        with open(work / "train fp16" / "run.metrics.jsonl") as f:
+            logged16 = [json.loads(line) for line in f]
+        train16 = [r for r in logged16 if r["split"] == "train"]
+        first32 = next(r for r in records("train") if r[1] == "train")
+        finite = all(math.isfinite(r["loss"]) and math.isfinite(r["epe"])
+                     for r in logged16)
+        val16 = [round(r["loss"], 6) for r in logged16
+                 if r["split"] == "val"]
+        note(f"  phase 5d, one fp16 epoch through cli.main: train losses "
+             f"{[round(r['loss'], 6) for r in train16]} (step 1 in fp32 "
+             f"{first32[2]:.6f}), skipped "
+             f"{[r['skipped'] for r in train16]}, validation {val16}, all "
+             f"finite {finite}  [{smi}]")
+        if not (finite and train16 and train16[0]["step"] == 1
+                and not all(r["skipped"] for r in train16)):
+            raise AssertionError(f"phase 5d, fp16 training: {logged16}")
+        bf16_contract(torch.tensor([train16[0]["loss"], train16[0]["epe"]]),
+                      torch.tensor([first32[2], first32[3]]),
+                      "phase 5d, the fp16 run's first loss and EPE against "
+                      "the fp32 run's (unscaled)")
 
         # -- (e) timing
         note(f"  phase 5d, ms/step through the command line: "
@@ -2266,6 +2376,474 @@ def kernels_on_device(dev: torch.device) -> dict:
     return dict(ops.LAUNCHES)
 
 
+def fp16_kernels(dev: torch.device, errs: dict) -> None:
+    """Phase 2's fp16 forms: every fp16 entry point against its plain
+    version at phase 2's bf16 cases, each element within one fp16 ulp and
+    at most 1% of them not bit-equal (``ulp_err``): K1, K5 and K6 at the
+    main-path, training, wide and ragged maps (the general bodies at every
+    configuration, maxd 8, s2 1 and maxd 4, s2 2 among them); K2 for one
+    flow of +-8 px and of +-200 px and for two flows over the
+    (8, 3, 384, 512) image and the ragged (2, 3, 100, 150) one; K3 (out;
+    its float32 d1 and d2 at 1e-5) and K4 on K3's and K4's cases and at
+    (2, 3, 100, 136), K4 also at one ulp of the tangent route's fp16 flow
+    gradient; K2, K3 and K4 at the smooth flow and with both routes in one
+    launch.  K7 fp16 (forward, d_f1, d_slab) on the bands of 1, 2 and 4:
+    every band's forward and d_f1 bit-equal to the same rows of K1 and K5
+    fp16, one band's d_slab rows [20, 20 + H) K6 fp16's, the top, a middle
+    and the bottom band at one ulp of the plain version; the fp16
+    local-rows K2, K3 and K4 (one and two flows, +-8 px and +-200 px) on
+    the bands of 2 and of 4 bit-equal to the same rows of the whole-image
+    fp16 kernels.  Inputs of a generator of their own; the readings go
+    into ``errs`` under the counter names."""
+    from flownet2_tpu_torch.ops import correlation as corr
+    from flownet2_tpu_torch.ops import correlation_spatial as corr_sp
+    from flownet2_tpu_torch.ops import resample2d as r2d
+    from flownet2_tpu_torch.ops import upsample
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).half()
+
+    def uniform(*shape, scale):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * scale).half()
+
+    print("  fp16 kernels against their plain versions, one fp16 ulp")
+    odd = (2, 40, 20, 75)
+    main_map = (BATCH, 256, HEIGHT // 8, WIDTH // 8)
+    train_map = (TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8)
+    maps = (main_map, (4, 256, 48, 128), (2, 40, 20, 152), odd,
+            (2, 40, 3, 64), (2, 40, 5, 75))
+    flips = {}
+    for shape, maxd, s2 in ([(m, 20, 2) for m in maps]
+                            + [(odd, 8, 1), (odd, 4, 2)]):
+        f1, f2 = randn(*shape), randn(*shape)
+        args = (maxd, 1, maxd, 1, s2)
+        got = corr.correlation_cuda(f1, f2, *args)
+        want = corr.correlation_plain(f1, f2, *args)
+        errs.setdefault("correlation_fwd_fp16", []).append(ulp_err(
+            got, want, f"K1 fp16 correlation {shape}, maxd {maxd}, s2 {s2}"))
+        flips.setdefault("K1", []).append(
+            (got != want).float().mean().item())
+    for shape, maxd, s2 in ([(m, 20, 2) for m in (train_map,) + maps
+                             + ((2, 40, 20, 150),)]
+                            + [(odd, 8, 1), (odd, 4, 2)]):
+        f1, f2 = randn(*shape), randn(*shape)
+        g = randn(shape[0], (2 * (maxd // s2) + 1) ** 2, *shape[2:])
+        got = corr.correlation_bwd_cuda(g, f1, f2, maxd, s2)
+        want = corr.correlation_bwd_plain(g, f1, f2, maxd, s2)
+        for k, name in enumerate(("correlation_bwd_f1_fp16",
+                                  "correlation_bwd_f2_fp16")):
+            errs.setdefault(name, []).append(ulp_err(
+                got[k], want[k], f"K{5 + k} fp16 correlation d_f{1 + k} "
+                f"{shape}, maxd {maxd}, s2 {s2}"))
+            flips.setdefault(f"K{5 + k}", []).append(
+                (got[k] != want[k]).float().mean().item())
+    for kernel, shares in flips.items():
+        note(f"  {kernel} fp16 (general body) against its plain version: "
+             f"{min(shares):.4%} to {max(shares):.4%} of the values not "
+             f"bit-equal over {len(shares)} cases")
+
+    img = randn(BATCH, 3, HEIGHT, WIDTH)
+    flow8 = uniform(BATCH, 2, HEIGHT, WIDTH, scale=8.0)
+    flow200 = uniform(BATCH, 2, HEIGHT, WIDTH, scale=200.0)
+    ragged_img = randn(2, 3, 100, 150)
+    ragged_flow = uniform(2, 2, 100, 150, scale=8.0)
+    for what, im, fl in (("one flow of +-8 px", img, flow8),
+                         ("one flow of +-200 px", img, flow200),
+                         ("one flow, (2, 3, 100, 150)", ragged_img,
+                          ragged_flow)):
+        errs.setdefault("resample2d_fwd_fp16", []).append(ulp_err(
+            r2d.resample2d_cuda(im, fl), r2d.resample2d_plain(im, fl),
+            f"K2 fp16 warp, {what}"))
+    flows = torch.stack([flow8, flow200], dim=1)
+    ragged_flows = torch.stack(
+        [ragged_flow, uniform(2, 2, 100, 150, scale=200.0)], dim=1)
+    for what, im, fl in (("two flows", img, flows),
+                         ("two flows, (2, 3, 100, 150)", ragged_img,
+                          ragged_flows)):
+        errs.setdefault("resample2d_fwd_multi_fp16", []).append(ulp_err(
+            r2d.resample2d_multi_cuda(im, fl),
+            r2d.resample2d_multi_plain(im, fl), f"K2 fp16 warp, {what}"))
+
+    # K3 and K4 at K3's and K4's cases, and at W = 136, where the last
+    # column tile's first thread pair of K3's paired tangent stores has one
+    # thread in the map and one past its end
+    t_img = randn(TRAIN_BATCH, 3, TRAIN_HEIGHT, TRAIN_WIDTH)
+    t_flows = torch.stack([
+        uniform(TRAIN_BATCH, 2, TRAIN_HEIGHT, TRAIN_WIDTH, scale=px)
+        for px in (8.0, 200.0)], dim=1)
+    cases = [("+-8 px", t_img, t_flows[:, :1].contiguous()),
+             ("+-200 px", t_img, t_flows[:, 1:].contiguous()),
+             ("two flows", t_img, t_flows),
+             ("(2, 3, 100, 150)", ragged_img, ragged_flow.unsqueeze(1)),
+             ("two flows, (2, 3, 100, 136)", randn(2, 3, 100, 136),
+              uniform(2, 2, 2, 100, 136, scale=8.0))]
+
+    def warp_checks(what, im, fl, g):
+        nflows = fl.shape[1]
+        k3 = r2d._per_flow("resample2d_tangents", nflows) + "_fp16"
+        got = r2d.resample2d_tangents_cuda(im, fl)
+        want = r2d.resample2d_tangents_plain(im, fl)
+        errs.setdefault(k3, []).append(ulp_err(
+            got[0], want[0], f"K3 fp16 warp tangents out, {what}"))
+        for part, a, b in zip(("d1", "d2"), got[1:], want[1:]):
+            if a.dtype != torch.float32:
+                raise AssertionError(f"K3 fp16 {part}: {a.dtype}")
+            errs[k3].append(max_err(a, b, 1e-5, 1e-5, f"K3 fp16 warp "
+                                    f"tangents {part} (float32), {what}"))
+        k4 = r2d.resample2d_grad_flow_cuda(g, im, fl)
+        errs.setdefault(r2d._per_flow("resample2d_grad_flow", nflows)
+                        + "_fp16", []).append(ulp_err(
+            k4, r2d.resample2d_grad_flow_plain(g, im, fl),
+            f"K4 fp16 warp flow gradient, {what}"))
+        return k4
+
+    for what, im, fl in cases:
+        g = randn(fl.shape[0], fl.shape[1], 3, *fl.shape[3:])
+        k4 = warp_checks(what, im, fl, g)
+        with torch.enable_grad():
+            leaf = fl.clone().requires_grad_()
+            (tangent_grad,) = torch.autograd.grad(
+                r2d.resample2d_tangents(im, leaf), leaf, g)
+        ulp_err(k4, tangent_grad, f"K4 fp16 against the tangent route's "
+                f"fp16 d_flow, {what}")
+
+    # the row tiles at the smooth flow the stage glue makes (+-8 px at
+    # (H/4, W/4), bilinear x4), and in one launch whose blocks take both
+    # routes (half the batch at +-8 px, half at +-200 px)
+    half = BATCH // 2
+    for nflows in (1, 2):
+        tiles = [(f"smooth flow, {nflows} flow(s), {h}x{w}",
+                  upsample.upsample_bilinear(
+                      uniform(BATCH * nflows, 2, h // 4, w // 4, scale=8.0)
+                      .float()).reshape(BATCH, nflows, 2, h, w).half())
+                 for h, w in ((HEIGHT, WIDTH), (TRAIN_HEIGHT, TRAIN_WIDTH))]
+        tiles.append((f"both routes in one launch, {nflows} flow(s)",
+                      torch.cat([uniform(half, nflows, 2, HEIGHT, WIDTH,
+                                         scale=8.0),
+                                 uniform(BATCH - half, nflows, 2, HEIGHT,
+                                         WIDTH, scale=200.0)])))
+        for what, fl in tiles:
+            im = randn(BATCH, 3, *fl.shape[3:])
+            errs[r2d._per_flow("resample2d_fwd", nflows) + "_fp16"].append(
+                ulp_err(r2d.resample2d_multi_cuda(im, fl),
+                        r2d.resample2d_multi_plain(im, fl),
+                        f"K2 fp16 warp, {what}"))
+            warp_checks(what, im, fl, randn(BATCH, nflows, 3, *fl.shape[3:]))
+
+    # K7 fp16 on the bands of the main paths', the wide and the ragged
+    # maps and of a 5-row map (bands of one row at 4)
+    names = ("correlation_fwd_rows_fp16", "correlation_bwd_f1_rows_fp16",
+             "correlation_bwd_f2_rows_fp16")
+    for shape in (main_map, train_map, (4, 256, 48, 128), (2, 40, 20, 152),
+                  odd, (2, 40, 5, 64)):
+        f1, f2 = randn(*shape), randn(*shape)
+        g = randn(shape[0], 21 * 21, *shape[2:])
+        whole = (corr.correlation_cuda(f1, f2, 20, 1, 20, 1, 2),
+                 *corr.correlation_bwd_cuda(g, f1, f2, 20, 2))
+        f2p = F.pad(f2, (0, 0, 20, 20))
+        for shards in (1, 2, 4):
+            local_h = shape[2] // shards
+            for band in range(shards):
+                off = band * local_h
+                rows = slice(off, off + local_h)
+                f1_loc = f1[:, :, rows].contiguous()
+                g_loc = g[:, :, rows].contiguous()
+                slab = f2p[:, :, off:off + local_h + 40].contiguous()
+                got = (corr_sp.corr_slab_cuda(f1_loc, slab, 20, 2),
+                       *corr_sp.corr_slab_bwd_cuda(g_loc, f1_loc, slab, 20,
+                                                   2))
+                for k in range(2):
+                    if not torch.equal(got[k], whole[k][:, :, rows]):
+                        raise AssertionError(
+                            f"{names[k]} {shape}, band {band} of {shards}: "
+                            "not the whole-map fp16 kernel's bits")
+                if shards == 1 and not torch.equal(got[2][:, :, 20:-20],
+                                                   whole[2]):
+                    raise AssertionError(
+                        f"{names[2]} {shape}, one band: rows [20, 20 + H) "
+                        "not K6 fp16's bits")
+                if 1 < band < shards - 1:
+                    continue   # one middle band is held to the plain op
+                want = (corr_sp.corr_slab_plain(f1_loc, slab, 20, 2),
+                        *corr_sp.corr_slab_bwd_plain(g_loc, f1_loc, slab, 20,
+                                                     2))
+                for name, a, b in zip(names, got, want):
+                    errs.setdefault(name, []).append(ulp_err(
+                        a, b, f"K7 fp16 {name} {shape}, band {band} of "
+                        f"{shards}"))
+        print(f"  K7 fp16 {shape}: one band bit-equal to K1, K5, K6 fp16; "
+              "the bands of 2 and of 4 bit-equal to K1, K5 fp16's rows")
+
+    # the fp16 local-rows K2, K3, K4 against the same rows of the whole
+    # image
+    for what, im, fl in (
+            ("K2 shape, one flow of +-8 px", img, flow8.unsqueeze(1)),
+            ("K2 shape, one flow of +-200 px", img, flow200.unsqueeze(1)),
+            ("K2 shape, two flows", img, flows),
+            ("K3/K4 shape, one flow of +-8 px", t_img,
+             t_flows[:, :1].contiguous()),
+            ("K3/K4 shape, one flow of +-200 px", t_img,
+             t_flows[:, 1:].contiguous()),
+            ("K3/K4 shape, two flows", t_img, t_flows)):
+        g = randn(fl.shape[0], fl.shape[1], 3, *fl.shape[3:])
+        whole = (r2d.resample2d_multi_cuda(im, fl),
+                 *r2d.resample2d_tangents_cuda(im, fl),
+                 r2d.resample2d_grad_flow_cuda(g, im, fl))
+        for shards in (2, 4):
+            local_h = im.shape[2] // shards
+            for off in range(0, im.shape[2], local_h):
+                rows = slice(off, off + local_h)
+                fl_loc = fl[:, :, :, rows].contiguous()
+                got = (r2d.resample2d_multi_cuda(im, fl_loc, off),
+                       *r2d.resample2d_tangents_cuda(im, fl_loc, off),
+                       r2d.resample2d_grad_flow_cuda(
+                           g[:, :, :, rows].contiguous(), im, fl_loc, off))
+                for part, a, b in zip(("K2", "K3 out", "K3 d1", "K3 d2",
+                                       "K4"), got, whole):
+                    if a.dtype != b.dtype or not torch.equal(
+                            a, b[:, :, :, rows]):
+                        raise AssertionError(
+                            f"{part} fp16 local rows [{off}, "
+                            f"{off + local_h}), {what}: not the whole-image "
+                            "fp16 kernel's bits")
+        print(f"  K2, K3, K4 fp16 on the bands of 2 and of 4, {what}: "
+              "bit-equal to the whole-image fp16 kernels' rows")
+
+
+def fp16_inference_phase(smi: str, model, pairs, small, plain_ops) -> dict:
+    """Phase 3c: FlowNet2 fp16 inference (``get_model(...,
+    dtype=torch.float16)``), phase 3's weights and pairs: TIMED_BATCHES
+    timed batches, the counters set to 0 just before and read just after
+    (per forward 1 correlation_fwd_fp16, 2 resample2d_fwd_fp16 and 1
+    resample2d_fwd_multi_fp16, nothing else, no plain-op call); the output
+    finite, fp16 and (B, H, W, 2), and within the JAX package's bf16
+    contract of the plain-op fp16 model on the card (``plain_ops``), of the
+    fp32 ``model`` and, on the ``small`` pair, of the fp16 model on the
+    CPU; under two row bands, cuDNN deterministic, within the same contract
+    of the whole map, that forward's launches exact (2
+    correlation_fwd_rows_fp16, 4 resample2d_fwd_fp16, 2
+    resample2d_fwd_multi_fp16).  Prints ms/batch, frames/s, the peak
+    memory, the host's time to enqueue a forward and the contract's
+    readings.  The fp16 model is freed at the end.  Returns the launches of
+    the timed forwards and of the band forward, and the ms/batch."""
+    from flownet2_tpu_torch import ops
+    from flownet2_tpu_torch.models import get_model
+    from flownet2_tpu_torch.ops import sharding_hints
+
+    print(f"phase 3c: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp16 (float32 "
+          "parameters, fp16 convolutions, glue and warps)")
+    model16 = get_model("FlowNet2", device=DEVICE, seed=0,
+                        dtype=torch.float16)
+
+    def check_launches(what, got, plain, want):
+        print(f"  {what}: launches {got}; plain-op calls {plain}")
+        if got != want or plain:
+            raise AssertionError(f"{what}: launches {got} / plain calls "
+                                 f"{plain}; expected {want} / {{}}")
+
+    with torch.inference_mode():
+        for pair in pairs:
+            model16(pair)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        ops.reset_counts()
+        start.record()
+        for i in range(TIMED_BATCHES):
+            flow16 = model16(pairs[i % 2])
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        check_launches(f"phase 3c, {TIMED_BATCHES} fp16 forwards", launches,
+                       dict(ops.PLAIN_CALLS),
+                       {"correlation_fwd_fp16": TIMED_BATCHES,
+                        "resample2d_fwd_fp16": 2 * TIMED_BATCHES,
+                        "resample2d_fwd_multi_fp16": TIMED_BATCHES})
+        ms = start.elapsed_time(end) / TIMED_BATCHES
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        if flow16.shape != (BATCH, HEIGHT, WIDTH, 2) \
+                or flow16.dtype != torch.float16 \
+                or not torch.isfinite(flow16).all():
+            raise AssertionError(f"bad fp16 flow: {tuple(flow16.shape)} "
+                                 f"{flow16.dtype}, finite="
+                                 f"{torch.isfinite(flow16).all().item()}")
+        note(f"  phase 3c, fp16 inference: {ms:.3f} ms/batch, "
+             f"{BATCH / ms * 1e3:.2f} frames/s, peak {peak_gib:.2f} GiB "
+             f"allocated; launches over {TIMED_BATCHES} forwards "
+             f"{launches}  [{smi}]")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TIMED_BATCHES):
+            model16(pairs[i % 2])
+        host_ms = (time.perf_counter() - t0) * 1e3 / TIMED_BATCHES
+        torch.cuda.synchronize()
+        note(f"  phase 3c: the host enqueues an fp16 forward in "
+             f"{host_ms:.3f} ms, the card runs one in {ms:.3f} ms")
+
+        flow16 = model16(pairs[0])
+        with plain_ops():
+            bf16_contract(flow16, model16(pairs[0]), "phase 3c, against the "
+                          "plain-op fp16 model on the card")
+        bf16_contract(flow16, model(pairs[0]), "phase 3c, against the fp32 "
+                      "model of the same weights")
+        cpu16 = get_model("FlowNet2", device="cpu", seed=0,
+                          dtype=torch.float16)
+        bf16_contract(model16(small), cpu16(small.cpu()), "phase 3c, small "
+                      "pair against the fp16 model on the CPU")
+        del cpu16
+        # two row bands (K7 fp16 and the fp16 local-rows K2) against the
+        # whole map, cuDNN deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            whole = model16(pairs[0])
+            ops.reset_counts()
+            with sharding_hints.scoped_spatial_shards(SHARDS):
+                bands = model16(pairs[0])
+            torch.cuda.synchronize()
+            band_launches = dict(ops.LAUNCHES)
+            check_launches(f"phase 3c, one fp16 forward as {SHARDS} row "
+                           "bands", band_launches, dict(ops.PLAIN_CALLS),
+                           {"correlation_fwd_rows_fp16": SHARDS,
+                            "resample2d_fwd_fp16": 2 * SHARDS,
+                            "resample2d_fwd_multi_fp16": SHARDS})
+        finally:
+            torch.backends.cudnn.deterministic = False
+        note(f"  phase 3c, fp16 model under {SHARDS} row bands against the "
+             f"whole map, cuDNN deterministic: bit-equal "
+             f"{torch.equal(bands, whole)}, not bit-equal "
+             f"{(bands != whole).float().mean().item():.4%}")
+        bf16_contract(bands, whole, f"phase 3c, fp16 model under {SHARDS} "
+                      "row bands against the whole map")
+        del flow16, whole, bands
+    del model16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "band_launches": band_launches, "ms": ms}
+
+
+def batchnorm_phase(smi: str) -> None:
+    """Phase 3d: BatchNorm in low precision.  FlowNet2S with BatchNorm
+    (``batch_norm=True``, seeded weights) at b8 HEIGHT x WIDTH, MultiScale,
+    Adam 1e-4, cuDNN deterministic: one train step in fp32, in bf16 and in
+    fp16 (loss scale FP16_SCALE, non-finite updates skipped), each from
+    the same weights and running statistics.  In bf16 and fp16: the
+    step's train-mode forward (each scale of the tuple in the compute
+    dtype) and its loss within the bf16 contract of the fp32 model's;
+    every gradient float32 and finite, no update skipped; the running
+    statistics float32 and, for each BatchNorm, within 1e-5 (of their
+    largest magnitude) of 0.9 of their old value plus 0.1 of the float64
+    mean and unbiased variance of that layer's own low-precision input in
+    the step (so the statistics are float32 sums), and, each layer's mean
+    and variance, within the bf16 contract of the fp32 model's after its
+    step (printed: the worst share of the contract's limit)."""
+    from flownet2_tpu_torch.losses import MultiScale
+    from flownet2_tpu_torch.models import get_model
+    from flownet2_tpu_torch.train import StepFactory, get_optimizer
+
+    print(f"phase 3d: FlowNet2S with BatchNorm b{BATCH} {HEIGHT}x{WIDTH}, "
+          "one train step in fp32, bf16 and fp16")
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    images = torch.rand((BATCH, 2, HEIGHT, WIDTH, 3), generator=gen,
+                        device=DEVICE) * 255.0
+    target = torch.rand((BATCH, HEIGHT, WIDTH, 2), generator=gen,
+                        device=DEVICE) * 5.0
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            model = get_model("FlowNet2S", device=DEVICE, seed=3,
+                              batch_norm=True, dtype=dtype)
+            norms = {n: m for n, m in model.named_modules()
+                     if isinstance(m, torch.nn.BatchNorm2d)}
+            before = {n: (m.running_mean.clone(), m.running_var.clone())
+                      for n, m in norms.items()}
+            seen, hooks = {}, []
+
+            def stats(name):
+                def hook(module, args):
+                    x = args[0].detach().double()
+                    seen[name] = (x.mean(dim=(0, 2, 3)),
+                                  x.var(dim=(0, 2, 3), unbiased=True))
+                return hook
+
+            for n, m in norms.items():
+                hooks.append(m.register_forward_pre_hook(stats(n)))
+            outs = []
+            hooks.append(model.register_forward_hook(
+                lambda mod, args, out: outs.append(
+                    [t.detach().clone() for t in out])))
+            fp16 = dtype == torch.float16
+            factory = StepFactory(model, MultiScale(),
+                                  get_optimizer("Adam", 1e-4),
+                                  loss_scale=FP16_SCALE if fp16 else 1.0,
+                                  skip_nonfinite_updates=fp16)
+            metrics = factory.train_step()(images, target)
+            torch.cuda.synchronize()
+            for h in hooks:
+                h.remove()
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad.dtype != torch.float32
+                   or not torch.isfinite(p.grad).all()]
+            if bad or factory.skipped_updates:
+                raise AssertionError(f"phase 3d, {dtype}: gradients not "
+                                     f"float32 and finite {bad[:5]}, "
+                                     f"{factory.skipped_updates} skipped")
+            runs[dtype] = dict(
+                out=outs[0], loss=metrics["loss"].detach(),
+                stats={n: (m.running_mean.detach().clone(),
+                           m.running_var.detach().clone())
+                       for n, m in norms.items()},
+                before=before, seen=seen)
+            del model, factory, outs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ref = runs[torch.float32]
+    for dtype in (torch.bfloat16, torch.float16):
+        run = runs[dtype]
+        tag = f"phase 3d, {str(dtype)[6:]}"
+        for k, (a, b) in enumerate(zip(run["out"], ref["out"])):
+            if a.dtype != dtype:
+                raise AssertionError(f"{tag}: flow{k + 2} is {a.dtype}")
+            bf16_contract(a, b, f"{tag}, train-mode flow{k + 2} against "
+                          "fp32")
+        bf16_contract(run["loss"], ref["loss"], f"{tag}, the step's loss "
+                      "against fp32")
+        own, vs32, vs32_at = 0.0, 0.0, None
+        for n, (mean, var) in run["stats"].items():
+            if mean.dtype != torch.float32 or var.dtype != torch.float32:
+                raise AssertionError(f"{tag}: {n}'s running statistics "
+                                     f"are {mean.dtype}")
+            old_mean, old_var = run["before"][n]
+            in_mean, in_var = run["seen"][n]
+            for got, old, batch, ref_stat in (
+                    (mean, old_mean, in_mean, ref["stats"][n][0]),
+                    (var, old_var, in_var, ref["stats"][n][1])):
+                want = 0.9 * old.double() + 0.1 * batch
+                top = want.abs().max().item()
+                own = max(own, (got.double() - want).abs().max().item()
+                          / top)
+                # the bf16 contract's mean error over its limit
+                ratio = ((got - ref_stat).abs().mean().item()
+                         / (0.05 * (ref_stat.abs().mean().item() + 1e-3)
+                            + 5e-3))
+                if ratio >= vs32:
+                    vs32, vs32_at = ratio, n
+        note(f"  {tag}: running statistics float32, within {own:.3e} of "
+             "the update by the float64 statistics of their own input "
+             f"(gate 1e-5); against the fp32 model's, the bf16 contract's "
+             f"mean error at {vs32:.3f} of its limit at worst ({vs32_at}); "
+             f"{len(run['stats'])} BatchNorm layers  [{smi}]")
+        if own > 1e-5 or vs32 >= 1.0:
+            raise AssertionError(f"{tag}: running statistics beyond their "
+                                 "gates")
+
+
 def multi_card_cli(smi: str, n_cards: int, work: Path, spatial: int = 1,
                    wanted=("train SGD", "train Adam", "infer")) -> None:
     """The plain command on every card against the same command on one:
@@ -2559,6 +3137,7 @@ def multi_card_main() -> int:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -3152,6 +3731,9 @@ def main() -> int:
                                          "fixed sum of the taps")
         del dimg_img, dimg_flows, dimg_g, first, second, ref
 
+        # the fp16 forms of every kernel, on inputs of their own generator
+        fp16_kernels(dev, errs)
+
     # -- 3. FlowNet2 inference ----------------------------------------------
     print(f"phase 3: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, TF32 off")
     model = get_model("FlowNet2", device=DEVICE, seed=0)
@@ -3307,6 +3889,10 @@ def main() -> int:
     del model16
     torch.cuda.empty_cache()
 
+    # -- 3c. FlowNet2 fp16 inference; 3d. BatchNorm in bf16 and fp16 ----------
+    fp16_run = fp16_inference_phase(smi, model, pairs, small, plain_ops)
+    batchnorm_phase(smi)
+
     # -- 4. FlowNet2 training -------------------------------------------------
     print(f"phase 4: FlowNet2 train step b{TRAIN_BATCH} {TRAIN_HEIGHT}x"
           f"{TRAIN_WIDTH} fp32, TF32 off, MultiScale, Adam 1e-4")
@@ -3397,6 +3983,61 @@ def main() -> int:
     # the gate holds on this draw; on other draws it has read over 1e-3,
     # with torch's upsample as with the port's (ROADMAP.md, section 3), so
     # three more are read and printed, not gated
+    def subnet(grads, net="flownetc"):
+        return {n: g for n, g in grads.items() if n.startswith(net + ".")}
+
+    def across_reading(what, imgs, tgt, g_card, g_cpu):
+        """Whether FlowNetC's gap to the CPU is the noise line: on the card,
+        the sample point x + dx of FlowNetC's warp (the first stage glue's)
+        nearest to an integer column is moved across it, dx by as few ulps
+        as it takes, and FlowNetC's gradients are read again.  Printed: how
+        far the move carries them (against the 1e-3 gate) beside their gap
+        to the CPU.  Not gated."""
+        import numpy as np
+
+        warp = stage_glue._warp
+        taken = []
+
+        def first_warp(move):
+            def run(x2, flows):
+                if not taken:
+                    taken.append(flows.detach().clone())
+                    flows = move(flows)
+                return warp(x2, flows)
+            return run
+
+        with mock.patch.object(stage_glue, "_warp", first_warp(lambda f: f)):
+            before = subnet(loss_and_grads(tmodel, imgs, tgt)[2])
+        dx = taken[0][0, 0, 0].cpu().numpy()
+        sample = np.arange(dx.shape[1], dtype=np.float32) + dx
+        y, x = np.unravel_index(
+            np.argmin(np.abs(sample - np.round(sample))), sample.shape)
+        edge = np.round(sample[y, x])
+        side = sample[y, x] >= edge
+        moved, ulps = dx[y, x], 0
+        while (np.float32(x) + moved >= edge) == side:
+            moved = np.nextafter(moved,
+                                 np.float32(-np.inf if side else np.inf))
+            ulps += 1
+
+        def across(flows):
+            flows = flows.clone()
+            flows[0, 0, 0, y, x] = float(moved)
+            return flows
+
+        taken.clear()
+        with mock.patch.object(stage_glue, "_warp", first_warp(across)):
+            after = subnet(loss_and_grads(tmodel, imgs, tgt)[2])
+        jump = grad_errors(after, before)[2]
+        gap = grad_errors(g_card, g_cpu)[2]
+        note(f"  phase 4, {what}: FlowNetC's gap to the CPU {gap:.3e}; its "
+             f"warp's sample point at (row {y}, column {x}) moved across "
+             f"column {edge:g} ({ulps} ulp of dx) moves its gradients by "
+             f"{jump:.3e} in relative L2: "
+             + ("more" if jump > 1e-3 else "less") + " than the 1e-3 gate")
+
+    across_reading("the gated draw", small_img, small_tgt, subnet(grads_s),
+               subnet(grads_c))
     draw_gen = torch.Generator(device=dev)
     for draw_seed in (1, 2, 3):
         draw_gen.manual_seed(draw_seed)
@@ -3407,15 +4048,16 @@ def main() -> int:
         g_card = loss_and_grads(tmodel, draw_img, draw_tgt)[2]
         g_cpu = loss_and_grads(cpu_model, draw_img.cpu(),
                                draw_tgt.cpu())[2]
-        by_net = {net: grad_errors(
-            {n: g for n, g in g_card.items() if n.startswith(net + ".")},
-            {n: g for n, g in g_cpu.items() if n.startswith(net + ".")})[2]
-            for net in ("flownetc", "flownets_1")}
+        by_net = {net: grad_errors(subnet(g_card, net),
+                                   subnet(g_cpu, net))[2]
+                  for net in ("flownetc", "flownets_1")}
         all_rel = grad_errors(g_card, g_cpu)[2]
         note(f"  phase 4, small step against the CPU, draw of seed "
              f"{draw_seed} (not gated): all gradients {all_rel:.3e} in "
              f"relative L2, flownetc {by_net['flownetc']:.3e}, "
              f"flownets_1 {by_net['flownets_1']:.3e}")
+        across_reading(f"draw of seed {draw_seed}", draw_img, draw_tgt,
+                   subnet(g_card), subnet(g_cpu))
     del grads_k, grads_s, grads_c, cpu_model, g_card, g_cpu, draw_img, \
         draw_tgt
 
@@ -3668,6 +4310,113 @@ def main() -> int:
          "route, CUDA events above)")
     # phase 5 runs as it did before phase 4b: no second model beside it
     del model16, step16
+    torch.cuda.empty_cache()
+
+    # -- 4c. FlowNet2 fp16 training -------------------------------------------
+    print(f"phase 4c: FlowNet2 fp16 train step b{TRAIN_BATCH} {TRAIN_HEIGHT}x"
+          f"{TRAIN_WIDTH} (float32 master weights, fp16 convolutions, glue "
+          f"and warps), MultiScale, Adam 1e-4, loss scale {FP16_SCALE:g}, "
+          "non-finite updates skipped")
+    modelh = get_model("FlowNet2", device=DEVICE, seed=0, dtype=torch.float16)
+
+    def fp16_grads(net, imgs, tgt, what):
+        """loss_and_grads of the fp16 model with the loss scaled by
+        FP16_SCALE before the backward and the gradients divided by it
+        after, as StepFactory does: the loss unscaled, every gradient
+        float32 and finite."""
+        net.train()
+        net.zero_grad(set_to_none=True)
+        lossvalue, epevalue = loss_fn(net(imgs), tgt)
+        (lossvalue * FP16_SCALE).backward()
+        grads = {n: p.grad.detach() / FP16_SCALE
+                 for n, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        bad = [n for n, g in grads.items()
+               if g.dtype != torch.float32 or not torch.isfinite(g).all()]
+        if bad:
+            raise AssertionError(f"{what}: gradients not float32 and finite: "
+                                 f"{bad[:5]}")
+        return lossvalue.item(), epevalue.item(), grads
+
+    # with the forward shared, the fp16 backward kernels against the plain
+    # backward on both routes, every sub-net at 5e-2 in relative L2
+    torch.backends.cudnn.deterministic = True
+    loss_h, epe_h, grads_h = fp16_grads(modelh, images, target, "fp16 step")
+    print(f"  first step: loss {loss_h:.6f}, EPE {epe_h:.6f}")
+    for route in ROUTES:
+        with mock.patch.object(stage_glue, "TRAIN_WARP", route):
+            loss_r, _, grads_r = (
+                (loss_h, epe_h, grads_h)
+                if route == stage_glue.TRAIN_WARP
+                else fp16_grads(modelh, images, target, f"fp16 {route}"))
+            with plain_ops(backward_kernels):
+                ops.reset_counts()
+                loss_b, _, grads_b = fp16_grads(modelh, images, target,
+                                                "fp16 plain backward")
+                if any(k.startswith(("correlation_bwd",
+                                     "resample2d_grad_flow"))
+                       for k in ops.LAUNCHES):
+                    raise AssertionError(f"plain backward launched "
+                                         f"{dict(ops.LAUNCHES)}")
+        if loss_b != loss_r:
+            raise AssertionError(f"fp16 {route}: the forward is not shared "
+                                 f"(loss {loss_r} against {loss_b})")
+        subnets_close(grads_r, grads_b, {}, f"phase 4c, fp16 {route} route, "
+                      "backward kernels against the plain backward (loss "
+                      "bit-equal)")
+    del grads_r, grads_b
+    # the loss unscaled: within the contract of the fp32 step's
+    bf16_contract(torch.tensor([loss_h, epe_h]),
+                  torch.tensor([loss_k, epe_k]), "phase 4c, the fp16 step's "
+                  "loss and EPE against the fp32 step's")
+
+    # the same step as two row bands on this card (K7 fp16 and the fp16
+    # local-rows K2 and K4), cuDNN deterministic, against the whole map;
+    # its launches exact
+    ops.reset_counts()
+    with sharding_hints.scoped_spatial_shards(SHARDS):
+        loss_bh, epe_bh, grads_bh = fp16_grads(modelh, images, target,
+                                               "fp16 band step")
+    torch.cuda.synchronize()
+    band_step_h = dict(ops.LAUNCHES)
+    want = {"correlation_fwd_rows_fp16": SHARDS,
+            "correlation_bwd_f1_rows_fp16": SHARDS,
+            "correlation_bwd_f2_rows_fp16": SHARDS,
+            "resample2d_fwd_fp16": 2 * SHARDS,
+            "resample2d_fwd_multi_fp16": SHARDS,
+            "resample2d_grad_flow_fp16": 2 * SHARDS,
+            "resample2d_grad_flow_multi_fp16": SHARDS}
+    print(f"  phase 4c, one fp16 step as {SHARDS} row bands: launches "
+          f"{band_step_h}; plain-op calls {dict(ops.PLAIN_CALLS)}")
+    if band_step_h != want or ops.PLAIN_CALLS:
+        raise AssertionError(f"fp16 band step launches {band_step_h}; "
+                             f"expected {want}")
+    torch.backends.cudnn.deterministic = False
+    for a, b, what in ((loss_bh, loss_h, "loss"), (epe_bh, epe_h, "EPE")):
+        note(f"  phase 4c, fp16 {what}: {SHARDS} bands {a:.6f}, whole map "
+             f"{b:.6f}")
+        if not abs(a - b) <= 5e-3 * abs(b):
+            raise AssertionError(f"fp16 {what}: bands {a} vs whole {b}")
+    subnets_close(grads_bh, grads_h, BF16_BAND_GATES, f"phase 4c, fp16 step "
+                  f"under {SHARDS} bands against the whole map")
+    del grads_h, grads_bh
+
+    # timed, both routes in turns, the launches exact; every update at loss
+    # scale FP16_SCALE that overflowed is skipped and counted
+    factory_h = StepFactory(modelh, loss_fn, get_optimizer("Adam", 1e-4),
+                            loss_scale=FP16_SCALE,
+                            skip_nonfinite_updates=True)
+    steph = factory_h.train_step()
+    routeh_ms, routeh_launches, peakh_gib = timed_routes(steph, "4c, fp16",
+                                                         "_fp16")
+    n_steps = len(ROUTES) * 2 * ROUTE_ROUNDS * (TRAIN_WARMUP + TRAIN_STEPS)
+    note(f"  phase 4c, fp16 step: {factory_h.skipped_updates} of {n_steps} "
+         f"updates skipped at loss scale {FP16_SCALE:g}; peak "
+         f"{peakh_gib:.2f} GiB allocated  [{smi}]")
+    if factory_h.skipped_updates >= n_steps:
+        raise AssertionError("phase 4c: every fp16 update was skipped")
+    del modelh, steph, factory_h
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- 5. the row-band path ---------------------------------------------------
@@ -4029,7 +4778,7 @@ def main() -> int:
             """K7's rows at one band of SHARDS: the forward at the inference
             map, the backward at the training map; d_slab does the same
             multiply-adds as d_f1 and writes the taller slab."""
-            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            suffix = _cuda.suffix(dtype)
             for base, replaces, src, (b, c, h, w) in (
                     ("correlation_fwd_rows", "correlation_pallas.py:615",
                      "correlation_fwd.cu",
@@ -4150,6 +4899,111 @@ def main() -> int:
         # the bf16 step's maps
         k7_rows(torch.bfloat16)
 
+        # the fp16 forms at the shapes of the bf16 rows, 2 bytes a value,
+        # on the fp32 inputs above rounded to fp16 (no generator draws but
+        # K7's); their operations bound at the card's fp16 tensor-core rate
+        # (bf16's on an H100) and, since every fp16 body sums in float32 on
+        # the FMA pipes, also at the f32 rate (bound_ms_f32_body).  The
+        # warps' library call is F.grid_sample on fp16 tensors, its grid in
+        # fp16 too, which moves the sample point by up to half an fp16 ulp
+        # of the normalised coordinate (printed in pixels)
+        b, c, h, w = BATCH, 256, HEIGHT // 8, WIDTH // 8
+        f1_h, f2_h = f1.half(), f2.half()
+        rows.append(("correlation_fwd_fp16", "correlation_pallas.py:83",
+                     "correlation_fwd.cu",
+                     lambda: corr.correlation_cuda(f1_h, f2_h, *corr_args),
+                     lambda: corr.correlation_plain(f1_h, f2_h, *corr_args),
+                     None, k1_bytes // 2, k1_flops))
+        b, h, w, ch = BATCH, HEIGHT, WIDTH, 3
+        img_h, flow_h, flows_h = img.half(), flow8.half(), flows.half()
+        grid1_h, grid2_h = grid1.half(), grid2.half()
+        img2_h = img2.half()
+        grid_px = max((g16.float() - g32).abs().max().item()
+                      for g16, g32 in ((grid1_h, grid1), (grid2_h, grid2))
+                      ) * (w - 1) / 2
+        note(f"  F.grid_sample in fp16 at {w} columns: its fp16 grid moves "
+             f"the sample point by up to {grid_px:.4f} px")
+        for name, nflows, fn, plain, lib, grid16 in (
+                ("resample2d_fwd_fp16", 1,
+                 lambda: r2d.resample2d_cuda(img_h, flow_h),
+                 lambda: r2d.resample2d_plain(img_h, flow_h), img_h,
+                 grid1_h),
+                ("resample2d_fwd_multi_fp16", 2,
+                 lambda: r2d.resample2d_multi_cuda(img_h, flows_h),
+                 lambda: r2d.resample2d_multi_plain(img_h, flows_h), img2_h,
+                 grid2_h)):
+            rows.append((name, "resample2d_pallas.py:239", "resample2d_fwd.cu",
+                         fn, plain,
+                         (lambda lib=lib, grid16=grid16: F.grid_sample(
+                             lib, grid16, mode="bilinear",
+                             padding_mode="border", align_corners=True)),
+                         2 * b * h * w * (ch + nflows * (2 + ch)),
+                         b * nflows * h * w * (10 + 7 * ch)))
+        b, c, h, w = TRAIN_BATCH, 256, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8
+        tf1_h, tf2_h, tg_h = tf1.half(), tf2.half(), tg.half()
+        for name, needs, replaces in (
+                ("correlation_bwd_f1_fp16", (True, False),
+                 "correlation_pallas.py:449"),
+                ("correlation_bwd_f2_fp16", (False, True),
+                 "correlation_pallas.py:478")):
+            rows.append((name, replaces, "correlation_bwd.cu",
+                         (lambda needs=needs: corr.correlation_bwd_cuda(
+                             tg_h, tf1_h, tf2_h, 20, 2, needs=needs)),
+                         (lambda needs=needs: corr.correlation_bwd_plain(
+                             tg_h, tf1_h, tf2_h, 20, 2, needs=needs)),
+                         None, bwd_bytes // 2, bwd_flops))
+        b, h, w, ch = TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, 3
+        t_img_h, one_h, two_h = t_img.half(), one.half(), two.half()
+        for name, fl in (("resample2d_tangents_fp16", one_h),
+                         ("resample2d_tangents_multi_fp16", two_h)):
+            nflows = fl.shape[1]
+            rows.append((name, "resample2d_pallas.py:262",
+                         "resample2d_tangents.cu",
+                         (lambda fl=fl: r2d.resample2d_tangents_cuda(t_img_h,
+                                                                     fl)),
+                         (lambda fl=fl: r2d.resample2d_tangents_plain(t_img_h,
+                                                                      fl)),
+                         None,
+                         2 * b * h * w * ch
+                         + b * nflows * h * w * (2 * 2 + 2 * ch + 8 * ch),
+                         b * nflows * h * w * (10 + 17 * ch)))
+        tg4_h, tg4_2_h = tg4.half(), tg4_2.half()
+        with torch.enable_grad():
+            grid_leaf_h = grid_leaf.detach().half().requires_grad_()
+            sampled_h = F.grid_sample(t_img_h, grid_leaf_h, mode="bilinear",
+                                      padding_mode="border",
+                                      align_corners=True)
+            grid_leaf2_h = grid_leaf2.detach().half().requires_grad_()
+            sampled2_h = F.grid_sample(t_img2.half(), grid_leaf2_h,
+                                       mode="bilinear", padding_mode="border",
+                                       align_corners=True)
+        g_by_flow_h = g_by_flow.half()
+        rows.append(("resample2d_grad_flow_fp16", "resample2d_pallas.py:312",
+                     "resample2d_grad_flow.cu",
+                     lambda: r2d.resample2d_grad_flow_cuda(tg4_h, t_img_h,
+                                                           one_h),
+                     lambda: r2d.resample2d_grad_flow_plain(tg4_h, t_img_h,
+                                                            one_h),
+                     lambda: torch.autograd.grad(sampled_h, grid_leaf_h,
+                                                 tg4_h[:, 0],
+                                                 retain_graph=True),
+                     2 * b * h * w * (2 * ch + 2 + 2),
+                     b * h * w * (10 + 12 * ch)))
+        rows.append(("resample2d_grad_flow_multi_fp16",
+                     "resample2d_pallas.py:312", "resample2d_grad_flow.cu",
+                     lambda: r2d.resample2d_grad_flow_cuda(tg4_2_h, t_img_h,
+                                                           two_h),
+                     lambda: r2d.resample2d_grad_flow_plain(tg4_2_h, t_img_h,
+                                                            two_h),
+                     lambda: torch.autograd.grad(sampled2_h, grid_leaf2_h,
+                                                 g_by_flow_h,
+                                                 retain_graph=True),
+                     2 * b * h * w * (ch + 2 * (ch + 2 + 2)),
+                     2 * b * h * w * (10 + 12 * ch)))
+        # K7 fp16 (the general bodies) at one band of the fp16 forward's and
+        # the fp16 step's maps
+        k7_rows(torch.float16)
+
         kernels = []
         for name, replaces, src, fn, plain, lib, nbytes, flops in rows:
             k_ms = time_ms(fn, 50, head_start=True)
@@ -4157,8 +5011,9 @@ def main() -> int:
             l_ms = (time_ms(lib, 50, head_start=True) if lib is not None
                     else None)
             bf16 = name.endswith("_bf16")
-            b_ms, b_by = bound_ms(nbytes, flops, peaks, tensor_cores=bf16)
-            say = note if bf16 else print
+            low = bf16 or name.endswith("_fp16")
+            b_ms, b_by = bound_ms(nbytes, flops, peaks, tensor_cores=low)
+            say = note if low else print
             say(f"  {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
                 f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
                 f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
@@ -4170,14 +5025,23 @@ def main() -> int:
                      f"{b_ms / K3_BEFORE_MS[name]:.0%}, before the row tiles]"
                      f"  [{smi}]")
             extra = {}
-            if bf16 and not name.startswith("correlation"):
+            if (bf16 and not name.startswith("correlation")
+                    or name.endswith("_fp16")):
                 extra["bound_ms_f32_body"] = bound_ms(nbytes, flops, peaks)[0]
-            step16_k = route16_launches[
-                "tangents" if "tangents" in name else "grad_flow"][0]
+            route = "tangents" if "tangents" in name else "grad_flow"
+            step16_k = route16_launches[route][0]
             if name in launches:      # over the phase 3 forwards
                 count = launches[name]
             elif name in launches16:  # over the phase 3b forwards
                 count = launches16[name]
+            elif name in fp16_run["launches"]:  # over the phase 3c forwards
+                count = fp16_run["launches"][name]
+            elif name == "correlation_fwd_rows_fp16":  # a phase 3c band fwd
+                count = fp16_run["band_launches"][name]
+            elif name.endswith("_rows_fp16"):  # the phase 4c band step
+                count = band_step_h[name]
+            elif name.endswith("_fp16"):  # per phase 4c step
+                count = routeh_launches[route][0][name] / TRAIN_STEPS
             elif name == "correlation_fwd_rows_bf16":  # phase 5b forwards
                 count = band16_fwd_launches[name]
             elif name.endswith("_rows_bf16"):      # per phase 5b step
@@ -4215,14 +5079,15 @@ def main() -> int:
                 # rows
                 kernels[-1]["launches_unequal_bands_across_ranks"] = \
                     wide[name]
-        del sampled, grid_leaf, sampled2, grid_leaf2
+        del sampled, grid_leaf, sampled2, grid_leaf2, sampled_h, grid_leaf_h, \
+            sampled2_h, grid_leaf2_h
         by_name = {k["name"]: k for k in kernels}
 
         # K2, K3 and K4 at the smooth flow the stage glue makes (+-8 px at
         # (H/4, W/4), bilinear x4), one and two flows, f32 and bf16, beside
         # the noise flows timed above
-        for dtype in (torch.float32, torch.bfloat16):
-            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            suffix = _cuda.suffix(dtype)
             im, t_im = img.to(dtype), t_img.to(dtype)
             for nflows in (1, 2):
                 fl = smooth_flows(BATCH, nflows, HEIGHT, WIDTH).to(dtype)
@@ -4417,6 +5282,7 @@ def main() -> int:
     upsample_backward_per_step(step16, "bf16")
 
     # -- 8. result ------------------------------------------------------------
+    note(f"the script took {time.perf_counter() - t_script:.1f} s")
     print("summary of the timed phases:")
     for line in SUMMARY:
         print(line)

@@ -185,8 +185,9 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
     p.add_argument("--schedule_lr_fraction", type=float, default=10.0)
     p.add_argument("--precision", choices=("fp32", "bf16", "fp16"),
                    default="fp32",
-                   help="compute dtype (parameters stay fp32); fp16 is not "
-                        "available yet")
+                   help="compute dtype (parameters stay fp32); fp16 "
+                        "trains with the static loss scale --fp16_scale "
+                        "and skips non-finite updates")
     p.add_argument("--fp16_scale", type=float, default=1024.0,
                    help="static loss scale under --precision fp16")
     p.add_argument("--tensorboard", action="store_true",
@@ -337,10 +338,6 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser(argv).parse_args(argv)
     dev = resolve_device(args.device)
-    if args.precision == "fp16":
-        raise NotImplementedError(
-            "--precision fp16: no kernel of the port takes float16 yet "
-            "(ROADMAP.md, M6)")
     n_ranks = _ranks_to_start(args)
     if n_ranks > 1:
         print(f"starting {n_ranks} ranks on {torch.cuda.device_count()} "
@@ -394,7 +391,8 @@ def _run(args: argparse.Namespace, dev, spatial: int = 1) -> int:
     # the loader's stripes: one a data rank
     world, rank = (plan.data_size, plan.data_rank) if plan else (1, 0)
     with TimerBlock("Building model") as block:
-        dtype = torch.bfloat16 if args.precision == "bf16" else None
+        dtype = {"bf16": torch.bfloat16, "fp16": torch.float16,
+                 "fp32": None}[args.precision]
         model = get_model(args.model, device=dev, seed=args.seed,
                           dtype=dtype, **kwargs_from_args(args, "model"))
         loss_kwargs = kwargs_from_args(args, "loss") \
@@ -410,7 +408,8 @@ def _run(args: argparse.Namespace, dev, spatial: int = 1) -> int:
         optimizer = get_optimizer(args.optimizer, args.optimizer_lr,
                                   schedule=sched,
                                   grad_clip=args.gradient_clip, **opt_kwargs)
-        # fp16 would take a static loss scale and skip non-finite updates
+        # fp16 takes a static loss scale and skips non-finite updates (the
+        # reference's --fp16/--fp16_scale)
         fp16 = args.precision == "fp16"
         factory = StepFactory(model, loss, optimizer,
                               loss_scale=args.fp16_scale if fp16 else 1.0,

@@ -9,6 +9,7 @@
 #include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 extern "C" const char* fnet_error_string(int err) {
@@ -52,11 +53,13 @@ static __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The bf16 tensor-core bodies' pieces (correlation_fwd.cu,
-// correlation_bwd.cu).  ldsm_x4 and ldsm_x4_trans load four 8x8 bf16
-// matrices from shared memory, lane l giving the address of row l % 8 of
-// matrix l / 8; .trans hands each lane a column pair instead of a row pair.
-static __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                               const __nv_bfloat16* p) {
+// correlation_bwd.cu).  ldsm_x4 and ldsm_x4_trans load four 8x8 matrices
+// of 2-byte elements (bfloat16 or half) from shared memory, lane l giving
+// the address of row l % 8 of matrix l / 8; .trans hands each lane a
+// column pair instead of a row pair.
+template <typename T>
+static __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const T* p) {
+  static_assert(sizeof(T) == 2, "ldmatrix moves 2-byte elements");
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -64,8 +67,10 @@ static __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
       : "r"(a));
 }
 
+template <typename T>
 static __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                                     const __nv_bfloat16* p) {
+                                                     const T* p) {
+  static_assert(sizeof(T) == 2, "ldmatrix moves 2-byte elements");
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -90,13 +95,13 @@ static __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Copies kPiece bf16 values into shared memory, or zeros where ``ok`` is
-// false: 8 (a 16-byte cp.async) or 2 (4-byte) asynchronously, 1 by a plain
-// load and store.
-template <int kPiece>
-static __device__ __forceinline__ void stage_piece(__nv_bfloat16* dst,
-                                                   const __nv_bfloat16* src,
+// Copies kPiece 2-byte values (bfloat16 or half) into shared memory, or
+// zeros where ``ok`` is false: 8 (a 16-byte cp.async) or 2 (4-byte)
+// asynchronously, 1 by a plain load and store.
+template <int kPiece, typename T>
+static __device__ __forceinline__ void stage_piece(T* dst, const T* src,
                                                    bool ok) {
+  static_assert(sizeof(T) == 2, "2-byte elements");
   if constexpr (kPiece == 1) {
     *reinterpret_cast<unsigned short*>(dst) =
         ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
@@ -107,11 +112,11 @@ static __device__ __forceinline__ void stage_piece(__nv_bfloat16* dst,
 }
 
 // Element types.  A kernel templated on its element type T loads with
-// fnet_load (bfloat16 upcast exactly to float) and stores with fnet_store
-// (float rounded to bfloat16 to nearest, ties to even, as torch's
-// .to(torch.bfloat16) and JAX's astype round; never truncated).  For float
-// both are the plain load and store, so a float instantiation compiles to
-// the code it had before it was a template.
+// fnet_load (bfloat16 or half upcast exactly to float) and stores with
+// fnet_store (float rounded to bfloat16 or half to nearest, ties to even, as
+// torch's .to() and JAX's astype round; never truncated).  For float both
+// are the plain load and store, so a float instantiation compiles to the
+// code it had before it was a template.
 static __device__ __forceinline__ float fnet_load(
     const float* __restrict__ p) {
   return *p;
@@ -122,12 +127,21 @@ static __device__ __forceinline__ float fnet_load(
   return __bfloat162float(*p);
 }
 
+static __device__ __forceinline__ float fnet_load(
+    const __half* __restrict__ p) {
+  return __half2float(*p);
+}
+
 static __device__ __forceinline__ void fnet_store(float* p, float v) {
   *p = v;
 }
 
 static __device__ __forceinline__ void fnet_store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+static __device__ __forceinline__ void fnet_store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 // The bilinear warp's sample point for output pixel p = r*W + x of one flow
@@ -148,7 +162,8 @@ struct FnetBilinear {
   int64_t tl, tr, bl, br;    // corner offsets in an H x W plane
 };
 
-// A bfloat16 flow is upcast to float before it joins the coordinates.
+// A bfloat16 or half flow is upcast to float before it joins the
+// coordinates.
 template <typename TF = float>
 static __device__ __forceinline__ FnetBilinear fnet_bilinear(
     const TF* __restrict__ flow, int64_t p, int H, int W, int Ho, int off) {
@@ -270,6 +285,10 @@ static __device__ __forceinline__ float fnet_float(float v) { return v; }
 
 static __device__ __forceinline__ float fnet_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+static __device__ __forceinline__ float fnet_float(__half v) {
+  return __half2float(v);
 }
 
 // One word read through the read-only path without a place in L1

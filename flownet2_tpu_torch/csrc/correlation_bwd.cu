@@ -1,5 +1,5 @@
-// K5, K6 and K7 backward: the correlation cost volume's gradient, float32
-// or bfloat16.
+// K5, K6 and K7 backward: the correlation cost volume's gradient, float32,
+// bfloat16 or half.
 //
 // Replaces flownet2_tpu/ops/correlation_pallas.py: _bwd_f1_kernel and
 // _bwd_f1_kernel_wide (K5, d_f1) and _bwd_f2_kernel and _bwd_f2_kernel_wide
@@ -95,6 +95,11 @@
 //   is the float fmaf chain of the float body in its order.  The tiled f32
 //   bodies do not serve bf16: their 16-byte cp.async staging copies f32
 //   rows as they lie and cannot upcast.
+//
+// half g, f1 and f2 (entry points correlation_bwd_f1_fp16,
+// correlation_bwd_f2_fp16 and their K7 forms correlation_bwd_f1_rows_fp16,
+// correlation_bwd_f2_rows_fp16): the bf16 rule on the general bodies at
+// every configuration (launch_f1_fp16(), launch_f2_fp16()).
 
 #include <cstdint>
 
@@ -1355,9 +1360,9 @@ constexpr int kPerThread = kChunkC / kGroups;
 // K5: d_f1.  Block (tile * chunks, y, b).  For row shift tj the f2 row (of
 // H2) is y + shift + (tj - r)*s2; column shift ti reads f2 at span offset
 // tx + ti*s2 + (maxd - r*s2), the span starting at column x0 - maxd.
-// T is the element type of g, f2 and d_f1: bfloat16 operands are upcast
-// exactly while they are staged, the sums are the float ones, and d_f1 is
-// rounded once (fnet_load, fnet_store in common.cuh).
+// T is the element type of g, f2 and d_f1: bfloat16 and half operands are
+// upcast exactly while they are staged, the sums are the float ones, and
+// d_f1 is rounded once (fnet_load, fnet_store in common.cuh).
 template <typename T, bool kSlab>
 __global__ void __launch_bounds__(kThreads)
 correlation_bwd_f1_kernel(const T* __restrict__ g, const T* __restrict__ f2,
@@ -1620,6 +1625,27 @@ int launch_f2_bf16(const __nv_bfloat16* g, const __nv_bfloat16* f1,
       stream);
 }
 
+// The fp16 d_f1 and d_f2 (and K7's d_f1 and d_slab): the general bodies on
+// the upcast operands at every configuration (the tensor-core bodies are
+// written for bf16 operands).
+template <bool kSlab>
+int launch_f1_fp16(const __half* g, const __half* f2, __half* d_f1, int B,
+                   int C, int H, int W, int maxd, int s2, int device,
+                   void* stream) {
+  return launch<__half>(correlation_bwd_f1_kernel<__half, kSlab>,
+                        smem_f1(maxd, s2), g, f2, d_f1, B, C, H, W, H, maxd,
+                        s2, device, stream);
+}
+
+template <bool kSlab>
+int launch_f2_fp16(const __half* g, const __half* f1, __half* d_f2, int B,
+                   int C, int H, int W, int maxd, int s2, int device,
+                   void* stream) {
+  return launch<__half>(correlation_bwd_f2_kernel<__half, kSlab>,
+                        smem_f2(maxd, s2), g, f1, d_f2, B, C, H, W,
+                        kSlab ? H + 2 * maxd : H, maxd, s2, device, stream);
+}
+
 }  // namespace
 
 // K5.  g: (B, D*D, H, W); f2, d_f1: (B, C, H, W); all float32 and
@@ -1658,6 +1684,25 @@ extern "C" int correlation_bwd_f2_bf16(const __nv_bfloat16* g,
                                        int H, int W, int maxd, int s2,
                                        int device, void* stream) {
   return launch_f2_bf16<false>(g, f1, d_f2, B, C, H, W, maxd, s2, device,
+                               stream);
+}
+
+// K5 and K6 for half g, f1 and f2: float32 sums of the upcast products,
+// divided by C and rounded once, so d_f1 and d_f2 are (B, C, H, W) half;
+// the general bodies at every (maxd, s2).
+extern "C" int correlation_bwd_f1_fp16(const __half* g, const __half* f2,
+                                       __half* d_f1, int B, int C, int H,
+                                       int W, int maxd, int s2, int device,
+                                       void* stream) {
+  return launch_f1_fp16<false>(g, f2, d_f1, B, C, H, W, maxd, s2, device,
+                               stream);
+}
+
+extern "C" int correlation_bwd_f2_fp16(const __half* g, const __half* f1,
+                                       __half* d_f2, int B, int C, int H,
+                                       int W, int maxd, int s2, int device,
+                                       void* stream) {
+  return launch_f2_fp16<false>(g, f1, d_f2, B, C, H, W, maxd, s2, device,
                                stream);
 }
 
@@ -1703,5 +1748,25 @@ extern "C" int correlation_bwd_f2_rows_bf16(const __nv_bfloat16* g,
                                             int s2, int device,
                                             void* stream) {
   return launch_f2_bf16<true>(g, f1, d_slab, B, C, Hloc, W, maxd, s2, device,
+                              stream);
+}
+
+// K7 backward for half g, f1 and slab, on the bodies of the whole-map fp16
+// entry points: d_f1 (B, C, Hloc, W) and d_slab (B, C, Hloc + 2*maxd, W)
+// half, d_slab in slab coordinates.
+extern "C" int correlation_bwd_f1_rows_fp16(const __half* g,
+                                            const __half* slab, __half* d_f1,
+                                            int B, int C, int Hloc, int W,
+                                            int maxd, int s2, int device,
+                                            void* stream) {
+  return launch_f1_fp16<true>(g, slab, d_f1, B, C, Hloc, W, maxd, s2, device,
+                              stream);
+}
+
+extern "C" int correlation_bwd_f2_rows_fp16(const __half* g, const __half* f1,
+                                            __half* d_slab, int B, int C,
+                                            int Hloc, int W, int maxd, int s2,
+                                            int device, void* stream) {
+  return launch_f2_fp16<true>(g, f1, d_slab, B, C, Hloc, W, maxd, s2, device,
                               stream);
 }

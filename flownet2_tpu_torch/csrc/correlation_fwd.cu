@@ -1,4 +1,5 @@
-// K1 and K7 forward: correlation cost volume, forward, float32 or bfloat16.
+// K1 and K7 forward: correlation cost volume, forward, float32, bfloat16 or
+// half.
 //
 // Replaces flownet2_tpu/ops/correlation_pallas.py: _kernel (narrow case,
 // W + 2*maxd <= 128) and _kernel_wide (64-column chunks), reached from
@@ -45,22 +46,29 @@
 // row and column lie in the map) ~0.004 ms at the bf16 tensor-core rate:
 // the bytes bound it.
 //
+// half f1 and f2 (entry points correlation_fwd_fp16 and
+// correlation_fwd_rows_fp16, the fp16 model's K1 and K7): the bf16 rule,
+// an exact upcast on load, float32 sums in the float body's order, one
+// rounding to half at the store, on the general body at every
+// configuration.
+//
 // Bound on an H100 SXM at FlowNetC's shape (B 8, C 256, H 48, W 64,
 // maxd 20, s2 2 -> 441 channels): 5.55 GFLOP of f32 multiply-adds against
 // ~94 MB moved, so the FMA rate (~67 TFLOP/s, ~83 us) bounds it, not the
 // memory (~28 us).
 //
-// Three bodies, chosen by configuration and dtype in launch() and
-// launch_bf16():
+// Three bodies, chosen by configuration and dtype in launch(),
+// launch_bf16() and launch_fp16():
 //
 // * correlation_fwd_tile_kernel, float32 at maxd 20, s2 2 (FlowNetC's,
 //   D = 21), the one the float models run.  See the note above it.
 // * correlation_fwd_mma_kernel, bfloat16 at maxd 20, s2 2.  See the note
 //   above it.
-// * correlation_fwd_general_kernel, for every other (maxd, s2): a block per
-//   (batch, output row, row shift, 64-column tile) that stages the f1 row and
-//   the one f2 row it needs 32 channels at a time; thread (tx, g) owns output
-//   column tx and the column shifts g, g+4, ...
+// * correlation_fwd_general_kernel, for every other (maxd, s2), and for
+//   half at every one: a block per (batch, output row, row shift,
+//   64-column tile) that stages the f1 row and the one f2 row it needs 32
+//   channels at a time; thread (tx, g) owns output column tx and the column
+//   shifts g, g+4, ...
 //
 // The general body served FlowNetC's configuration too at first, at 1.11 ms,
 // 7.5% of the FMA bound (NVIDIA H100 80GB HBM3, 700 W).  Four things held it
@@ -709,9 +717,10 @@ constexpr int kGenThreads = kTileW * kGenGroups;   // 256
 constexpr int kGenShifts = 8;                  // sums per thread and pass
 constexpr int kGenChunkC = 32;                 // channels staged per step
 
-// T is the operands' and the output's element type: bfloat16 operands are
-// upcast exactly while they are staged, the sums are the float ones, and
-// the output is rounded once (fnet_load, fnet_store in common.cuh).
+// T is the operands' and the output's element type: bfloat16 and half
+// operands are upcast exactly while they are staged, the sums are the float
+// ones, and the output is rounded once (fnet_load, fnet_store in
+// common.cuh).
 template <typename T, bool kSlab>
 __global__ void __launch_bounds__(kGenThreads)
 correlation_fwd_general_kernel(const T* __restrict__ f1,
@@ -852,6 +861,17 @@ int launch_bf16(const __nv_bfloat16* f1, const __nv_bfloat16* f2,
                                               s2, st);
 }
 
+// The fp16 forms: the general body at every configuration (the tensor-core
+// body is written for bf16 operands).
+template <bool kSlab>
+int launch_fp16(const __half* f1, const __half* f2, __half* out, int B, int C,
+                int H, int W, int maxd, int s2, int device, void* stream) {
+  const int err = fnet_set_device(device);
+  if (err) return err;
+  return launch_general<__half, kSlab>(f1, f2, out, B, C, H, W, maxd, s2,
+                                       static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // K1.  f1, f2: (B, C, H, W) float32, contiguous; out: (B, D*D, H, W) float32
@@ -876,6 +896,18 @@ extern "C" int correlation_fwd_bf16(const __nv_bfloat16* f1,
                             stream);
 }
 
+// K1 for half f1 and f2: float32 sums of the upcast products, divided by C
+// and rounded once, so out is (B, D*D, H, W) half; the general body at
+// every (maxd, s2).  The JAX package's fp16 correlation sums in float32
+// and casts to f1's dtype (ops/correlation.py :160-171, :296).
+extern "C" int correlation_fwd_fp16(const __half* f1, const __half* f2,
+                                    __half* out, int B, int C, int H, int W,
+                                    int maxd, int s2, int device,
+                                    void* stream) {
+  return launch_fp16<false>(f1, f2, out, B, C, H, W, maxd, s2, device,
+                            stream);
+}
+
 // K7 forward.  f1: (B, C, Hloc, W); slab: (B, C, Hloc + 2*maxd, W); out:
 // (B, D*D, Hloc, W); all float32 and contiguous.
 extern "C" int correlation_fwd_rows(const float* f1, const float* slab,
@@ -895,5 +927,15 @@ extern "C" int correlation_fwd_rows_bf16(const __nv_bfloat16* f1,
                                          int Hloc, int W, int maxd, int s2,
                                          int device, void* stream) {
   return launch_bf16<true>(f1, slab, out, B, C, Hloc, W, maxd, s2, device,
+                           stream);
+}
+
+// K7 forward for half f1 and slab, on correlation_fwd_fp16's body: out
+// (B, D*D, Hloc, W) half.
+extern "C" int correlation_fwd_rows_fp16(const __half* f1, const __half* slab,
+                                         __half* out, int B, int C, int Hloc,
+                                         int W, int maxd, int s2, int device,
+                                         void* stream) {
+  return launch_fp16<true>(f1, slab, out, B, C, Hloc, W, maxd, s2, device,
                            stream);
 }

@@ -1,5 +1,5 @@
-// K2: bilinear flow warp, forward, float32 or bfloat16, for F flows over one
-// image.
+// K2: bilinear flow warp, forward, float32, bfloat16 or half, for F flows
+// over one image.
 //
 // Replaces flownet2_tpu/ops/resample2d_pallas.py: _fwd_kernel, reached from
 // resample2d_bilinear_pallas (one flow) and resample2d_bilinear_pallas_multi
@@ -31,6 +31,12 @@
 // four corners are upcast after the gather, the weights and the lerp are
 // float, and the output is rounded once to bfloat16 (:239-259, :411).  At 2
 // bytes a value the one-flow warp moves ~25 MB, the two-flow ~41 MB.
+//
+// half (entry point resample2d_fwd_fp16): the bf16 form's rule on half
+// values, the same row tiles (2-byte elements, so bf16's tile and window).
+// The JAX package's fp16 warp is its XLA path, which casts the weights to
+// the image's dtype and multiplies in fp16 (ops/resample2d.py:105-108); the
+// port keeps its kernels' rule, float weights and one rounding.
 //
 // Design: row tiles (WarpTile, FnetWarpPixels in common.cuh).  A block
 // covers 64 columns x 16 rows (float32) or 32 rows (bfloat16) of one flow;
@@ -194,4 +200,18 @@ extern "C" int resample2d_fwd_bf16(const __nv_bfloat16* img,
                                         off, device, stream);
   return launch<__nv_bfloat16, true>(img, flows, out, B, F, C, H, W, Ho, off,
                                      device, stream);
+}
+
+// The same for a half image, half flows and a half output: the float warp
+// of the upcast image by the upcast flows, rounded once, over the whole
+// image or its rows [off, off + Ho), as resample2d_fwd_bf16.
+extern "C" int resample2d_fwd_fp16(const __half* img, const __half* flows,
+                                   __half* out, int B, int F, int C, int H,
+                                   int W, int Ho, int off, int device,
+                                   void* stream) {
+  if (Ho == H && off == 0)
+    return launch<__half, false>(img, flows, out, B, F, C, H, W, Ho, off,
+                                 device, stream);
+  return launch<__half, true>(img, flows, out, B, F, C, H, W, Ho, off,
+                              device, stream);
 }

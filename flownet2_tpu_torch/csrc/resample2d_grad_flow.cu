@@ -1,5 +1,5 @@
-// K4: the bilinear flow warp's flow gradient, float32 or bfloat16, for F
-// flows over one image.
+// K4: the bilinear flow warp's flow gradient, float32, bfloat16 or half,
+// for F flows over one image.
 //
 // Replaces flownet2_tpu/ops/resample2d_pallas.py: _grad_flow_kernel,
 // reached from resample2d_grad_flow_pallas in the backward of the generic
@@ -25,6 +25,9 @@
 // JAX package casts to the flow's dtype (ops/resample2d.py:308-309), is
 // rounded once to bfloat16.  At 2 bytes a value it moves ~27.5 MB for one
 // flow.  Local rows as in float32.
+//
+// half (entry point resample2d_grad_flow_fp16): the bf16 form's rule on
+// half values, on the same row tiles.
 //
 // Design: K2's row tiles (WarpTile, FnetWarpPixels in common.cuh): the
 // same mapping, sample points, routes (the window of the corners in shared
@@ -185,4 +188,19 @@ extern "C" int resample2d_grad_flow_bf16(const __nv_bfloat16* g,
                                         Ho, off, device, stream);
   return launch<__nv_bfloat16, true>(g, img, flows, d_flows, B, F, C, H, W,
                                      Ho, off, device, stream);
+}
+
+// The same for a half cotangent, image and flows, with a half d_flow: the
+// float sums of the upcast values, rounded once; whole image or local
+// rows, as resample2d_fwd_fp16.
+extern "C" int resample2d_grad_flow_fp16(const __half* g, const __half* img,
+                                         const __half* flows, __half* d_flows,
+                                         int B, int F, int C, int H, int W,
+                                         int Ho, int off, int device,
+                                         void* stream) {
+  if (Ho == H && off == 0)
+    return launch<__half, false>(g, img, flows, d_flows, B, F, C, H, W, Ho,
+                                 off, device, stream);
+  return launch<__half, true>(g, img, flows, d_flows, B, F, C, H, W, Ho, off,
+                              device, stream);
 }

@@ -1,5 +1,5 @@
-// K3: bilinear flow warp, forward, with the flow tangents, float32 or
-// bfloat16, for F flows over one image.
+// K3: bilinear flow warp, forward, with the flow tangents, float32,
+// bfloat16 or half, for F flows over one image.
 //
 // Replaces flownet2_tpu/ops/resample2d_pallas.py: _fwd_tangents_kernel,
 // reached from resample2d_bilinear_tangents_pallas,
@@ -29,6 +29,11 @@
 // d1 and d2 stay float32, as the TPU kernel returns them (:458-463), so the
 // backward's sum of g*d1 loses nothing to them.  One flow moves ~55 MB.
 // Local rows as in float32.
+//
+// half (entry point resample2d_tangents_fp16): the bf16 form's rule on half
+// values (out half, d1 and d2 float32), on the same row tiles; a half
+// thread's 8 columns of a tangent are 32 bytes of float too, stored by
+// thread pairs (fnet_store_pair).
 //
 // Design: K2's row tiles (WarpTile, FnetWarpPixels in common.cuh), with
 // three outputs a channel.  A block covers 64 columns x 16 rows (float32)
@@ -79,7 +84,7 @@ static __device__ __forceinline__ void fnet_tangents(float a, float b,
 
 // The 8 tangents of one thread (8 columns, 32 bytes of float) stored by
 // the pair of threads that owns 16 consecutive columns of a row (threads
-// 2m and 2m + 1 of a bfloat16 tile): the first store writes the even
+// 2m and 2m + 1 of a 2-byte tile): the first store writes the even
 // thread's 32 bytes, the second the odd thread's, each thread 16 bytes of
 // them, so that each store fills whole 32-byte sectors; a thread storing
 // its own 32 bytes as two 16-byte pieces would write half of each sector
@@ -260,4 +265,18 @@ extern "C" int resample2d_tangents_bf16(const __nv_bfloat16* img,
                                         W, Ho, off, device, stream);
   return launch<__nv_bfloat16, true>(img, flows, out, d1, d2, B, F, C, H, W,
                                      Ho, off, device, stream);
+}
+
+// The same for a half image and flows: out (B, F, C, Ho, W) half, rounded
+// once; d1, d2 float32; whole image or local rows, as resample2d_fwd_fp16.
+extern "C" int resample2d_tangents_fp16(const __half* img,
+                                        const __half* flows, __half* out,
+                                        float* d1, float* d2, int B, int F,
+                                        int C, int H, int W, int Ho, int off,
+                                        int device, void* stream) {
+  if (Ho == H && off == 0)
+    return launch<__half, false>(img, flows, out, d1, d2, B, F, C, H, W, Ho,
+                                 off, device, stream);
+  return launch<__half, true>(img, flows, out, d1, d2, B, F, C, H, W, Ho,
+                              off, device, stream);
 }

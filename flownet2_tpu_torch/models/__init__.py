@@ -25,8 +25,11 @@ def get_model(name: str, device: str | torch.device | None = None,
     from a generator seeded with ``seed``.  ``dtype=torch.bfloat16`` is the
     JAX package's bf16 model: float32 parameters, the frames cast once
     after normalisation, bfloat16 convolutions, glue and warps, bfloat16
-    flow out; it serves inference and the train step alike
-    (``batch_norm=False``)."""
+    flow out; it serves inference and the train step alike.
+    ``dtype=torch.float16`` is its fp16 model, built the same way (the
+    command line's ``--precision fp16``, which trains it with a static loss
+    scale and skips non-finite updates).  With ``batch_norm=True`` the
+    BatchNorm layers normalise in float32 and return the compute dtype."""
     try:
         cls = MODELS[name]
     except KeyError:

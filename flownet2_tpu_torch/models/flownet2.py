@@ -24,7 +24,12 @@ casts the frames once and everything after it runs in bf16
 parameters at each call), so the flow is bf16, in the inference forward
 and in the training tuples alike.  It trains through
 ``train.StepFactory``: the parameters stay float32 and their gradients
-come back float32 through the casts.  Without BatchNorm.
+come back float32 through the casts; the loss and the optimizer run in
+float32.  ``dtype=torch.float16`` is the JAX package's fp16 model, threaded
+the same way (its train step takes a loss scale and skips non-finite
+updates: ``StepFactory(loss_scale=..., skip_nonfinite_updates=True)``).
+With ``batch_norm=True`` the BatchNorm layers compute in float32 and
+return the compute dtype (``nn.layers.BatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -53,8 +58,9 @@ def normalize_pair(inputs: torch.Tensor, rgb_max: float,
     the whole frame's: the bands' means weighted by their shares of the
     rows.
     Returns (x1, x2), two (B, 3, H, W) frames, float32 or cast once to
-    ``dtype`` (the bf16 model's one cast: everything after it, the glue and
-    the warps included, runs in that dtype, as in the JAX package).
+    ``dtype`` (the bf16 or fp16 model's one cast: everything after it, the
+    glue and the warps included, runs in that dtype, as in the JAX
+    package).
     """
     if inputs.dim() != 5 or inputs.shape[1] != 2 or inputs.shape[-1] != 3:
         raise ValueError(f"expected frame pairs shaped (B, 2, H, W, 3), got "

@@ -16,10 +16,16 @@ weights and U[0, 1) biases, drawn from the generator it is given.
 
 ``set_compute_dtype(model, dtype)`` is the JAX layers' ``dtype``
 (nn/layers.py:116-122 there): None computes in the input's dtype;
-``torch.bfloat16`` keeps the parameters float32 under the same keys and
-makes every convolution cast its input, weight and bias to bfloat16 at
-each call, so the output and the LeakyReLU after it are bfloat16.  One
-state_dict serves both.  BatchNorm has no bfloat16 form yet.
+``torch.bfloat16`` or ``torch.float16`` keeps the parameters float32 under
+the same keys and makes every convolution cast its input, weight and bias
+to that dtype at each call, so the output and the LeakyReLU after it are
+in it.  One state_dict serves every dtype.  ``BatchNorm2d`` takes a
+bfloat16 or float16 input as Flax's ``nn.BatchNorm(dtype=...)`` does
+(``_compute_stats`` with its float32 reductions, ``_normalize``): the
+statistics and the normalisation in float32, the result rounded once to
+the input's dtype; its parameters and running statistics stay float32.
+On the CPU a float16 convolution runs in float32 and rounds once
+(``_convolve``), as cuDNN's float16 convolutions accumulate in float32.
 
 Under a band context (``ops.sharding_hints.scoped_band``, which
 ``parallel.DataParallelPlan.band_context(height)`` enters) each process
@@ -56,6 +62,19 @@ def _cast(t: torch.Tensor | None, dtype: torch.dtype | None):
     return t if t is None or dtype is None else t.to(dtype)
 
 
+def _convolve(conv, x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor | None) -> torch.Tensor:
+    """``conv(x, w, b)``.  On the CPU a float16 convolution runs as the
+    float32 convolution of its float16 operands, rounded once to float16,
+    forward and backward alike: what cuDNN's float16 convolutions, which
+    accumulate in float32, compute on the card.  torch's own CPU float16
+    convolution backward has no fast kernel (35 s for one FlowNet2CS step
+    at 64x128, against 2 s in float32)."""
+    if x.dtype != torch.float16 or x.device.type != "cpu":
+        return conv(x, w, b)
+    return conv(x.float(), w.float(), _cast(b, torch.float32)).half()
+
+
 def _band_config(module: nn.Module, x: torch.Tensor, what: str):
     """(kernel rows, stride, padding rows) of ``module`` on a band ``x``."""
     (k, _), (s, _), (p, _) = (module.kernel_size, module.stride,
@@ -84,7 +103,7 @@ class Conv2d(nn.Conv2d):
         x, w, b = _cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt)
         band = sharding_hints.band()
         if band is None:
-            return self._conv_forward(x, w, b)
+            return _convolve(self._conv_forward, x, w, b)
         k, s, p = _band_config(self, x, "Conv2d")
         bottom = k - s - p
         x = halo_rows(x, p, max(bottom, 0), band)
@@ -92,8 +111,9 @@ class Conv2d(nn.Conv2d):
             x = x[:, :, :bottom]
         sharding_hints.record_dispatch(
             "convolution", f"process group(spatial={band.size})+halo rows")
-        return F.conv2d(x, w, b, self.stride, (0, self.padding[1]),
-                        self.dilation, self.groups)
+        return _convolve(lambda x, w, b: F.conv2d(
+            x, w, b, self.stride, (0, self.padding[1]), self.dilation,
+            self.groups), x, w, b)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -111,9 +131,9 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         x, w, b = _cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt)
         band = sharding_hints.band()
         if band is None:
-            return F.conv_transpose2d(
+            return _convolve(lambda x, w, b: F.conv_transpose2d(
                 x, w, b, self.stride, self.padding, self.output_padding,
-                self.groups, self.dilation)
+                self.groups, self.dilation), x, w, b)
         k, s, p = _band_config(self, x, "ConvTranspose2d")
         if self.output_padding[0]:
             raise NotImplementedError("ConvTranspose2d on row bands: no "
@@ -123,9 +143,9 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         sharding_hints.record_dispatch(
             "transposed convolution",
             f"process group(spatial={band.size})+halo rows")
-        out = F.conv_transpose2d(
+        out = _convolve(lambda x, w, b: F.conv_transpose2d(
             x, w, b, self.stride, (0, self.padding[1]),
-            (0, self.output_padding[1]), self.groups, self.dilation)
+            (0, self.output_padding[1]), self.groups, self.dilation), x, w, b)
         first = top * s + p
         return out[:, :, first:first + s * height]
 
@@ -138,11 +158,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     the gradient too, over gloo and NCCL alike), and the
     variance is E[x^2] - E[x]^2, as Flax computes it.  The running
     statistics take the global mean and the unbiased global variance, as
-    torch's own BatchNorm2d takes its batch's."""
+    torch's own BatchNorm2d takes its batch's.  A bfloat16 or float16
+    input is upcast to float32 for the statistics and the normalisation,
+    and the result is rounded once to its dtype (Flax's float32
+    reductions); the sums over the ranks are float32."""
 
     global_batch: bool = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype in (torch.bfloat16, torch.float16):
+            return self._forward(x.float()).to(x.dtype)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.global_batch):
             return super().forward(x)
         if not dist.is_initialized():
@@ -182,13 +210,8 @@ def set_global_batch_norm(model: nn.Module) -> nn.Module:
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None):
     """Make every convolution of ``model`` cast to ``dtype`` at each call
-    (None: no cast) and return ``model``.  BatchNorm has no bfloat16 form
-    yet: a model that holds one raises for any dtype but float32."""
-    if dtype not in (None, torch.float32) and any(
-            isinstance(m, nn.BatchNorm2d) for m in model.modules()):
-        raise NotImplementedError(
-            f"BatchNorm in {dtype}: not ported yet (ROADMAP.md); build the "
-            "model with batch_norm=False")
+    (None: no cast) and return ``model``.  The BatchNorm layers follow the
+    dtype of their input (``BatchNorm2d``)."""
     for m in model.modules():
         if isinstance(m, (Conv2d, ConvTranspose2d)):
             m.compute_dtype = dtype

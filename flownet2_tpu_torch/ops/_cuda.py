@@ -177,11 +177,24 @@ def on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+# The element types the kernels take, each with the suffix of its entry
+# points' names (``correlation_fwd_bf16``, ``resample2d_fwd_fp16``, ...)
+# and of their launch counters.
+KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16",
+                 torch.float16: "_fp16"}
+
+
+def suffix(dtype: torch.dtype) -> str:
+    """The entry point's suffix for ``dtype`` ("" for float32 and for a
+    dtype without kernels, whose operand check raises)."""
+    return KERNEL_DTYPES.get(dtype, "")
+
+
 def widened(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as float32 if it is bfloat16, else ``t`` itself: a plain
-    version computes a bfloat16 op in float32 and rounds once at the end,
-    as the bfloat16 kernels do."""
-    return t.float() if t.dtype == torch.bfloat16 else t
+    """``t`` as float32 if it is bfloat16 or float16, else ``t`` itself: a
+    plain version computes a low-precision op in float32 and rounds once at
+    the end, as the low-precision kernels do."""
+    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
 
 
 def check_operand(op: str, name: str, t: torch.Tensor, ndim: int,

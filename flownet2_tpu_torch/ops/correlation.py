@@ -31,7 +31,8 @@ Other configurations run the plain forward under autograd (CPU only).
 
 Layout: NCHW in, ``(B, D*D, out_h, out_w)`` out.  A CPU tensor takes the
 plain versions; a CUDA tensor launches the kernels (K 1, s1 1,
-pad == maxd; float32, or bfloat16 with bfloat16 outputs) or raises.  With
+pad == maxd; float32, or bfloat16 or float16 with outputs of the same
+dtype: float32 sums, one rounding) or raises.  With
 ``sharding_hints.spatial_shards() > 1``, or under a band context across
 processes, that configuration runs as row bands against halo slabs of f2
 (``ops/correlation_spatial.py``); other configurations have no band form.
@@ -53,13 +54,13 @@ from . import _cuda, sharding_hints
 # ``extern "C"`` signatures, so the two change together.
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _ENTRY_POINTS = {
-    "correlation_fwd": ("correlation_fwd", "correlation_fwd_rows",
-                        "correlation_fwd_bf16", "correlation_fwd_rows_bf16"),
-    "correlation_bwd": ("correlation_bwd_f1", "correlation_bwd_f2",
-                        "correlation_bwd_f1_rows", "correlation_bwd_f2_rows",
-                        "correlation_bwd_f1_bf16", "correlation_bwd_f2_bf16",
-                        "correlation_bwd_f1_rows_bf16",
-                        "correlation_bwd_f2_rows_bf16"),
+    "correlation_fwd": tuple(
+        base + sfx for sfx in _cuda.KERNEL_DTYPES.values()
+        for base in ("correlation_fwd", "correlation_fwd_rows")),
+    "correlation_bwd": tuple(
+        base + sfx for sfx in _cuda.KERNEL_DTYPES.values()
+        for base in ("correlation_bwd_f1", "correlation_bwd_f2",
+                     "correlation_bwd_f1_rows", "correlation_bwd_f2_rows")),
 }
 _MAX_GRID_YZ = 65535
 
@@ -81,9 +82,10 @@ def _kernel_config(pad_size, kernel_size, max_displacement, stride1,
 def correlation_plain(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
                       kernel_size: int = 1, max_displacement: int = 20,
                       stride1: int = 1, stride2: int = 2) -> torch.Tensor:
-    """The general shifts form, on any device.  bfloat16 operands are
-    upcast, multiplied and summed in float32, and the output is rounded
-    once to bfloat16, as the kernel and the JAX package do."""
+    """The general shifts form, on any device.  bfloat16 and float16
+    operands are upcast, multiplied and summed in float32, and the output
+    is rounded once to their dtype, as the kernel and the JAX package
+    do."""
     _cuda.PLAIN_CALLS["correlation"] += 1
     dtype = f1.dtype
     f1, f2 = _cuda.widened(f1), _cuda.widened(f2)
@@ -127,9 +129,9 @@ def correlation_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
     ``needs`` is False gets None.  The explicit D*D-step loop of the JAX
     package's ``_corr_bwd``, accumulating in place: autograd of the
     forward would keep D*D products of the inputs' size alive.  bfloat16
-    g, f1 and f2 are upcast, summed in float32, divided by C and rounded
-    once to f1's dtype, as the JAX package's ``_corr_bwd`` and the
-    kernels do."""
+    and float16 g, f1 and f2 are upcast, summed in float32, divided by C
+    and rounded once to f1's dtype, as the JAX package's ``_corr_bwd`` and
+    the kernels do."""
     _cuda.PLAIN_CALLS["correlation_bwd"] += 1
     dtype = f1.dtype
     g, f1, f2 = (_cuda.widened(t) for t in (g, f1, f2))
@@ -202,14 +204,12 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
                      kernel_size: int = 1, max_displacement: int = 20,
                      stride1: int = 1, stride2: int = 2) -> torch.Tensor:
     """The CUDA cost volume (K1): K 1, s1 1, pad == maxd, any width;
-    float32, or bfloat16 f1 and f2 with a bfloat16 output (entry point
-    ``correlation_fwd_bf16``)."""
-    name = ("correlation_fwd_bf16" if f1.dtype == torch.bfloat16
-            else "correlation_fwd")
+    float32, or bfloat16 or float16 f1 and f2 with an output of their dtype
+    (entry points ``correlation_fwd_bf16``, ``correlation_fwd_fp16``)."""
+    name = "correlation_fwd" + _cuda.suffix(f1.dtype)
     _check_config("correlation", pad_size, kernel_size, max_displacement,
                   stride1, stride2)
-    device = _check_features(name, f1, f2,
-                             (torch.float32, torch.bfloat16))
+    device = _check_features(name, f1, f2, tuple(_cuda.KERNEL_DTYPES))
     batch, channels, height, width = f1.shape
     disp = 2 * (max_displacement // stride2) + 1
     out = torch.empty((batch, disp * disp, height, width),
@@ -225,14 +225,15 @@ def correlation_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
                          needs=(True, True)):
     """The CUDA gradient of the cost volume: d_f1 by K5 and d_f2 by K6
     (``csrc/correlation_bwd.cu``), each launched only where ``needs``
-    asks; any width.  float32, or bfloat16 g, f1 and f2 with bfloat16
-    gradients (entry points ``correlation_bwd_f1_bf16`` and
-    ``correlation_bwd_f2_bf16``: float32 sums of the bf16 products, one
-    rounding; at maxd 20, s2 2 on the tensor-core bodies, at any other
-    configuration on the general bodies, which upcast the operands)."""
+    asks; any width.  float32, or bfloat16 or float16 g, f1 and f2 with
+    gradients of their dtype (entry points ``correlation_bwd_f1_bf16``,
+    ``correlation_bwd_f2_bf16`` and their ``_fp16`` forms: float32 sums of
+    the upcast products, one rounding; bf16 at maxd 20, s2 2 on the
+    tensor-core bodies, fp16 and any other configuration on the general
+    bodies, which upcast the operands)."""
     _check_config("correlation backward", max_displacement, 1,
                   max_displacement, 1, stride2)
-    dtypes = (torch.float32, torch.bfloat16)
+    dtypes = tuple(_cuda.KERNEL_DTYPES)
     device = _check_features("correlation_bwd", f1, f2, dtypes)
     batch, channels, height, width = f1.shape
     disp = 2 * (max_displacement // stride2) + 1
@@ -240,7 +241,7 @@ def correlation_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
     if g.dtype != f1.dtype:
         raise TypeError(f"correlation_bwd: g is {g.dtype} and f1 "
                         f"{f1.dtype}")
-    suffix = "_bf16" if f1.dtype == torch.bfloat16 else ""
+    suffix = _cuda.suffix(f1.dtype)
     if g.shape != (batch, disp * disp, height, width):
         raise ValueError(f"correlation_bwd: g {tuple(g.shape)} does not "
                          f"match f1 {tuple(f1.shape)} and D*D = "

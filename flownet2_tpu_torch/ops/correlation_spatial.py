@@ -5,10 +5,10 @@ composition) and of the Pallas row-slab kernels ``correlation_pallas_rows``
 and ``correlation_pallas_bwd_rows`` (K7: the entry points
 ``correlation_fwd_rows`` of ``csrc/correlation_fwd.cu`` and
 ``correlation_bwd_f1_rows``, ``correlation_bwd_f2_rows`` of
-``csrc/correlation_bwd.cu``, and their ``_bf16`` forms for bfloat16
-operands, which sum the bf16 products in float32 and round once: at
-maxd 20, s2 2 on the tensor-core bodies of K1, K5 and K6, at any other
-configuration on the general bodies).
+``csrc/correlation_bwd.cu``, and their ``_bf16`` and ``_fp16`` forms for
+bfloat16 and float16 operands, which sum the upcast products in float32
+and round once: bf16 at maxd 20, s2 2 on the tensor-core bodies of K1, K5
+and K6, fp16 and any other configuration on the general bodies).
 
 Output rows ``[off, off + Hloc)`` of the cost volume read f2 rows
 ``[off - maxd, off + Hloc + maxd)``, zero beyond the map: a halo bounded
@@ -59,9 +59,10 @@ def corr_slab_plain(f1: torch.Tensor, slab: torch.Tensor,
                     max_displacement: int = 20,
                     stride2: int = 2) -> torch.Tensor:
     """The plain PyTorch local op, on any device: the shifts form of
-    ``correlation_plain`` in slab coordinates.  bfloat16 operands are
-    upcast, multiplied and summed in float32, and the output is rounded
-    once to f1's dtype, as ``correlation_plain`` and the kernel do."""
+    ``correlation_plain`` in slab coordinates.  bfloat16 and float16
+    operands are upcast, multiplied and summed in float32, and the output
+    is rounded once to f1's dtype, as ``correlation_plain`` and the kernel
+    do."""
     _cuda.PLAIN_CALLS["corr_slab"] += 1
     dtype = f1.dtype
     f1, slab = _cuda.widened(f1), _cuda.widened(slab)
@@ -84,9 +85,10 @@ def corr_slab_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
     """(d_f1, d_slab) of ``corr_slab`` for the cotangent ``g``
     (B, D*D, Hloc, W), on any device; an input whose entry in ``needs`` is
     False gets None.  The D*D-step loop of the JAX package's
-    ``_corr_slab_bwd``, accumulating in place.  bfloat16 g, f1 and slab
-    are upcast, summed in float32, divided by C and rounded once to f1's
-    dtype, as ``correlation_bwd_plain`` and the kernels do."""
+    ``_corr_slab_bwd``, accumulating in place.  bfloat16 and float16 g,
+    f1 and slab are upcast, summed in float32, divided by C and rounded
+    once to f1's dtype, as ``correlation_bwd_plain`` and the kernels
+    do."""
     _cuda.PLAIN_CALLS["corr_slab_bwd"] += 1
     dtype = f1.dtype
     g, f1, slab = (_cuda.widened(t) for t in (g, f1, slab))
@@ -121,12 +123,7 @@ def corr_slab_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
             None if d_slab is None else (d_slab / channels).to(dtype))
 
 
-_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _suffix(t: torch.Tensor) -> str:
-    """The entry point's suffix for ``t``'s dtype: ``_bf16`` for bfloat16."""
-    return "_bf16" if t.dtype == torch.bfloat16 else ""
+_DTYPES = tuple(_cuda.KERNEL_DTYPES)
 
 
 def _check_slab(name, f1, slab, max_displacement, stride2):
@@ -152,9 +149,9 @@ def corr_slab_cuda(f1: torch.Tensor, slab: torch.Tensor,
                    max_displacement: int = 20,
                    stride2: int = 2) -> torch.Tensor:
     """K7 forward, any width: ``correlation_fwd_rows`` on float32, or
-    ``correlation_fwd_rows_bf16`` on bfloat16 f1 and slab with a bfloat16
-    output."""
-    name = "correlation_fwd_rows" + _suffix(f1)
+    ``correlation_fwd_rows_bf16`` (``_fp16``) on bfloat16 (float16) f1 and
+    slab with an output of their dtype."""
+    name = "correlation_fwd_rows" + _cuda.suffix(f1.dtype)
     device = _check_slab(name, f1, slab, max_displacement, stride2)
     batch, _, height, width = f1.shape
     disp = 2 * (max_displacement // stride2) + 1
@@ -171,8 +168,9 @@ def corr_slab_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, slab: torch.Tensor,
                        needs=(True, True)):
     """K7 backward, any width: d_f1 by ``correlation_bwd_f1_rows`` and
     d_slab by ``correlation_bwd_f2_rows``, each launched only where
-    ``needs`` asks; float32, or bfloat16 g, f1 and slab with bfloat16
-    gradients (the entry points' ``_bf16`` forms)."""
+    ``needs`` asks; float32, or bfloat16 or float16 g, f1 and slab with
+    gradients of their dtype (the entry points' ``_bf16`` and ``_fp16``
+    forms)."""
     device = _check_slab("correlation_bwd_rows", f1, slab, max_displacement,
                          stride2)
     batch, _, height, width = f1.shape
@@ -194,8 +192,8 @@ def corr_slab_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, slab: torch.Tensor,
             continue
         out = torch.empty_like(like)
         if out.numel():
-            _launch("correlation_bwd", name + _suffix(f1), (g, src, out), f1,
-                    max_displacement, stride2)
+            _launch("correlation_bwd", name + _cuda.suffix(f1.dtype),
+                    (g, src, out), f1, max_displacement, stride2)
         grads.append(out)
     return tuple(grads)
 

@@ -40,16 +40,19 @@ in a fixed order that does not depend on the device's schedule (no
 when the image needs a gradient, which no model's warp does.  Nearest and
 K > 1 are differentiated by autograd through the plain version, on the CPU.
 
-bfloat16, as the JAX package's Pallas kernels compute it: the image, the
-flow and the cotangent are upcast, the coordinates, weights and sums are
-float32, and each result is rounded once: the warp to the image's dtype,
-the flow gradient to the flow's; K3's tangents d1, d2 stay float32, and
-the tangent route's backward sums ``g * d1`` in float32 and rounds once.
+bfloat16 and float16, as the JAX package's Pallas kernels compute bf16:
+the image, the flow and the cotangent are upcast, the coordinates, weights
+and sums are float32, and each result is rounded once: the warp to the
+image's dtype, the flow gradient to the flow's; K3's tangents d1, d2 stay
+float32, and the tangent route's backward sums ``g * d1`` in float32 and
+rounds once.  (The JAX package's own fp16 warp is its XLA path, which
+casts the weights to fp16 and multiplies in fp16; the port keeps its
+kernels' rule.)
 
 A CPU tensor takes the plain PyTorch versions.  A CUDA tensor launches the
-kernels (bilinear, K=1; float32, or a bfloat16 image, flow and cotangent,
-over the whole image or its local rows) or raises; no tensor is cast to
-run a kernel of another type.  With
+kernels (bilinear, K=1; float32, or a bfloat16 or float16 image, flow and
+cotangent, over the whole image or its local rows) or raises; no tensor is
+cast to run a kernel of another type.  With
 ``sharding_hints.spatial_shards() > 1``, or under a band context across
 processes, the three differentiable entry points run as row bands
 (``ops/resample2d_spatial.py``); other warps have no band form.
@@ -141,8 +144,8 @@ def resample2d_plain(img: torch.Tensor, flow: torch.Tensor,
                      kernel_size: int = 1, bilinear: bool = True,
                      off: int = 0) -> torch.Tensor:
     """The plain PyTorch warp; any device, any K, bilinear or nearest
-    (``off``: bilinear only).  A bfloat16 image and flow are upcast, warped
-    in float32 and rounded once, as the kernel and the JAX package do."""
+    (``off``: bilinear only).  A bfloat16 or float16 image and flow are
+    upcast, warped in float32 and rounded once, as the kernels do."""
     _cuda.PLAIN_CALLS["resample2d"] += 1
     if bilinear:
         return _bilinear_plain(_cuda.widened(img), flow, kernel_size,
@@ -155,7 +158,7 @@ def resample2d_plain(img: torch.Tensor, flow: torch.Tensor,
 def resample2d_multi_plain(img: torch.Tensor, flows: torch.Tensor,
                            off: int = 0) -> torch.Tensor:
     """The plain PyTorch F-flow bilinear warp: (B, F, C, Ho, W), bfloat16
-    as ``resample2d_plain``."""
+    and float16 as ``resample2d_plain``."""
     _cuda.PLAIN_CALLS["resample2d_multi"] += 1
     wide = _cuda.widened(img)
     return torch.stack([_bilinear_plain(wide, flows[:, f], 1, off)
@@ -186,8 +189,8 @@ def resample2d_grad_flow_plain(g: torch.Tensor, img: torch.Tensor,
                                off: int = 0) -> torch.Tensor:
     """The plain version of K4: the flow gradient (B, F, 2, Ho, W) of the
     bilinear warp of ``img`` by ``flows`` for the cotangent ``g``
-    (B, F, C, Ho, W), in the flows' dtype (bfloat16: summed in float32 and
-    rounded once)."""
+    (B, F, C, Ho, W), in the flows' dtype (bfloat16, float16: summed in
+    float32 and rounded once)."""
     _cuda.PLAIN_CALLS[_per_flow("resample2d_grad_flow", flows.shape[1])] += 1
     g, wide = _cuda.widened(g), _cuda.widened(img)
     d_flows = []
@@ -211,7 +214,8 @@ def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
     device: the taps (flow, corner, pixel) are sorted stably by their
     target pixel, each target's run of taps is summed as a pairwise tree
     in that order, and each image pixel gathers its run's sum.  Nothing is
-    scattered.  bfloat16 is summed in float32 and rounded once."""
+    scattered.  bfloat16 and float16 are summed in float32 and rounded
+    once."""
     batch, channels, height, width = img.shape
     if not g.numel():
         return torch.zeros_like(img)
@@ -286,7 +290,9 @@ def _check_warp(name: str, img: torch.Tensor, flows: torch.Tensor, off: int,
 _POINTERS = {"resample2d_fwd": 3, "resample2d_tangents": 5,
              "resample2d_grad_flow": 4}
 # lib -> the entry points it defines, with the same arguments
-_ENTRY_POINTS = {lib: (lib, f"{lib}_bf16") for lib in _POINTERS}
+_ENTRY_POINTS = {lib: tuple(lib + sfx
+                            for sfx in _cuda.KERNEL_DTYPES.values())
+                 for lib in _POINTERS}
 
 
 def _argtypes(lib: str) -> list:
@@ -312,20 +318,21 @@ def _launch(lib: str, name: str, pointers, dims, device,
 def _check_cuda_warp(lib: str, name: str, img: torch.Tensor,
                      flows: torch.Tensor, off: int):
     """``_check_warp`` for the entry points of ``csrc/<lib>.cu``: float32,
-    or a bfloat16 image and bfloat16 flows (entry point ``<lib>_bf16``),
-    over the whole image or its local rows.  Returns the device, the dims,
-    the output shape, the entry point and the counter name
-    (``<name>_bf16`` for bfloat16)."""
+    or a bfloat16 (float16) image and flows of its dtype (entry point
+    ``<lib>_bf16``, ``<lib>_fp16``), over the whole image or its local
+    rows.  Returns the device, the dims, the output shape, the entry point
+    and the counter name (``<name>_bf16``, ``<name>_fp16``)."""
     device, dims, shape = _check_warp(name, img, flows, off,
-                                      (torch.float32, torch.bfloat16))
-    suffix = "_bf16" if img.dtype == torch.bfloat16 else ""
+                                      tuple(_cuda.KERNEL_DTYPES))
+    suffix = _cuda.suffix(img.dtype)
     return device, dims, shape, lib + suffix, name + suffix
 
 
 def _fwd_cuda(name: str, img: torch.Tensor, flows: torch.Tensor, off: int):
     """Run K2 (csrc/resample2d_fwd.cu) over flows (B, F, 2, Ho, W): float32,
-    or a bfloat16 image and bfloat16 flows (entry point
-    ``resample2d_fwd_bf16``, counted under ``<name>_bf16``)."""
+    or a bfloat16 (float16) image and flows (entry point
+    ``resample2d_fwd_bf16`` (``_fp16``), counted under ``<name>_bf16``
+    (``_fp16``))."""
     device, dims, shape, entry, name = _check_cuda_warp(
         "resample2d_fwd", name, img, flows, off)
     out = torch.empty(shape, dtype=img.dtype, device=device)
@@ -339,7 +346,7 @@ def resample2d_cuda(img: torch.Tensor, flow: torch.Tensor,
                     kernel_size: int = 1, bilinear: bool = True,
                     off: int = 0) -> torch.Tensor:
     """The CUDA warp of one flow (K2); bilinear K=1, float32 or a
-    bfloat16 image and flow."""
+    bfloat16 or float16 image and flow."""
     if kernel_size != 1 or not bilinear:
         raise NotImplementedError(
             "resample2d on CUDA: the kernel covers bilinear, kernel_size=1 "
@@ -357,8 +364,9 @@ def resample2d_tangents_cuda(img: torch.Tensor, flows: torch.Tensor,
                              off: int = 0):
     """K3: the warp of one image by F flows (B, F, 2, Ho, W) and its flow
     tangents, ``(out, d1, d2)`` each (B, F, C, Ho, W), in one launch;
-    ``out`` in the image's dtype, d1 and d2 float32 (a bfloat16 image and
-    flows: entry point ``resample2d_tangents_bf16``)."""
+    ``out`` in the image's dtype, d1 and d2 float32 (a bfloat16 or float16
+    image and flows: entry point ``resample2d_tangents_bf16``,
+    ``_fp16``)."""
     device, dims, shape, entry, name = _check_cuda_warp(
         "resample2d_tangents", _per_flow("resample2d_tangents",
                                          flows.shape[1]), img, flows, off)
@@ -376,8 +384,8 @@ def resample2d_grad_flow_cuda(g: torch.Tensor, img: torch.Tensor,
                               off: int = 0) -> torch.Tensor:
     """K4: the flow gradient (B, F, 2, Ho, W) of the warp of ``img`` by
     ``flows`` for the cotangent ``g`` (B, F, C, Ho, W), in one launch, in
-    the flows' dtype (a bfloat16 image, flows and g: entry point
-    ``resample2d_grad_flow_bf16``)."""
+    the flows' dtype (a bfloat16 or float16 image, flows and g: entry
+    point ``resample2d_grad_flow_bf16``, ``_fp16``)."""
     device, dims, shape, entry, name = _check_cuda_warp(
         "resample2d_grad_flow", _per_flow("resample2d_grad_flow",
                                           flows.shape[1]), img, flows, off)
@@ -445,9 +453,9 @@ class _WarpTangents(torch.autograd.Function):
                  if ctx.needs_input_grad[0] else None)
         d_flows = None
         if ctx.needs_input_grad[1]:
-            # float32 tangents: a bfloat16 cotangent is upcast, the sums
-            # are float32 and the gradient is rounded once to the flows'
-            # dtype, as the JAX package's _resample2d_bwd does
+            # float32 tangents: a bfloat16 or float16 cotangent is upcast,
+            # the sums are float32 and the gradient is rounded once to the
+            # flows' dtype, as the JAX package's _resample2d_bwd does
             gf = g.float()
             d_flows = torch.stack([torch.sum(gf * d1, dim=2),
                                    torch.sum(gf * d2, dim=2)],

@@ -6,11 +6,14 @@ model's parameters and hands out the steps.  The train step runs the model
 in ``train()`` mode with the loss inside, as the reference's ModelAndLoss
 does, and updates the parameters and the optimizer's state in place
 (where the JAX step returns a new state: here nothing is copied).  A
-bfloat16 model (``get_model(..., dtype=torch.bfloat16)``) trains as the
-JAX package's bf16 model does: its parameters stay float32, the master
-weights, and get float32 gradients through the convolutions' casts; the
-loss compares the bf16 flow with the float32 target in float32; the
-optimizer steps in float32.  The
+bfloat16 or float16 model (``get_model(..., dtype=torch.bfloat16)``)
+trains as the JAX package's bf16 and fp16 models do: its parameters stay
+float32, the master weights, and get float32 gradients through the
+convolutions' casts; the loss compares the low-precision flow with the
+float32 target in float32; the optimizer steps in float32.  The fp16 model
+takes the JAX step's static loss scale and skips non-finite updates
+(``loss_scale``, ``skip_nonfinite_updates``; the command line's
+``--precision fp16 --fp16_scale``).  The
 step number lives in the optimizer (``optimizer.count``), which feeds the
 LR schedule.
 
@@ -58,11 +61,14 @@ from .optim import Optimizer
 
 @dataclasses.dataclass
 class StepFactory:
-    """Train, eval and inference steps for (model, loss, optimizer).  ``loss_scale``
-    multiplies the loss before the backward and divides the gradients
-    after it (fp16 parity experiments); ``skip_nonfinite_updates`` leaves
-    the parameters and the optimizer untouched when any gradient is not
-    finite, where the reference stops."""
+    """Train, eval and inference steps for (model, loss, optimizer).
+    ``loss_scale`` multiplies the loss before the backward and divides the
+    gradients after it, before the optimizer's step clips them (the fp16
+    model's static loss scale); ``skip_nonfinite_updates`` leaves the
+    parameters and the optimizer (its step count too) untouched when any
+    gradient is not finite, where the reference stops: the train step then
+    returns ``skipped`` 1 (else 0) beside its metrics, which the Trainer
+    logs, and ``skipped_updates`` counts such steps."""
     model: torch.nn.Module
     loss_fn: Any
     optimizer: Optimizer
@@ -71,6 +77,7 @@ class StepFactory:
     plan: Optional[DataParallelPlan] = None
 
     def __post_init__(self):
+        self.skipped_updates = 0
         self.optimizer.init(self.model.parameters())
         # the module the train step calls: the model, or under a plan its
         # DistributedDataParallel wrapper (which broadcasts rank 0's
@@ -129,15 +136,24 @@ class StepFactory:
         (lossvalue * self.loss_scale).backward()
         grads = self.optimizer.grads()
         if self.loss_scale != 1.0:
-            for g in grads:
-                g.div_(self.loss_scale)
-        if not self.skip_nonfinite_updates or all(
-                bool(torch.isfinite(g).all()) for g in grads):
+            # unscaled before the optimizer's step, which clips them
+            torch._foreach_div_(grads, self.loss_scale)
+        extra = {}
+        if self.skip_nonfinite_updates:
+            # one read of the card a step: whether every gradient is finite
+            # (under a plan DDP left every rank the same gradients)
+            finite = torch.stack([torch.isfinite(g).all()
+                                  for g in grads]).all()
+            extra["skipped"] = (~finite).float()
+            finite = bool(finite)
+            self.skipped_updates += not finite
+        if not self.skip_nonfinite_updates or finite:
             self.optimizer.step()
         if self.plan is None:
-            return {"loss": lossvalue.detach(), "epe": epevalue.detach()}
+            return {"loss": lossvalue.detach(), "epe": epevalue.detach(),
+                    **extra}
         loss, epe = self._global_mean(lossvalue, epevalue)
-        return {"loss": loss, "epe": epe}
+        return {"loss": loss, "epe": epe, **extra}
 
     def train_step(self) -> Callable:
         """``(images (B, 2, H, W, 3), flow (B, H, W, 2)) -> {"loss",

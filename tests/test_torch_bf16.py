@@ -365,9 +365,3 @@ def test_bf16_train_step_and_inference_steps_serve():
                                               1)
     assert torch.equal(pred, flow) and sums["count"] == 1
     assert torch.isfinite(sums["epe_sum"])
-
-
-def test_bf16_batch_norm_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        get_model("FlowNet2C", device="cpu", dtype=torch.bfloat16,
-                  batch_norm=True)

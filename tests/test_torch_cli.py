@@ -277,11 +277,25 @@ def test_no_dataset_returns_2(tmp_path):
         "cpu"
 
 
-def test_fp16_raises(data, tmp_path):
-    with pytest.raises(NotImplementedError, match="M6"):
-        _cli(*_frames_args(data, tmp_path, "FlowNet2S"),
-             "--precision", "fp16")
-    assert not (tmp_path / "inference").exists()
+def test_cli_fp16_training(data, tmp_path):
+    """--precision fp16 builds the float16 model and trains it with the
+    static loss scale and skips non-finite updates (the JAX package's
+    ``test_cli_fp16_training``): every logged train loss finite and
+    unscaled (a x128 leak would put it near 1e3-1e4), each record saying
+    whether its update was skipped."""
+    assert _cli("--model", "FlowNet2S", "--precision", "fp16",
+                "--fp16_scale", "128", "--batch_size", "2",
+                "--total_epochs", "1", "--validation_frequency", "5",
+                "--save", str(tmp_path), "--training_dataset",
+                "MpiSintelClean", "--training_dataset_root",
+                str(data["sintel"])) == 0
+    assert json.loads((tmp_path / "args.json").read_text())["precision"] \
+        == "fp16"
+    train = [r for r in _records(tmp_path) if r["split"] == "train"]
+    assert train and all(np.isfinite(r["loss"]) for r in train)
+    assert all(r["loss"] < 200 for r in train)
+    assert all(r["skipped"] in (0.0, 1.0) for r in train)
+    assert not all(r["skipped"] for r in train)
 
 
 def test_device_defaults_to_cuda_and_refuses_without_it(data, tmp_path):

@@ -174,6 +174,117 @@ def test_flownetc_trains_with_batchnorm_as_jax():
     assert flow.shape == (4, H, W, 2) and torch.isfinite(flow).all()
 
 
+@pytest.fixture(scope="module", params=["bfloat16", "float16"])
+def low_precision_bn(request):
+    """FlowNet2S with BatchNorm in bfloat16 or float16 in both packages, on
+    one set of float32 weights and running statistics: the train-mode
+    multi-scale tuple with the updated running statistics (JAX
+    ``train_bn=True``), and the eval-mode flow of the statistics as
+    loaded."""
+    name = request.param
+    made = get_model("FlowNet2S", device="cpu", seed=8, batch_norm=True)
+    rng = np.random.RandomState(9)
+    state = _numpy_state(made)
+    for key, value in state.items():
+        if key.endswith((".1.weight", "running_var")):
+            state[key] = rng.uniform(0.5, 1.5, value.shape).astype(np.float32)
+        elif key.endswith((".1.bias", "running_mean")):
+            state[key] = (rng.randn(*value.shape) * 0.1).astype(np.float32)
+    variables = state_dict_to_variables(state, "FlowNet2S")
+    jm = jax_models.FlowNet2S(batch_norm=True, dtype=getattr(jnp, name))
+    x = _pairs(2, 10)
+    want_train, updated = jax.jit(lambda v, a: jm.apply(
+        v, a, training=True, train_bn=True, mutable=["batch_stats"]))(
+            variables, jnp.asarray(x))
+    want_eval = jax.jit(jm.apply)(variables, jnp.asarray(x))
+    want_state = from_jax_variables(
+        {"params": variables["params"],
+         "batch_stats": jax.tree_util.tree_map(np.asarray,
+                                               updated["batch_stats"])},
+        "FlowNet2S")
+    port = get_model("FlowNet2S", device="cpu", dtype=getattr(torch, name),
+                     batch_norm=True)
+    port.load_state_dict(from_jax_variables(variables, "FlowNet2S"),
+                         strict=True)
+    seen = {}   # BatchNorm module name -> samples per channel
+
+    def count(mod_name):
+        def hook(module, args):
+            seen[mod_name] = args[0].numel() // args[0].shape[1]
+        return hook
+
+    with torch.no_grad():
+        got_eval = port.eval()(torch.from_numpy(x))
+        for mod_name, module in port.named_modules():
+            if isinstance(module, torch.nn.BatchNorm2d):
+                module.register_forward_pre_hook(count(mod_name))
+        got_train = port.train()(torch.from_numpy(x))
+    return dict(dtype=getattr(torch, name), state=state, port=port, seen=seen,
+                got_train=got_train, got_eval=got_eval,
+                want_train=[np.asarray(w.astype(jnp.float32))
+                            for w in want_train],
+                want_eval=np.asarray(want_eval.astype(jnp.float32)),
+                want_state=want_state)
+
+
+def _bn_contract(got, want, what):
+    """The JAX package's bf16 contract (tests/test_models.py
+    TestBf16Precision): mean |d| < 0.05 (mean |want| + 1e-3) + 5e-3."""
+    got, want = got.astype(np.float64), want.astype(np.float64)
+    err = np.abs(got - want).mean()
+    limit = 0.05 * (np.abs(want).mean() + 1e-3) + 5e-3
+    print(f"{what}: mean error {err:.4g} against {limit:.4g}")
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert err < limit, (what, err, limit)
+
+
+def test_flownet2s_batchnorm_in_low_precision_trains_as_jax(
+        low_precision_bn):
+    """FlowNet2S with BatchNorm in bf16 / fp16, ``train()`` mode, against
+    the JAX package's ``nn.BatchNorm(dtype=...)`` (statistics in float32):
+    each scale of the tuple in the compute dtype and within the bf16
+    contract; the running statistics float32 and within 2e-2 of the JAX
+    update (relative to their largest magnitude; Flax's variance scaled
+    by n/(n-1), as above; read 3.3e-3 in bf16, 3.3e-4 in fp16), having
+    moved."""
+    run = low_precision_bn
+    assert len(run["got_train"]) == len(run["want_train"]) == 5
+    for s, (a, b) in enumerate(zip(run["got_train"], run["want_train"])):
+        assert a.dtype == run["dtype"]
+        _bn_contract(a.float().numpy(), b, f"{run['dtype']} flow{s + 2}")
+    got_state = run["port"].state_dict()
+    checked, worst = 0, 0.0
+    for key, before in run["state"].items():
+        if not key.endswith(("running_mean", "running_var")):
+            continue
+        got = got_state[key]
+        assert got.dtype == torch.float32, key
+        want = run["want_state"][key].numpy()
+        if key.endswith("running_var"):
+            n = run["seen"][key[:-len(".running_var")]]
+            want = 0.9 * before + (want - 0.9 * before) * n / (n - 1)
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        worst = max(worst, err)
+        assert err <= 2e-2, (key, err)
+        assert np.abs(got.numpy() - before).max() > 1e-4, key
+        checked += 1
+    print(f"{run['dtype']} running statistics: worst {worst:.3e} of their "
+          "largest magnitude")
+    assert checked == 2 * 10   # every conv() of FlowNetS
+
+
+def test_flownet2s_batchnorm_in_low_precision_serves_as_jax(
+        low_precision_bn):
+    """The same model in ``eval()`` mode, on the running statistics as
+    loaded: the flow in the compute dtype, within the bf16 contract of the
+    JAX package's."""
+    run = low_precision_bn
+    assert run["got_eval"].dtype == run["dtype"]
+    assert run["got_eval"].shape == (2, H, W, 2)
+    _bn_contract(run["got_eval"].float().numpy(), run["want_eval"],
+                 f"{run['dtype']} eval flow")
+
+
 def test_unknown_names_still_raise():
     with pytest.raises(KeyError, match="available"):
         get_model("FlowNet2X", device="cpu")
