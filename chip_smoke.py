@@ -7,7 +7,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Card: print nvidia-smi's name and power limit; build the CUDA kernels
    from flownet2_tpu_torch/csrc and print the build time and ptxas's
-   register and spill lines under each kernel's (mangled) name.
+   register and spill lines under each kernel's (mangled) name, then each
+   instantiation of the correlation's tensor-core bodies (K1's and K6's
+   for bf16 and half, K5's for bf16) with its registers and spills.
 2. Kernels against their plain PyTorch versions on the card, TF32 off: the
    correlation (K1) and its gradient (K5 d_f1, K6 d_f2) at
    (8, 256, 48, 64), at the wide (4, 256, 48, 128), at a ragged
@@ -68,13 +70,14 @@ Phases (any failure raises and the script exits non-zero):
    point at the bf16 forms' cases, each element within one fp16 ulp
    (rtol 2^-10, atol 1e-6 of the largest |out|) of its plain version and
    at most 1% of them not bit-equal (the flip rates of K1, K5 and K6 fp16
-   printed), K3's float32 d1 and d2 at 1e-5, K4 fp16 also against the
-   tangent route's fp16 flow gradient, the smooth flow and both routes in
-   one launch; K7 fp16 on the bands of 1, 2 and 4 (forward and d_f1
-   bit-equal to K1 and K5 fp16's rows, one band's d_slab rows
-   [20, 20 + H) K6 fp16's, the top, a middle and the bottom band at one
-   ulp of the plain version); the fp16 local-rows K2, K3 and K4 bit-equal
-   to the whole image's rows.
+   printed for each body: K1's and K6's tensor-core bodies at maxd 20,
+   s2 2, the general bodies at the others and K5's at every one), K3's
+   float32 d1 and d2 at 1e-5, K4 fp16 also against the tangent route's
+   fp16 flow gradient, the smooth flow and both routes in one launch; K7
+   fp16 on the bands of 1, 2 and 4 (forward and d_f1 bit-equal to K1 and
+   K5 fp16's rows, one band's d_slab rows [20, 20 + H) K6 fp16's, the top,
+   a middle and the bottom band at one ulp of the plain version); the fp16
+   local-rows K2, K3 and K4 bit-equal to the whole image's rows.
 3. FlowNet2 inference, seeded random weights, b8 384x512 fp32: warm-up,
    then 10 timed batches with CUDA events, with the launch counters set to
    0 just before and read just after (1 K1 and 3 K2 launches per forward,
@@ -105,7 +108,8 @@ Phases (any failure raises and the script exits non-zero):
    deterministic, within the same contract of the whole map, that
    forward's launches exact (2 correlation_fwd_rows_fp16, 4 and 2 fp16
    K2).  Printed: ms/batch, frames/s, the peak memory and the host's time
-   to enqueue a forward.  The fp16 model is then freed.
+   to enqueue a forward, and the ms/batch and the host's time beside
+   phase 3b's bf16 ones.  The fp16 model is then freed.
 3d. BatchNorm in low precision (``batchnorm_phase``): FlowNet2S with
    BatchNorm at b8 384x512, one MultiScale Adam step each in fp32, bf16 and
    fp16 (loss scale 1024, non-finite updates skipped), cuDNN
@@ -171,8 +175,9 @@ Phases (any failure raises and the script exits non-zero):
    and EPE at 5e-3 relative, sub-nets at 5e-2, flownetc and flownets_1
    printed), its launches exact (2 of each K7 fp16 entry point, twice the
    step's fp16 warps); then 2 warm-up and 10 timed steps per route, in
-   turns, counted as in phase 4 with the fp16 entry points; the skipped
-   updates printed, and the phase fails if every update was skipped.
+   turns, counted as in phase 4 with the fp16 entry points, ms/step
+   printed beside phase 4b's bf16 ms/step; the skipped updates printed,
+   and the phase fails if every update was skipped.
 5. The row-band path: with ``set_spatial_shards(2)`` the correlation runs
    as two bands against halo slabs on K7 and every warp as two bands on
    the local-rows K2, K3 and K4, all on this card in turn.  The phase 3
@@ -329,9 +334,13 @@ Phases (any failure raises and the script exits non-zero):
    for the warps, whose bodies upcast and sum in f32, also at the f32
    rate; K7 bf16 at one band of two of the bf16 forward's and step's maps,
    likewise; the fp16 forms at the bf16 forms' shapes and fp16 bytes, their
-   operations at the fp16 tensor-core rate and, since their bodies sum in
-   f32, also at the f32 rate, the warps beside ``F.grid_sample`` on fp16
-   tensors, whose fp16 grid's error in pixels is printed), each beside
+   operations at the fp16 tensor-core rate and, for those whose bodies sum
+   on the FMA pipes (the warps, K5 and K7 d_f1), also at the f32 rate, the
+   warps beside ``F.grid_sample`` on fp16 tensors, whose fp16 grid's error
+   in pixels is printed; K1, K6, K7 forward and K7 d_slab in fp16, which
+   share the bf16 tensor-core bodies, each beside its bf16 form, and the
+   phase fails if K1 or K6 fp16 takes more than 1.5x its bf16 form, as a
+   route that stayed on the general body, ~10x, would), each beside
    the SM clock, the two-flow K4 (+-8 px and +-200 px at (8, 3, 384, 448))
    among them, and K3's four forms with their share of the bound beside
    their times before the row tiles; K2, K3 and K4, one and two flows, f32
@@ -514,6 +523,12 @@ DP_CLI_LR, DP_CLI_RTOL, DP_CLI_SHARE = 3e-6, 1e-4, 1e-2
 # the fp16 phases' static loss scale: the command line's --fp16_scale
 # default
 FP16_SCALE = 1024.0
+# the fp16 kernels that run the bf16 tensor-core bodies at maxd 20, s2 2,
+# and whether phase 6 gates each one's time against its bf16 form's
+FP16_TENSOR_CORE_ROWS = {"correlation_fwd_fp16": True,
+                         "correlation_bwd_f2_fp16": True,
+                         "correlation_fwd_rows_fp16": False,
+                         "correlation_bwd_f2_rows_fp16": False}
 
 
 # The readings of the timed phases, printed where they are taken and again
@@ -594,6 +609,33 @@ def sm_clock() -> str:
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def tensor_core_bodies(logs: dict) -> list:
+    """ptxas's registers and spilled bytes for each instantiation of the
+    correlation's tensor-core bodies (K1's and K6's for bf16 and half, K5's
+    for bf16), read from the build's logs of ``csrc/correlation_fwd.cu``
+    and ``csrc/correlation_bwd.cu``."""
+    lines, kernel, spill = [], "", "0"
+    for lib in ("correlation_fwd", "correlation_bwd"):
+        for line in logs.get(lib, "").splitlines():
+            if "Compiling entry function" in line:
+                kernel, spill = line.split("'")[1], "0"
+            elif "spill stores" in line:
+                spill = line.split(",")[1].split()[0]
+            elif "registers" in line:
+                # the body's own name follows its length, the namespace
+                # (correlation_fwd_cu_...) a "_N_"
+                m = re.search(r"\d(correlation_\w+?_mma_kernel)I"
+                              r"(?:\d+(\w+?))?Lb([01])ELi(\d+)E", kernel)
+                if m:
+                    body, dtype, slab, piece = m.groups()
+                    regs = line.split("Used ")[1].split()[0]
+                    lines.append(
+                        f"{body}<{dtype or '__nv_bfloat16'}, slab {slab}, "
+                        f"{piece} a copy>: {regs} registers, {spill} bytes "
+                        "spilled")
+    return sorted(lines)
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor, rtol: float,
@@ -2380,8 +2422,11 @@ def fp16_kernels(dev: torch.device, errs: dict) -> None:
     """Phase 2's fp16 forms: every fp16 entry point against its plain
     version at phase 2's bf16 cases, each element within one fp16 ulp and
     at most 1% of them not bit-equal (``ulp_err``): K1, K5 and K6 at the
-    main-path, training, wide and ragged maps (the general bodies at every
-    configuration, maxd 8, s2 1 and maxd 4, s2 2 among them); K2 for one
+    main-path, training, wide and ragged maps (K1 and K6 on their
+    tensor-core bodies at maxd 20, s2 2, the ragged maps reaching the 4- and
+    2-byte copies; the general bodies at maxd 8, s2 1 and maxd 4, s2 2, and
+    K5's at every configuration), the share of values not bit-equal noted
+    for each kernel and body; K2 for one
     flow of +-8 px and of +-200 px and for two flows over the
     (8, 3, 384, 512) image and the ragged (2, 3, 100, 150) one; K3 (out;
     its float32 d1 and d2 at 1e-5) and K4 on K3's and K4's cases and at
@@ -2409,6 +2454,13 @@ def fp16_kernels(dev: torch.device, errs: dict) -> None:
         return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
                 * scale).half()
 
+    def body(kernel, maxd, s2):
+        """The body an fp16 correlation kernel runs at (maxd, s2): K1's
+        and K6's tensor-core bodies at maxd 20, s2 2, K5 the general one
+        always."""
+        return ("tensor-core body" if (maxd, s2) == (20, 2) and kernel != "K5"
+                else "general body")
+
     print("  fp16 kernels against their plain versions, one fp16 ulp")
     odd = (2, 40, 20, 75)
     main_map = (BATCH, 256, HEIGHT // 8, WIDTH // 8)
@@ -2424,7 +2476,7 @@ def fp16_kernels(dev: torch.device, errs: dict) -> None:
         want = corr.correlation_plain(f1, f2, *args)
         errs.setdefault("correlation_fwd_fp16", []).append(ulp_err(
             got, want, f"K1 fp16 correlation {shape}, maxd {maxd}, s2 {s2}"))
-        flips.setdefault("K1", []).append(
+        flips.setdefault(("K1", body("K1", maxd, s2)), []).append(
             (got != want).float().mean().item())
     for shape, maxd, s2 in ([(m, 20, 2) for m in (train_map,) + maps
                              + ((2, 40, 20, 150),)]
@@ -2438,10 +2490,11 @@ def fp16_kernels(dev: torch.device, errs: dict) -> None:
             errs.setdefault(name, []).append(ulp_err(
                 got[k], want[k], f"K{5 + k} fp16 correlation d_f{1 + k} "
                 f"{shape}, maxd {maxd}, s2 {s2}"))
-            flips.setdefault(f"K{5 + k}", []).append(
+            kernel = f"K{5 + k}"
+            flips.setdefault((kernel, body(kernel, maxd, s2)), []).append(
                 (got[k] != want[k]).float().mean().item())
-    for kernel, shares in flips.items():
-        note(f"  {kernel} fp16 (general body) against its plain version: "
+    for (kernel, kind), shares in flips.items():
+        note(f"  {kernel} fp16 ({kind}) against its plain version: "
              f"{min(shares):.4%} to {max(shares):.4%} of the values not "
              f"bit-equal over {len(shares)} cases")
 
@@ -2722,7 +2775,8 @@ def fp16_inference_phase(smi: str, model, pairs, small, plain_ops) -> dict:
     del model16
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "band_launches": band_launches, "ms": ms}
+    return {"launches": launches, "band_launches": band_launches, "ms": ms,
+            "host_ms": host_ms}
 
 
 def batchnorm_phase(smi: str) -> None:
@@ -3198,6 +3252,9 @@ def main() -> int:
                 print(f"  {name}: {kernel}")
             elif "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
+    # the tensor-core bodies, each element type beside the other
+    for line in tensor_core_bodies(logs):
+        note(f"  {line}")
 
     # -- 2. kernels against their plain versions ----------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -3891,6 +3948,9 @@ def main() -> int:
 
     # -- 3c. FlowNet2 fp16 inference; 3d. BatchNorm in bf16 and fp16 ----------
     fp16_run = fp16_inference_phase(smi, model, pairs, small, plain_ops)
+    note(f"  phase 3c beside 3b, one call: fp16 {fp16_run['ms']:.3f} "
+         f"ms/batch [bf16 {ms16:.3f}], the host enqueues a forward in "
+         f"{fp16_run['host_ms']:.3f} ms [bf16 {host_ms:.3f}]  [{smi}]")
     batchnorm_phase(smi)
 
     # -- 4. FlowNet2 training -------------------------------------------------
@@ -4413,6 +4473,10 @@ def main() -> int:
     note(f"  phase 4c, fp16 step: {factory_h.skipped_updates} of {n_steps} "
          f"updates skipped at loss scale {FP16_SCALE:g}; peak "
          f"{peakh_gib:.2f} GiB allocated  [{smi}]")
+    note("  phase 4c beside 4b, one call, the fastest round of each route: "
+         + "; ".join(f"{route} fp16 {min(routeh_ms[route]):.3f} ms/step "
+                     f"[bf16 {min(route16_ms[route]):.3f}]"
+                     for route in ROUTES) + f"  [{smi}]")
     if factory_h.skipped_updates >= n_steps:
         raise AssertionError("phase 4c: every fp16 update was skipped")
     del modelh, steph, factory_h
@@ -4902,8 +4966,9 @@ def main() -> int:
         # the fp16 forms at the shapes of the bf16 rows, 2 bytes a value,
         # on the fp32 inputs above rounded to fp16 (no generator draws but
         # K7's); their operations bound at the card's fp16 tensor-core rate
-        # (bf16's on an H100) and, since every fp16 body sums in float32 on
-        # the FMA pipes, also at the f32 rate (bound_ms_f32_body).  The
+        # (bf16's on an H100) and, where the body sums in float32 on the FMA
+        # pipes (all but FP16_TENSOR_CORE_ROWS), also at the f32 rate
+        # (bound_ms_f32_body).  The
         # warps' library call is F.grid_sample on fp16 tensors, its grid in
         # fp16 too, which moves the sample point by up to half an fp16 ulp
         # of the normalised coordinate (printed in pixels)
@@ -5000,8 +5065,9 @@ def main() -> int:
                                                  retain_graph=True),
                      2 * b * h * w * (ch + 2 * (ch + 2 + 2)),
                      2 * b * h * w * (10 + 12 * ch)))
-        # K7 fp16 (the general bodies) at one band of the fp16 forward's and
-        # the fp16 step's maps
+        # K7 fp16 (forward and d_slab on the tensor-core bodies, d_f1 on the
+        # general body) at one band of the fp16 forward's and the fp16
+        # step's maps
         k7_rows(torch.float16)
 
         kernels = []
@@ -5026,7 +5092,8 @@ def main() -> int:
                      f"  [{smi}]")
             extra = {}
             if (bf16 and not name.startswith("correlation")
-                    or name.endswith("_fp16")):
+                    or name.endswith("_fp16")
+                    and name not in FP16_TENSOR_CORE_ROWS):
                 extra["bound_ms_f32_body"] = bound_ms(nbytes, flops, peaks)[0]
             route = "tangents" if "tangents" in name else "grad_flow"
             step16_k = route16_launches[route][0]
@@ -5082,6 +5149,22 @@ def main() -> int:
         del sampled, grid_leaf, sampled2, grid_leaf2, sampled_h, grid_leaf_h, \
             sampled2_h, grid_leaf2_h
         by_name = {k["name"]: k for k in kernels}
+
+        # the fp16 forms on the bf16 tensor-core bodies beside their bf16
+        # forms; K1's and K6's gate the dispatch: the general body reads
+        # ~10x its bf16 form's time
+        slow = []
+        for name, gated in FP16_TENSOR_CORE_ROWS.items():
+            h_ms = by_name[name]["ms"]
+            b_ms = by_name[name[:-len("_fp16")] + "_bf16"]["ms"]
+            note(f"  {name}: {h_ms:.4f} ms against its bf16 form's "
+                 f"{b_ms:.4f}, {h_ms / b_ms:.3f}x"
+                 f"{' (at most 1.5x)' if gated else ''}  [{smi}]")
+            if gated and h_ms > 1.5 * b_ms:
+                slow.append(name)
+        if slow:
+            raise AssertionError(f"phase 6: {slow} take more than 1.5x their "
+                                 "bf16 forms: not on the tensor-core bodies")
 
         # K2, K3 and K4 at the smooth flow the stage glue makes (+-8 px at
         # (H/4, W/4), bilinear x4), one and two flows, f32 and bf16, beside

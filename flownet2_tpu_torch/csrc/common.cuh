@@ -52,7 +52,7 @@ static __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// The bf16 tensor-core bodies' pieces (correlation_fwd.cu,
+// The tensor-core bodies' pieces (correlation_fwd.cu,
 // correlation_bwd.cu).  ldsm_x4 and ldsm_x4_trans load four 8x8 matrices
 // of 2-byte elements (bfloat16 or half) from shared memory, lane l giving
 // the address of row l % 8 of matrix l / 8; .trans hands each lane a
@@ -89,10 +89,51 @@ static __device__ __forceinline__ void mma_bf16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a . b for one m16n8k16 tile: half operands, f32 accumulators.  The
+// fragments lie as mma_bf16's.
+static __device__ __forceinline__ void mma_f16(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two floats rounded to bf16 (to nearest even), lo in the low half.
 static __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two floats rounded to half (to nearest even), lo in the low half.
+static __device__ __forceinline__ uint32_t half_pair(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The two above picked by the operands' element type T (bfloat16 or half),
+// so that a tensor-core body templated on T calls one name.
+template <typename T>
+static __device__ __forceinline__ void mma_2b(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  static_assert(std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>,
+                "bfloat16 or half operands");
+  if constexpr (std::is_same_v<T, __half>)
+    mma_f16(d, a, b0, b1);
+  else
+    mma_bf16(d, a, b0, b1);
+}
+
+template <typename T>
+static __device__ __forceinline__ uint32_t pair_2b(float lo, float hi) {
+  static_assert(std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>,
+                "bfloat16 or half values");
+  if constexpr (std::is_same_v<T, __half>)
+    return half_pair(lo, hi);
+  else
+    return bf16_pair(lo, hi);
 }
 
 // Copies kPiece 2-byte values (bfloat16 or half) into shared memory, or

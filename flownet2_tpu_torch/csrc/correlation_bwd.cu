@@ -98,8 +98,12 @@
 //
 // half g, f1 and f2 (entry points correlation_bwd_f1_fp16,
 // correlation_bwd_f2_fp16 and their K7 forms correlation_bwd_f1_rows_fp16,
-// correlation_bwd_f2_rows_fp16): the bf16 rule on the general bodies at
-// every configuration (launch_f1_fp16(), launch_f2_fp16()).
+// correlation_bwd_f2_rows_fp16): the bf16 rule.  d_f2 and d_slab run as
+// bf16's do (launch_f2_fp16()): correlation_bwd_f2_mma_kernel, one
+// template on the element type, at maxd 20, s2 2 (a product of two halves,
+// 11 significant bits each, is exact in float32), the general body for any
+// other.  d_f1 and K7's d_f1 run the general body at every configuration
+// (launch_f1_fp16()): correlation_bwd_f1_mma_kernel is bf16's alone.
 
 #include <cstdint>
 
@@ -688,8 +692,9 @@ int launch_f2(const float* g, const float* f1, float* d_f2, int B, int C,
 }  // namespace tiled
 
 // ---------------------------------------------------------------------------
-// The tensor-core d_f2 body for bfloat16 g and f1 at maxd 20, s2 2 (K6 bf16
-// and K7 bf16 d_slab): the TPU kernel's band product on mma.sync.
+// The tensor-core d_f2 body for bfloat16 or half g and f1 (T) at maxd 20,
+// s2 2 (K6 and K7 d_slab in bf16 and fp16): the TPU kernel's band product
+// on mma.sync.
 //
 // Replaces _bwd_f2_kernel (correlation_pallas.py:478, launched at :578; wide
 // form :225, :365), which builds, per output row and row shift, the band
@@ -710,23 +715,25 @@ int launch_f2(const float* g, const float* f1, float* d_f2, int B, int C,
 // m16n8k16 product with the channels as M (f1 as A, channel rows as they
 // lie: ldmatrix without .trans), the output columns as N (the band as B)
 // and the window's columns as K, four k-steps of 16: 3x the band's
-// multiply-adds on the tensor cores, bf16 operands as they lie, f32
-// accumulators.  The window starts 24 columns left of the tile, not 20,
-// so that every 8-column piece is 16-byte aligned (as in correlation_fwd.cu).
-// The channels are M, not the columns, so that a lane's accumulators hold
-// neighbouring output columns of one channel: the epilogue stores bf16
-// pairs straight from registers, x fastest, with no tile in shared memory
+// multiply-adds on the tensor cores, bf16 or half operands as they lie
+// (mma_2b picks the instruction's form), f32 accumulators.  The window
+// starts 24 columns left of the tile, not 20, so that every 8-column piece
+// is 16-byte aligned (as in correlation_fwd.cu).  The channels are M, not
+// the columns, so that a lane's accumulators hold neighbouring output
+// columns of one channel: the epilogue stores pairs of T straight from
+// registers, x fastest, with no tile in shared memory
 // and no barrier; and one band fragment serves the block's 64 channels.
 //
 // The band is built in registers: of the two values of a B register (rows
 // k, k + 1 of column m) only the one whose k has m's parity can be nonzero,
 // so a lane loads the 4-byte pair that holds it from the staged cotangent
 // rows and masks the other half off (and the whole register where its ti
-// lies outside [0, 21)).  The pair's plane is ti0 + 4 (j - 2s - b) for
-// n-tile j, k-step s and register b, and its staged column does not
-// depend on j, s or b beyond the output column (planes 4 apart are staged
-// from columns 8 apart), so every register is one load at a fixed offset
-// from the lane's base and one AND with one of 9 masks worked out once.
+// lies outside [0, 21)); a zero half is +0 in either format.  The pair's
+// plane is ti0 + 4 (j - 2s - b) for n-tile j, k-step s and register b, and
+// its staged column does not depend on j, s or b beyond the output column
+// (planes 4 apart are staged from columns 8 apart), so every register is
+// one load at a fixed offset from the lane's base and one AND with one of
+// 9 masks worked out once.
 // Writing the 21 diagonals into a zeroed band tile and reading it with
 // ldmatrix would cost a store per value and a barrier per shift.
 //
@@ -753,12 +760,15 @@ int launch_f2(const float* g, const float* f1, float* d_f2, int B, int C,
 // Every output sums its shifts in ascending order, each over the same
 // k-steps and fragment positions in the whole-map and the slab form (both
 // tile the columns and the channels from 0), so a band's d_slab rows carry
-// the bits of the whole-map call.  The products of bf16 values are exact in
-// f32; the order of the sums and the tensor cores' adds differ from the
-// general body's fmaf chain, which puts ~2 values in 10^4 one ulp apart.
+// the bits of the whole-map call.  The products of bf16 or half values are
+// exact in f32; the order of the sums and the tensor cores' adds differ
+// from the general body's fmaf chain, which puts ~2 values in 10^4 one bf16
+// ulp apart.
 //
 // On an NVIDIA H100 80GB HBM3 at 700 W (kernel_ab.py, the parent's general
-// body in the same call): 0.0775 ms for K6 at (8, 256, 48, 56) against
+// body in the same call), in bf16 (the half instantiation differs only in
+// the mma's operand type and the epilogue's rounding; PERF.md's kernel
+// table has its times): 0.0775 ms for K6 at (8, 256, 48, 56) against
 // 0.8639 (11.1x), 0.0589 for K7 d_slab at one band of two, g (8, 441, 24,
 // 56) against its (8, 256, 64, 56) slab, against 0.6026; 16% and 15% of the
 // bytes' bound (0.0122, 0.0089 ms).  123 and 127 registers and no spills
@@ -785,9 +795,9 @@ constexpr int kKSteps = 5;                 // 16-column k-steps a warp
 constexpr int kMinBlocks = 2;              // resident blocks asked for
 constexpr int kLead = 24;                  // window start, left of the tile
 constexpr int kSpan = kTileW + 2 * kLead;  // f1 columns staged: 112
-constexpr int kF1Pitch = kSpan + 8;        // bf16 a staged f1 channel row
+constexpr int kF1Pitch = kSpan + 8;        // values a staged f1 channel row
 constexpr int kGCols = 72;                 // cotangent columns staged a plane
-constexpr int kGPitch = kGCols + 8;        // bf16 a staged cotangent row
+constexpr int kGPitch = kGCols + 8;        // values a staged cotangent row
 constexpr int kRing = kRows + 1;           // staged f1 rows
 constexpr int kF1Elems = kChunk * kF1Pitch;     // one staged f1 row
 constexpr int kGElems = kRows * kD * kGPitch;   // one shift's cotangent rows
@@ -796,7 +806,7 @@ constexpr int kGBase = kRing * kF1Elems;        // the cotangent stages
 // ti0 in [19, 25]; those outside [0, 21) are masked to zero, but read: the
 // last stage's last row reaches 9 rows past the end.
 constexpr int kGPad = 9 * kGPitch;
-constexpr size_t kSmem =
+constexpr size_t kSmem =   // 2-byte values, bfloat16 or half
     sizeof(__nv_bfloat16) * (kGBase + 2 * kGElems + kGPad);
 // Staging slots: a thread copies one 8-column piece of the cotangent rows
 // of one output row for 3 consecutive planes, and one 8-column piece of
@@ -820,17 +830,17 @@ __device__ __forceinline__ int g_lead(int ti) {
   return (kMaxd - kS2 * ti) & ~7;
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t lds32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // Copies the 8 values at src[off .. off + 8), global columns x .. x + 7,
 // into dst, kPiece a copy; a copy whose columns lie outside [0, W), or all
 // of them where ``ok`` is false, writes zeros.
-template <int kPiece>
-__device__ __forceinline__ void copy8(__nv_bfloat16* dst,
-                                      const __nv_bfloat16* src, int64_t off,
-                                      int x, int W, bool ok) {
+template <int kPiece, typename T>
+__device__ __forceinline__ void copy8(T* dst, const T* src, int64_t off, int x,
+                                      int W, bool ok) {
 #pragma unroll
   for (int e = 0; e < 8; e += kPiece) {
     const bool in = ok && x + e >= 0 && x + e < W;
@@ -844,13 +854,13 @@ __host__ __device__ constexpr bool meets(int j, int s) {
   return s >= j / 2 && s <= j / 2 + 3;
 }
 
-template <bool kSlab, int kPiece>
+template <typename T, bool kSlab, int kPiece>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-correlation_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g,
-                              const __nv_bfloat16* __restrict__ f1,
-                              __nv_bfloat16* __restrict__ d_f2, int C, int H,
-                              int W) {
-  extern __shared__ __align__(16) __nv_bfloat16 smem16[];
+correlation_bwd_f2_mma_kernel(const T* __restrict__ g, const T* __restrict__ f1,
+                              T* __restrict__ d_f2, int C, int H, int W) {
+  // raw bytes: an extern array of T would clash between the instantiations
+  extern __shared__ __align__(16) unsigned char f2_smem[];
+  T* smem16 = reinterpret_cast<T*>(f2_smem);
   const int H2 = kSlab ? H + 2 * kMaxd : H;   // rows of d_f2
   const int shift = kSlab ? kMaxd : 0;
 
@@ -898,7 +908,7 @@ correlation_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g,
   auto stage_g = [&](int n) {
     const int y = gy0 - 2 * n;
     if (!g_live || y < 0 || y >= H) return;   // no warp reads it
-    __nv_bfloat16* dst = smem16 + kGBase + (n & 1) * kGElems + g_dst;
+    T* dst = smem16 + kGBase + (n & 1) * kGElems + g_dst;
     const int64_t off =
         g_base + (static_cast<int64_t>(n * kD + gti) * H + y) * W;
 #pragma unroll
@@ -911,7 +921,7 @@ correlation_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g,
   auto stage_f1 = [&](int rho) {
     const int row = row0 + 2 * rho;
     if (!f_slot || row < 0 || row >= H) return;   // no warp reads it
-    __nv_bfloat16* dst = smem16 + rho % kRing * kF1Elems + f_dst;
+    T* dst = smem16 + rho % kRing * kF1Elems + f_dst;
     const int64_t off = f_base + static_cast<int64_t>(row) * W;
 #pragma unroll
     for (int c = 0; c < kF1CPer; ++c)
@@ -978,10 +988,8 @@ correlation_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g,
     cp_async_commit();
     const int y = y2 - shift + kMaxd - 2 * n;   // the warp's source row
     if (!owns || y < 0 || y >= H) continue;
-    const __nv_bfloat16* bp =
-        smem16 + kGBase + (n & 1) * kGElems + band_lane;
-    const __nv_bfloat16* ap =
-        smem16 + (r + kD - 1 - n) % kRing * kF1Elems + a_lane;
+    const T* bp = smem16 + kGBase + (n & 1) * kGElems + band_lane;
+    const T* ap = smem16 + (r + kD - 1 - n) % kRing * kF1Elems + a_lane;
 #pragma unroll
     for (int s = 0; s < kKSteps; ++s) {
       if (!(ksteps >> s & 1)) continue;
@@ -1002,7 +1010,7 @@ correlation_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g,
 #pragma unroll
         for (int j = 0; j < kNTiles; ++j)
           if (meets(j, s) && (ntiles >> j & 1))
-            mma_bf16(acc[mt][j], a, bq[j][0], bq[j][1]);
+            mma_2b<T>(acc[mt][j], a, bq[j][0], bq[j][1]);
       }
     }
   }
@@ -1019,15 +1027,15 @@ correlation_bwd_f2_mma_kernel(const __nv_bfloat16* __restrict__ g,
     for (int h = 0; h < 2; ++h) {
       const int c = c0 + 16 * mt + gq + 8 * h;
       if (c >= C) continue;
-      __nv_bfloat16* o = d_f2 + (static_cast<int64_t>(b) * C + c) * plane2 +
-                         static_cast<int64_t>(y2) * W;
+      T* o = d_f2 + (static_cast<int64_t>(b) * C + c) * plane2 +
+             static_cast<int64_t>(y2) * W;
 #pragma unroll
       for (int j = 0; j < kNTiles; ++j) {
         const int x = x0 + 32 * half + 8 * j + 2 * qq;
         const float lo = acc[mt][j][2 * h] / cf;
         const float hi = acc[mt][j][2 * h + 1] / cf;
         if constexpr (kPiece > 1) {   // W even: the pair is 4-byte aligned
-          if (x < W) *reinterpret_cast<uint32_t*>(o + x) = bf16_pair(lo, hi);
+          if (x < W) *reinterpret_cast<uint32_t*>(o + x) = pair_2b<T>(lo, hi);
         } else {
           if (x < W) fnet_store(o + x, lo);
           if (x + 1 < W) fnet_store(o + x + 1, hi);
@@ -1304,14 +1312,17 @@ correlation_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g,
   }
 }
 
-// Either body: kF1 picks the d_f1 body, whose grid covers the H output
-// rows, or the d_f2 body, whose grid covers the H2 rows of d_f2.
-template <bool kF1, bool kSlab, int kPiece>
-int launch_as(const __nv_bfloat16* g, const __nv_bfloat16* src,
-              __nv_bfloat16* out, int B, int C, int H, int W,
+// Either body: kF1 picks the d_f1 body (bf16 only), whose grid covers the
+// H output rows, or the d_f2 body (bf16 or half T), whose grid covers the
+// H2 rows of d_f2.
+template <bool kF1, bool kSlab, int kPiece, typename T>
+int launch_as(const T* g, const T* src, T* out, int B, int C, int H, int W,
               cudaStream_t stream) {
-  const auto kernel = kF1 ? correlation_bwd_f1_mma_kernel<kSlab, kPiece>
-                          : correlation_bwd_f2_mma_kernel<kSlab, kPiece>;
+  void (*kernel)(const T*, const T*, T*, int, int, int);
+  if constexpr (kF1)
+    kernel = correlation_bwd_f1_mma_kernel<kSlab, kPiece>;
+  else
+    kernel = correlation_bwd_f2_mma_kernel<T, kSlab, kPiece>;
   const size_t smem = kF1 ? kSmemF1 : kSmem;
   const int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1331,9 +1342,8 @@ int launch_as(const __nv_bfloat16* g, const __nv_bfloat16* src,
 // The copy width, chosen at launch as in correlation_fwd.cu: 16 bytes where
 // W % 8 == 0 and every tensor is 16-byte aligned, 4 where W is even and
 // they are 4-byte aligned, else 2.
-template <bool kF1, bool kSlab>
-int launch(const __nv_bfloat16* g, const __nv_bfloat16* src,
-           __nv_bfloat16* out, int B, int C, int H, int W,
+template <bool kF1, bool kSlab, typename T>
+int launch(const T* g, const T* src, T* out, int B, int C, int H, int W,
            cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(src) |
@@ -1625,9 +1635,9 @@ int launch_f2_bf16(const __nv_bfloat16* g, const __nv_bfloat16* f1,
       stream);
 }
 
-// The fp16 d_f1 and d_f2 (and K7's d_f1 and d_slab): the general bodies on
-// the upcast operands at every configuration (the tensor-core bodies are
-// written for bf16 operands).
+// The fp16 d_f1 (and K7's d_f1): the general body on the upcast operands at
+// every configuration (the d_f1 tensor-core body is written for bf16
+// operands).
 template <bool kSlab>
 int launch_f1_fp16(const __half* g, const __half* f2, __half* d_f1, int B,
                    int C, int H, int W, int maxd, int s2, int device,
@@ -1637,10 +1647,18 @@ int launch_f1_fp16(const __half* g, const __half* f2, __half* d_f1, int B,
                         s2, device, stream);
 }
 
+// The fp16 d_f2 (and d_slab), chosen as the bf16 ones: the tensor-core body
+// for maxd 20, s2 2, the general body for any other (maxd, s2).
 template <bool kSlab>
 int launch_f2_fp16(const __half* g, const __half* f1, __half* d_f2, int B,
                    int C, int H, int W, int maxd, int s2, int device,
                    void* stream) {
+  if (maxd == band::kMaxd && s2 == band::kS2) {
+    const int err = fnet_set_device(device);
+    if (err) return err;
+    return band::launch<false, kSlab, __half>(
+        g, f1, d_f2, B, C, H, W, static_cast<cudaStream_t>(stream));
+  }
   return launch<__half>(correlation_bwd_f2_kernel<__half, kSlab>,
                         smem_f2(maxd, s2), g, f1, d_f2, B, C, H, W,
                         kSlab ? H + 2 * maxd : H, maxd, s2, device, stream);
@@ -1687,9 +1705,10 @@ extern "C" int correlation_bwd_f2_bf16(const __nv_bfloat16* g,
                                stream);
 }
 
-// K5 and K6 for half g, f1 and f2: float32 sums of the upcast products,
-// divided by C and rounded once, so d_f1 and d_f2 are (B, C, H, W) half;
-// the general bodies at every (maxd, s2).
+// K5 and K6 for half g, f1 and f2: float32 sums of the half products,
+// divided by C and rounded once, so d_f1 and d_f2 are (B, C, H, W) half.
+// d_f2 on the tensor-core body at maxd 20, s2 2 and the general body for
+// any other (maxd, s2); d_f1 on the general body at every (maxd, s2).
 extern "C" int correlation_bwd_f1_fp16(const __half* g, const __half* f2,
                                        __half* d_f1, int B, int C, int H,
                                        int W, int maxd, int s2, int device,

@@ -48,9 +48,10 @@
 //
 // half f1 and f2 (entry points correlation_fwd_fp16 and
 // correlation_fwd_rows_fp16, the fp16 model's K1 and K7): the bf16 rule,
-// an exact upcast on load, float32 sums in the float body's order, one
-// rounding to half at the store, on the general body at every
-// configuration.
+// on the same bodies chosen the same way.  A product of two halves (11
+// significant bits each, exponents down to 2^-24) is exact in float32, so
+// the tensor-core body's sums differ from the general body's fmaf chain only
+// in their order, as bf16's do.
 //
 // Bound on an H100 SXM at FlowNetC's shape (B 8, C 256, H 48, W 64,
 // maxd 20, s2 2 -> 441 channels): 5.55 GFLOP of f32 multiply-adds against
@@ -62,10 +63,10 @@
 //
 // * correlation_fwd_tile_kernel, float32 at maxd 20, s2 2 (FlowNetC's,
 //   D = 21), the one the float models run.  See the note above it.
-// * correlation_fwd_mma_kernel, bfloat16 at maxd 20, s2 2.  See the note
-//   above it.
-// * correlation_fwd_general_kernel, for every other (maxd, s2), and for
-//   half at every one: a block per (batch, output row, row shift,
+// * correlation_fwd_mma_kernel, bfloat16 and half at maxd 20, s2 2, one
+//   template on the element type.  See the note above it.
+// * correlation_fwd_general_kernel, for every other (maxd, s2) in every
+//   dtype: a block per (batch, output row, row shift,
 //   64-column tile) that stages the f1 row and the one f2 row it needs 32
 //   channels at a time; thread (tx, g) owns output column tx and the column
 //   shifts g, g+4, ...
@@ -372,15 +373,16 @@ int launch_tile(const float* f1, const float* f2, float* out, int B, int C,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body for bfloat16 f1 and f2 at maxd 20, s2 2: the TPU
-// kernel's band product on mma.sync.
+// The tensor-core body for bfloat16 or half f1 and f2 (T) at maxd 20, s2 2:
+// the TPU kernel's band product on mma.sync.
 //
 // For 16 output pixels x0 .. x0+15 of one row at one row shift, the product
 // A (16 px x 16 ch) . B (16 ch x 64 cols) over the f2 columns
 // [x0 - 24, x0 + 40), chunk by chunk of 16 channels, holds every sum the
 // band needs: pixel r at column shift ti is the product's element
-// (r, r + 2*ti + 4).  That is eight m16n8k16 products (bf16 operands as
-// they lie, f32 accumulators) for 16 x 21 wanted sums, 3x the band's
+// (r, r + 2*ti + 4).  That is eight m16n8k16 products (bf16 or half
+// operands as they lie, f32 accumulators; mma_2b picks the instruction's
+// form, whose fragments lie alike) for 16 x 21 wanted sums, 3x the band's
 // multiply-adds, on units ~15x the FMA pipes' rate.  The window starts 24
 // columns left of the tile, not 20, so that every 8-column piece of it is
 // 16-byte aligned for ldmatrix and cp.async.
@@ -414,13 +416,15 @@ int launch_tile(const float* f1, const float* f2, float* out, int B, int C,
 // position in the whole-map and the slab form (both tile the columns from
 // 0 and the channels from 0), so a band's rows carry the bits of the
 // whole-map call.  The epilogue writes the band's float sums to a tile in
-// shared memory, then divides by C, rounds once to bf16 and stores with x
+// shared memory, then divides by C, rounds once to T and stores with x
 // fastest, 16 bytes a thread.
 //
 // On an NVIDIA H100 80GB HBM3 at 700 W (kernel_ab.py, the parent's general
-// body in the same call): 0.1049 ms for K1 at (8, 256, 48, 64) against
-// 1.1329, 0.0660 for K7 at one band of two against 0.7667; 128 registers
-// and 60 bytes spilled (chip_smoke.py phase 1's ptxas lines).  That is 13%
+// body in the same call), in bf16: 0.1049 ms for K1 at (8, 256, 48, 64)
+// against 1.1329, 0.0660 for K7 at one band of two against 0.7667; 128
+// registers and 60 bytes spilled (chip_smoke.py phase 1's ptxas lines).
+// The half instantiation differs only in the mma's operand type and the
+// epilogue's rounding; PERF.md's kernel table has its times.  That is 13%
 // and 15% of the bytes' bound (0.0140, 0.0101 ms).
 // The tensor cores do 3x the band's products at mma.sync's rate, which is
 // below wgmma's; staging and the epilogue, which one block's warps run in
@@ -441,7 +445,7 @@ constexpr int kMmaKSteps = 2;          // k-steps of 16 channels a stage
 constexpr int kMmaChunkC = 16 * kMmaKSteps;   // channels a stage
 constexpr int kMmaStages = 2;
 constexpr int kMmaMinBlocks = 2;       // resident blocks asked for
-constexpr int kF1Pitch = kTileW + 8;   // bf16 a staged f1 channel row: 72
+constexpr int kF1Pitch = kTileW + 8;   // values a staged f1 channel row: 72
 constexpr int kF2Pitch = kMmaSpan + 8; // and f2: 120
 constexpr int kMmaF1Elems = kMmaRows * kMmaChunkC * kF1Pitch;
 constexpr int kMmaStageElems =
@@ -453,13 +457,13 @@ static_assert(2 * kMmaPairs * kD * kBandPitch <= kMmaStages * kMmaStageElems,
 static_assert((kF1Pitch * 2) % 16 == 0 && (kF2Pitch * 2) % 16 == 0 &&
               kMmaLead % 8 == 0, "16-byte ldmatrix rows");
 
-template <bool kSlab, int kPiece>
+template <typename T, bool kSlab, int kPiece>
 __global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
-correlation_fwd_mma_kernel(const __nv_bfloat16* __restrict__ f1,
-                           const __nv_bfloat16* __restrict__ f2,
-                           __nv_bfloat16* __restrict__ out, int C, int H,
-                           int W) {
-  extern __shared__ __align__(16) __nv_bfloat16 ring[];
+correlation_fwd_mma_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
+                           T* __restrict__ out, int C, int H, int W) {
+  // raw bytes: an extern array of T would clash between the instantiations
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  T* ring = reinterpret_cast<T*>(mma_smem);
   const int H2 = kSlab ? H + 2 * kMaxd : H;   // rows of the second operand
   const int shift = kSlab ? kMaxd : 0;
 
@@ -488,8 +492,8 @@ correlation_fwd_mma_kernel(const __nv_bfloat16* __restrict__ f1,
 
   const int64_t plane = static_cast<int64_t>(H) * W;
   const int64_t plane2 = static_cast<int64_t>(H2) * W;
-  const __nv_bfloat16* f1b = f1 + static_cast<int64_t>(b) * C * plane;
-  const __nv_bfloat16* f2b = f2 + static_cast<int64_t>(b) * C * plane2;
+  const T* f1b = f1 + static_cast<int64_t>(b) * C * plane;
+  const T* f2b = f2 + static_cast<int64_t>(b) * C * plane2;
 
   float acc[kMmaShifts][8][4];
 #pragma unroll
@@ -513,7 +517,7 @@ correlation_fwd_mma_kernel(const __nv_bfloat16* __restrict__ f1,
     constexpr int kSlotThreads = kMmaThreads / kCGroups;
     constexpr int kPasses = (kSlots + kSlotThreads - 1) / kSlotThreads;
     const int cg = tid / kSlotThreads;
-    const __nv_bfloat16* src[kPasses];
+    const T* src[kPasses];
     int64_t stride[kPasses];      // 0 where the piece lies outside [0, W)
     int dst[kPasses], pitch[kPasses];
     bool used[kPasses], inside[kPasses];
@@ -559,12 +563,12 @@ correlation_fwd_mma_kernel(const __nv_bfloat16* __restrict__ f1,
     // steps one chunk a call
     auto stage = [&](int n) {
       const int left = C - n * kMmaChunkC - cg * kCPer;   // channels left
-      __nv_bfloat16* buf = ring + (n % kMmaStages) * kMmaStageElems;
+      T* buf = ring + (n % kMmaStages) * kMmaStageElems;
 #pragma unroll
       for (int k = 0; k < kPasses; ++k) {
         if (!used[k]) continue;
-        const __nv_bfloat16* from = src[k];
-        __nv_bfloat16* to = buf + dst[k];
+        const T* from = src[k];
+        T* to = buf + dst[k];
 #pragma unroll
         for (int c = 0; c < kCPer; ++c) {
           stage_piece<kPiece>(to, from, inside[k] && c < left);
@@ -594,7 +598,7 @@ correlation_fwd_mma_kernel(const __nv_bfloat16* __restrict__ f1,
       if (n + kMmaStages - 1 < nchunks) stage(n + kMmaStages - 1);
       else cp_async_commit();
       if (any) {
-        const __nv_bfloat16* buf = ring + (n % kMmaStages) * kMmaStageElems;
+        const T* buf = ring + (n % kMmaStages) * kMmaStageElems;
 #pragma unroll
         for (int k = 0; k < kMmaKSteps; ++k) {
           uint32_t a[4];
@@ -602,14 +606,13 @@ correlation_fwd_mma_kernel(const __nv_bfloat16* __restrict__ f1,
 #pragma unroll
           for (int s = 0; s < kMmaShifts; ++s) {
             if (!active[s]) continue;
-            const __nv_bfloat16* b_ptr =
-                buf + b_off + (s * kMmaChunkC + 16 * k) * kF2Pitch;
+            const T* b_ptr = buf + b_off + (s * kMmaChunkC + 16 * k) * kF2Pitch;
 #pragma unroll
             for (int t = 0; t < 8; t += 2) {
               uint32_t bb[4];
               ldsm_x4_trans(bb, b_ptr + 8 * t);
-              mma_bf16(acc[s][t], a, bb[0], bb[1]);
-              mma_bf16(acc[s][t + 1], a, bb[2], bb[3]);
+              mma_2b<T>(acc[s][t], a, bb[0], bb[1]);
+              mma_2b<T>(acc[s][t + 1], a, bb[2], bb[3]);
             }
           }
         }
@@ -656,29 +659,26 @@ correlation_fwd_mma_kernel(const __nv_bfloat16* __restrict__ f1,
     const int tj = tj0 + pair % kMmaShifts;
     if (oy >= H || x >= W) continue;
     const float* src = band + (pair * kD + ti) * kBandPitch + x - x0;
-    __nv_bfloat16* dst =
-        out + (static_cast<int64_t>(b) * kD * kD + tj * kD + ti) * plane +
-        static_cast<int64_t>(oy) * W + x;
+    T* dst = out + (static_cast<int64_t>(b) * kD * kD + tj * kD + ti) * plane +
+             static_cast<int64_t>(oy) * W + x;
     if constexpr (kOut == 8) {
       const float4 lo = *reinterpret_cast<const float4*>(src);
       const float4 hi = *reinterpret_cast<const float4*>(src + 4);
       *reinterpret_cast<uint4*>(dst) = make_uint4(
-          bf16_pair(lo.x / cf, lo.y / cf), bf16_pair(lo.z / cf, lo.w / cf),
-          bf16_pair(hi.x / cf, hi.y / cf), bf16_pair(hi.z / cf, hi.w / cf));
+          pair_2b<T>(lo.x / cf, lo.y / cf), pair_2b<T>(lo.z / cf, lo.w / cf),
+          pair_2b<T>(hi.x / cf, hi.y / cf), pair_2b<T>(hi.z / cf, hi.w / cf));
     } else {
       fnet_store(dst, *src / cf);
     }
   }
 }
 
-template <bool kSlab, int kPiece>
-int launch_mma_as(const __nv_bfloat16* f1, const __nv_bfloat16* f2,
-                  __nv_bfloat16* out, int B, int C, int H, int W,
-                  cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(__nv_bfloat16) * kMmaStages * kMmaStageElems;
+template <typename T, bool kSlab, int kPiece>
+int launch_mma_as(const T* f1, const T* f2, T* out, int B, int C, int H,
+                  int W, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(T) * kMmaStages * kMmaStageElems;
   const int err = static_cast<int>(cudaFuncSetAttribute(
-      correlation_fwd_mma_kernel<kSlab, kPiece>,
+      correlation_fwd_mma_kernel<T, kSlab, kPiece>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
   if (err) return err;
   // row blocks with a first row inside the map: two (one per parity) for
@@ -686,7 +686,7 @@ int launch_mma_as(const __nv_bfloat16* f1, const __nv_bfloat16* f2,
   const int rest = H % (2 * kMmaRows);
   const int ny = H / (2 * kMmaRows) * 2 + (rest < 2 ? rest : 2);
   const dim3 grid((W + kTileW - 1) / kTileW * kMmaGroups, ny, B);
-  correlation_fwd_mma_kernel<kSlab, kPiece>
+  correlation_fwd_mma_kernel<T, kSlab, kPiece>
       <<<grid, kMmaThreads, smem, stream>>>(f1, f2, out, C, H, W);
   return static_cast<int>(cudaGetLastError());
 }
@@ -694,18 +694,17 @@ int launch_mma_as(const __nv_bfloat16* f1, const __nv_bfloat16* f2,
 // The copy width, chosen at launch: 16 bytes where W % 8 == 0 and every
 // tensor is 16-byte aligned, 4 where W is even and they are 4-byte aligned,
 // else 2.
-template <bool kSlab>
-int launch_mma(const __nv_bfloat16* f1, const __nv_bfloat16* f2,
-               __nv_bfloat16* out, int B, int C, int H, int W,
+template <typename T, bool kSlab>
+int launch_mma(const T* f1, const T* f2, T* out, int B, int C, int H, int W,
                cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(f1) |
                          reinterpret_cast<uintptr_t>(f2) |
                          reinterpret_cast<uintptr_t>(out);
   if (W % 8 == 0 && addr % 16 == 0)
-    return launch_mma_as<kSlab, 8>(f1, f2, out, B, C, H, W, stream);
+    return launch_mma_as<T, kSlab, 8>(f1, f2, out, B, C, H, W, stream);
   if (W % 2 == 0 && addr % 4 == 0)
-    return launch_mma_as<kSlab, 2>(f1, f2, out, B, C, H, W, stream);
-  return launch_mma_as<kSlab, 1>(f1, f2, out, B, C, H, W, stream);
+    return launch_mma_as<T, kSlab, 2>(f1, f2, out, B, C, H, W, stream);
+  return launch_mma_as<T, kSlab, 1>(f1, f2, out, B, C, H, W, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -856,20 +855,22 @@ int launch_bf16(const __nv_bfloat16* f1, const __nv_bfloat16* f2,
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (maxd == kMaxd && s2 == kS2)
-    return launch_mma<kSlab>(f1, f2, out, B, C, H, W, st);
+    return launch_mma<__nv_bfloat16, kSlab>(f1, f2, out, B, C, H, W, st);
   return launch_general<__nv_bfloat16, kSlab>(f1, f2, out, B, C, H, W, maxd,
                                               s2, st);
 }
 
-// The fp16 forms: the general body at every configuration (the tensor-core
-// body is written for bf16 operands).
+// The fp16 forms, chosen as the bf16 ones: the tensor-core body for maxd 20,
+// s2 2, the general body for any other configuration.
 template <bool kSlab>
 int launch_fp16(const __half* f1, const __half* f2, __half* out, int B, int C,
                 int H, int W, int maxd, int s2, int device, void* stream) {
   const int err = fnet_set_device(device);
   if (err) return err;
-  return launch_general<__half, kSlab>(f1, f2, out, B, C, H, W, maxd, s2,
-                                       static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (maxd == kMaxd && s2 == kS2)
+    return launch_mma<__half, kSlab>(f1, f2, out, B, C, H, W, st);
+  return launch_general<__half, kSlab>(f1, f2, out, B, C, H, W, maxd, s2, st);
 }
 
 }  // namespace
@@ -896,10 +897,11 @@ extern "C" int correlation_fwd_bf16(const __nv_bfloat16* f1,
                             stream);
 }
 
-// K1 for half f1 and f2: float32 sums of the upcast products, divided by C
-// and rounded once, so out is (B, D*D, H, W) half; the general body at
-// every (maxd, s2).  The JAX package's fp16 correlation sums in float32
-// and casts to f1's dtype (ops/correlation.py :160-171, :296).
+// K1 for half f1 and f2: float32 sums of the half products, divided by C
+// and rounded once, so out is (B, D*D, H, W) half.  The tensor-core body at
+// maxd 20, s2 2, the general body for any other (maxd, s2).  The JAX
+// package's fp16 correlation sums in float32 and casts to f1's dtype
+// (ops/correlation.py :160-171, :296).
 extern "C" int correlation_fwd_fp16(const __half* f1, const __half* f2,
                                     __half* out, int B, int C, int H, int W,
                                     int maxd, int s2, int device,
@@ -930,8 +932,8 @@ extern "C" int correlation_fwd_rows_bf16(const __nv_bfloat16* f1,
                            stream);
 }
 
-// K7 forward for half f1 and slab, on correlation_fwd_fp16's body: out
-// (B, D*D, Hloc, W) half.
+// K7 forward for half f1 and slab, as correlation_fwd_fp16 (the same
+// bodies, chosen the same way): out (B, D*D, Hloc, W) half.
 extern "C" int correlation_fwd_rows_fp16(const __half* f1, const __half* slab,
                                          __half* out, int B, int C, int Hloc,
                                          int W, int maxd, int s2, int device,

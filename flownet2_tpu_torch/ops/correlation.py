@@ -205,7 +205,9 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, pad_size: int = 20,
                      stride1: int = 1, stride2: int = 2) -> torch.Tensor:
     """The CUDA cost volume (K1): K 1, s1 1, pad == maxd, any width;
     float32, or bfloat16 or float16 f1 and f2 with an output of their dtype
-    (entry points ``correlation_fwd_bf16``, ``correlation_fwd_fp16``)."""
+    (entry points ``correlation_fwd_bf16``, ``correlation_fwd_fp16``: the
+    tensor-core body at maxd 20, s2 2 in either dtype, the general body at
+    any other configuration)."""
     name = "correlation_fwd" + _cuda.suffix(f1.dtype)
     _check_config("correlation", pad_size, kernel_size, max_displacement,
                   stride1, stride2)
@@ -228,9 +230,9 @@ def correlation_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
     asks; any width.  float32, or bfloat16 or float16 g, f1 and f2 with
     gradients of their dtype (entry points ``correlation_bwd_f1_bf16``,
     ``correlation_bwd_f2_bf16`` and their ``_fp16`` forms: float32 sums of
-    the upcast products, one rounding; bf16 at maxd 20, s2 2 on the
-    tensor-core bodies, fp16 and any other configuration on the general
-    bodies, which upcast the operands)."""
+    the exact products, one rounding; at maxd 20, s2 2 bf16 runs both
+    tensor-core bodies and fp16 d_f2's, the general bodies, which upcast
+    the operands, run fp16 d_f1 and any other configuration)."""
     _check_config("correlation backward", max_displacement, 1,
                   max_displacement, 1, stride2)
     dtypes = tuple(_cuda.KERNEL_DTYPES)

@@ -6,9 +6,10 @@ and ``correlation_pallas_bwd_rows`` (K7: the entry points
 ``correlation_fwd_rows`` of ``csrc/correlation_fwd.cu`` and
 ``correlation_bwd_f1_rows``, ``correlation_bwd_f2_rows`` of
 ``csrc/correlation_bwd.cu``, and their ``_bf16`` and ``_fp16`` forms for
-bfloat16 and float16 operands, which sum the upcast products in float32
-and round once: bf16 at maxd 20, s2 2 on the tensor-core bodies of K1, K5
-and K6, fp16 and any other configuration on the general bodies).
+bfloat16 and float16 operands, which sum the exact products in float32
+and round once: at maxd 20, s2 2 on the tensor-core bodies of K1, K5 and
+K6 in bf16 and of K1 and K6 in fp16; fp16 d_f1 and any other
+configuration on the general bodies).
 
 Output rows ``[off, off + Hloc)`` of the cost volume read f2 rows
 ``[off - maxd, off + Hloc + maxd)``, zero beyond the map: a halo bounded

@@ -13,16 +13,17 @@ on the one-flow K2's inputs (the library call that computes the same warp;
 timed here, used nowhere in the port), of the one-flow and the two-flow K3
 and K4 at (8, 3, 384, 448), float32, and the bf16 forms of K5, K6, K3,
 K4, K7 (forward, d_f1, d_slab), K1 and the one-flow and two-flow K2 on
-the same inputs rounded to bf16 ("n/a" for a checkout that has no bf16
-form of a kernel: its wrapper raises TypeError), CUDA events over 300
-launches after 20 that the host
+the same inputs rounded to bf16, and the fp16 forms of K1, K6, K7 forward
+and K7 d_slab on those inputs rounded to fp16 ("n/a" for a checkout that
+has no form of a kernel in that dtype: its wrapper raises TypeError), CUDA
+events over 300 launches after 20 that the host
 queues while the card is kept busy (and,
 for the one-flow K2, also without that head start: a 0.04 ms kernel then
 reads as the wrapper's time on the host), the first 12 hex digits of the
 sha1 of the output bytes of K1, K7 forward, K5, K7 d_f1, K6, K7 d_slab,
 the one-flow and the two-flow K2, K3 (its three outputs) and K4 (the
 twelve float32 digests), then of the bf16 K5, K6, K3, K4, K7, K1 and K2
-(the inputs come from a fixed seed, so two checkouts that print the same
+and the fp16 K1, K6, K7 forward and K7 d_slab (the inputs come from a fixed seed, so two checkouts that print the same
 digest computed the same bits), the SM clock and its maximum as nvidia-smi
 reads them after the timings, and ptxas's register counts (none for
 libraries an earlier run in that checkout has built), those of the warp
@@ -33,11 +34,12 @@ and two-flow K2 (at (8, 3, 384, 512)), K3 and K4 (at (8, 3, 384, 448)),
 float32 and bf16: a zero flow (every gather in the pixel's own sector),
 the smooth flow of the stage glue (+-8 px at (H/4, W/4), bilinear x4) and
 +-200 px.
-It keeps the outputs of the bf16 kernels that run a tensor-core body (K1, K7 forward,
-K5, K7 d_f1, K6 and K7 d_slab) in ``build/kernel_ab/<tag>.pt`` under the
-working directory and prints, on a second line, the share of their values
-that differ from those a run of another tag kept there, over the kernels
-that both runs kept (a run of an older checkout kept fewer).
+It keeps the outputs of the bf16 kernels that run a tensor-core body (K1,
+K7 forward, K5, K7 d_f1, K6 and K7 d_slab) and of the fp16 K1, K7 forward,
+K6 and K7 d_slab in ``build/kernel_ab/<tag>.pt`` under the working
+directory and prints, on a second line, the share of their values that
+differ from those a run of another tag kept there, over the kernels that
+both runs kept (a run of an older checkout kept fewer).
 
 Two commits are compared on one card in one call, in turns, since two calls
 may land on two cards: unpack the parent with ``git archive <commit>
@@ -170,9 +172,9 @@ def main(root: str, tag: str) -> int:
             else smooth(*shape) if kind == "smooth"
             else uniform(*shape, scale=200.0)
             for shape in ((8, 2, 2, 384, 512), (8, 2, 2, 384, 448))]
-    def bf16(fn):
-        """``fn()``'s result, or None where the checkout has no bf16 form
-        of the kernel."""
+    def if_present(fn):
+        """``fn()``'s result, or None where the checkout has no form of the
+        kernel in that dtype."""
         try:
             return fn()
         except TypeError:
@@ -208,6 +210,19 @@ def main(root: str, tag: str) -> int:
         "K2 bf16, one flow": lambda: r2d.resample2d_cuda(img16, flow16),
         "K2 bf16, two flows": lambda: r2d.resample2d_multi_cuda(img16,
                                                                 flows16)}
+    # the fp16 forms of the correlation whose bodies are shared with bf16's
+    # at maxd 20, s2 2, on the same inputs rounded to fp16 (no new draws)
+    f1_h, f2_h, sf1_h, slab_h = (t.half() for t in (f1, f2, sf1, slab))
+    tg_h, tf1_h, tf2_h = tg.half(), tf1.half(), tf2.half()
+    bg_h, bf1_h, bslab_h = bg.half(), bf1.half(), bslab.half()
+    fp16_kernels = {
+        "K1 fp16": lambda: corr.correlation_cuda(f1_h, f2_h),
+        "K7 fwd fp16": lambda: corr_sp.corr_slab_cuda(sf1_h, slab_h),
+        "K6 fp16": lambda: corr.correlation_bwd_cuda(
+            tg_h, tf1_h, tf2_h, needs=(False, True))[1],
+        "K7 d_slab fp16": lambda: corr_sp.corr_slab_bwd_cuda(
+            bg_h, bf1_h, bslab_h, needs=(False, True))[1]}
+    low_kernels = {**bf16_kernels, **fp16_kernels}
     times = {
         "K1": time_ms(lambda: corr.correlation_cuda(f1, f2)),
         "K7 fwd": time_ms(lambda: corr_sp.corr_slab_cuda(sf1, slab)),
@@ -260,8 +275,8 @@ def main(root: str, tag: str) -> int:
                 f"K3{sfx}, two flows, {kind}": (
                     lambda im=t_im, fl=fl4:
                     r2d.resample2d_tangents_cuda(im, fl))})
-    for name, fn in {**bf16_kernels, **more_kernels}.items():
-        times[name] = (time_ms(fn) if bf16(fn) is not None
+    for name, fn in {**bf16_kernels, **more_kernels, **fp16_kernels}.items():
+        times[name] = (time_ms(fn) if if_present(fn) is not None
                        else float("nan"))
     clock = sm_clock()
     digests = {"K1": digest(corr.correlation_cuda(f1, f2)),
@@ -283,8 +298,8 @@ def main(root: str, tag: str) -> int:
                                                           t_flow)),
                "K4 two flows": digest(r2d.resample2d_grad_flow_cuda(
                    t_g2, t_img, t_flows))}
-    for name, fn in {**bf16_kernels, **more_kernels}.items():
-        out = bf16(fn)
+    for name, fn in {**bf16_kernels, **more_kernels, **fp16_kernels}.items():
+        out = if_present(fn)
         digests[name] = ("n/a" if out is None else digest(
             *(t.float() for t in (out if isinstance(out, tuple)
                                   else (out,)))))
@@ -293,12 +308,13 @@ def main(root: str, tag: str) -> int:
           "| SM clock, max:", clock,
           "| registers:", ", ".join(registers),
           "| warp bodies:", "; ".join(warp_bodies))
-    # the bf16 tensor-core bodies' outputs against those of runs of other
-    # tags
-    kept = {name: bf16(bf16_kernels[name])
+    # the outputs of the bf16 tensor-core bodies and of the fp16 forms
+    # that share them against those of runs of other tags
+    kept = {name: if_present(low_kernels[name])
             for name in ("K1 bf16", "K7 fwd bf16", "K5 bf16", "K7 d_f1 bf16",
-                         "K6 bf16", "K7 d_slab bf16")}
-    if all(out is not None for out in kept.values()):
+                         "K6 bf16", "K7 d_slab bf16", *fp16_kernels)}
+    kept = {k: v for k, v in kept.items() if v is not None}
+    if kept:
         store = Path("build") / "kernel_ab"
         store.mkdir(parents=True, exist_ok=True)
         torch.save({k: v.cpu() for k, v in kept.items()}, store / f"{tag}.pt")
