@@ -8,8 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 1. Card: print nvidia-smi's name and power limit; build the CUDA kernels
    from flownet2_tpu_torch/csrc and print the build time and ptxas's
    register and spill lines under each kernel's (mangled) name, then each
-   instantiation of the correlation's tensor-core bodies (K1's and K6's
-   for bf16 and half, K5's for bf16) with its registers and spills.
+   instantiation of the correlation's tensor-core bodies (K1's, K5's and
+   K6's, each for bf16 and half) with its registers and spills.
 2. Kernels against their plain PyTorch versions on the card, TF32 off: the
    correlation (K1) and its gradient (K5 d_f1, K6 d_f2) at
    (8, 256, 48, 64), at the wide (4, 256, 48, 128), at a ragged
@@ -70,8 +70,11 @@ Phases (any failure raises and the script exits non-zero):
    point at the bf16 forms' cases, each element within one fp16 ulp
    (rtol 2^-10, atol 1e-6 of the largest |out|) of its plain version and
    at most 1% of them not bit-equal (the flip rates of K1, K5 and K6 fp16
-   printed for each body: K1's and K6's tensor-core bodies at maxd 20,
-   s2 2, the general bodies at the others and K5's at every one), K3's
+   printed for each body: the tensor-core bodies at maxd 20, s2 2, the
+   general bodies at the others), K5 and K6 fp16 with an fp16 inf in f2
+   and in f1 at the training map non-finite wherever their plain versions
+   are and non-finite somewhere exactly when they are (the fp16 step's
+   skip check), the extra non-finite outputs counted, K3's
    float32 d1 and d2 at 1e-5, K4 fp16 also against the tangent route's
    fp16 flow gradient, the smooth flow and both routes in one launch; K7
    fp16 on the bands of 1, 2 and 4 (forward and d_f1 bit-equal to K1 and
@@ -335,12 +338,12 @@ Phases (any failure raises and the script exits non-zero):
    rate; K7 bf16 at one band of two of the bf16 forward's and step's maps,
    likewise; the fp16 forms at the bf16 forms' shapes and fp16 bytes, their
    operations at the fp16 tensor-core rate and, for those whose bodies sum
-   on the FMA pipes (the warps, K5 and K7 d_f1), also at the f32 rate, the
-   warps beside ``F.grid_sample`` on fp16 tensors, whose fp16 grid's error
-   in pixels is printed; K1, K6, K7 forward and K7 d_slab in fp16, which
+   on the FMA pipes (the warps), also at the f32 rate, the warps beside
+   ``F.grid_sample`` on fp16 tensors, whose fp16 grid's error in pixels is
+   printed; the fp16 correlation kernels (K1, K5, K6 and K7's three), which
    share the bf16 tensor-core bodies, each beside its bf16 form, and the
-   phase fails if K1 or K6 fp16 takes more than 1.5x its bf16 form, as a
-   route that stayed on the general body, ~10x, would), each beside
+   phase fails if K1, K5 or K6 fp16 takes more than 1.5x its bf16 form, as
+   a route that stayed on the general body, ~8-10x, would), each beside
    the SM clock, the two-flow K4 (+-8 px and +-200 px at (8, 3, 384, 448))
    among them, and K3's four forms with their share of the bound beside
    their times before the row tiles; K2, K3 and K4, one and two flows, f32
@@ -526,8 +529,10 @@ FP16_SCALE = 1024.0
 # the fp16 kernels that run the bf16 tensor-core bodies at maxd 20, s2 2,
 # and whether phase 6 gates each one's time against its bf16 form's
 FP16_TENSOR_CORE_ROWS = {"correlation_fwd_fp16": True,
+                         "correlation_bwd_f1_fp16": True,
                          "correlation_bwd_f2_fp16": True,
                          "correlation_fwd_rows_fp16": False,
+                         "correlation_bwd_f1_rows_fp16": False,
                          "correlation_bwd_f2_rows_fp16": False}
 
 
@@ -613,8 +618,8 @@ def sm_clock() -> str:
 
 def tensor_core_bodies(logs: dict) -> list:
     """ptxas's registers and spilled bytes for each instantiation of the
-    correlation's tensor-core bodies (K1's and K6's for bf16 and half, K5's
-    for bf16), read from the build's logs of ``csrc/correlation_fwd.cu``
+    correlation's tensor-core bodies (K1's, K5's and K6's, each for bf16
+    and half), read from the build's logs of ``csrc/correlation_fwd.cu``
     and ``csrc/correlation_bwd.cu``."""
     lines, kernel, spill = [], "", "0"
     for lib in ("correlation_fwd", "correlation_bwd"):
@@ -625,14 +630,15 @@ def tensor_core_bodies(logs: dict) -> list:
                 spill = line.split(",")[1].split()[0]
             elif "registers" in line:
                 # the body's own name follows its length, the namespace
-                # (correlation_fwd_cu_...) a "_N_"
+                # (correlation_fwd_cu_...) a "_N_"; the element type its
+                # length
                 m = re.search(r"\d(correlation_\w+?_mma_kernel)I"
-                              r"(?:\d+(\w+?))?Lb([01])ELi(\d+)E", kernel)
+                              r"\d+(\w+?)Lb([01])ELi(\d+)E", kernel)
                 if m:
                     body, dtype, slab, piece = m.groups()
                     regs = line.split("Used ")[1].split()[0]
                     lines.append(
-                        f"{body}<{dtype or '__nv_bfloat16'}, slab {slab}, "
+                        f"{body}<{dtype}, slab {slab}, "
                         f"{piece} a copy>: {regs} registers, {spill} bytes "
                         "spilled")
     return sorted(lines)
@@ -2418,15 +2424,45 @@ def kernels_on_device(dev: torch.device) -> dict:
     return dict(ops.LAUNCHES)
 
 
+def nonfinite_gate(f1: torch.Tensor, f2: torch.Tensor,
+                   g: torch.Tensor) -> None:
+    """K5 and K6 fp16 on their tensor-core bodies (maxd 20, s2 2) with one
+    f2 value (read by d_f1) and one f1 value (read by d_f2) set to fp16 inf:
+    each output non-finite wherever its plain version's is, some output
+    non-finite exactly when some plain one is (the decision of the fp16
+    step's skip check), and the outputs finite in both within one fp16 ulp.
+    The bodies multiply the band's masked zeros, so an inf makes NaNs of
+    its whole n-tile; the extra non-finite outputs are counted."""
+    from flownet2_tpu_torch.ops import correlation as corr
+
+    f1, f2 = f1.clone(), f2.clone()
+    f2[0, f2.shape[1] // 3, f2.shape[2] // 2, 30] = float("inf")
+    f1[f1.shape[0] - 1, 7, f1.shape[2] // 4 + 1, f1.shape[3] - 3] = \
+        float("inf")
+    got = corr.correlation_bwd_cuda(g, f1, f2, 20, 2)
+    want = corr.correlation_bwd_plain(g, f1, f2, 20, 2)
+    for k, (a, b) in enumerate(zip(got, want)):
+        what = f"K{5 + k} fp16 d_f{1 + k} with an inf in f{2 - k}"
+        bad_a, bad_b = ~torch.isfinite(a), ~torch.isfinite(b)
+        n_a, n_b = int(bad_a.sum()), int(bad_b.sum())
+        note(f"  {what}: {n_a} outputs non-finite, the plain version's "
+             f"{n_b} ({n_a - n_b} more) of {a.numel()}")
+        if bool((bad_b & ~bad_a).any()) or (n_a > 0) != (n_b > 0):
+            raise AssertionError(f"{what}: finite where the plain version "
+                                 "is not, or the skip check decides apart")
+        ok = ~bad_a
+        ulp_err(a[ok], b[ok], f"{what}, the outputs finite in both")
+
+
 def fp16_kernels(dev: torch.device, errs: dict) -> None:
     """Phase 2's fp16 forms: every fp16 entry point against its plain
     version at phase 2's bf16 cases, each element within one fp16 ulp and
     at most 1% of them not bit-equal (``ulp_err``): K1, K5 and K6 at the
-    main-path, training, wide and ragged maps (K1 and K6 on their
-    tensor-core bodies at maxd 20, s2 2, the ragged maps reaching the 4- and
-    2-byte copies; the general bodies at maxd 8, s2 1 and maxd 4, s2 2, and
-    K5's at every configuration), the share of values not bit-equal noted
-    for each kernel and body; K2 for one
+    main-path, training, wide and ragged maps (on their tensor-core bodies
+    at maxd 20, s2 2, the ragged maps reaching the 4- and 2-byte copies;
+    the general bodies at maxd 8, s2 1 and maxd 4, s2 2), the share of
+    values not bit-equal noted for each kernel and body; K5 and K6 with an
+    inf in f2 and in f1 at the training map (``nonfinite_gate``); K2 for one
     flow of +-8 px and of +-200 px and for two flows over the
     (8, 3, 384, 512) image and the ragged (2, 3, 100, 150) one; K3 (out;
     its float32 d1 and d2 at 1e-5) and K4 on K3's and K4's cases and at
@@ -2454,11 +2490,9 @@ def fp16_kernels(dev: torch.device, errs: dict) -> None:
         return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
                 * scale).half()
 
-    def body(kernel, maxd, s2):
-        """The body an fp16 correlation kernel runs at (maxd, s2): K1's
-        and K6's tensor-core bodies at maxd 20, s2 2, K5 the general one
-        always."""
-        return ("tensor-core body" if (maxd, s2) == (20, 2) and kernel != "K5"
+    def body(maxd, s2):
+        """The body an fp16 correlation kernel runs at (maxd, s2)."""
+        return ("tensor-core body" if (maxd, s2) == (20, 2)
                 else "general body")
 
     print("  fp16 kernels against their plain versions, one fp16 ulp")
@@ -2476,7 +2510,7 @@ def fp16_kernels(dev: torch.device, errs: dict) -> None:
         want = corr.correlation_plain(f1, f2, *args)
         errs.setdefault("correlation_fwd_fp16", []).append(ulp_err(
             got, want, f"K1 fp16 correlation {shape}, maxd {maxd}, s2 {s2}"))
-        flips.setdefault(("K1", body("K1", maxd, s2)), []).append(
+        flips.setdefault(("K1", body(maxd, s2)), []).append(
             (got != want).float().mean().item())
     for shape, maxd, s2 in ([(m, 20, 2) for m in (train_map,) + maps
                              + ((2, 40, 20, 150),)]
@@ -2491,12 +2525,14 @@ def fp16_kernels(dev: torch.device, errs: dict) -> None:
                 got[k], want[k], f"K{5 + k} fp16 correlation d_f{1 + k} "
                 f"{shape}, maxd {maxd}, s2 {s2}"))
             kernel = f"K{5 + k}"
-            flips.setdefault((kernel, body(kernel, maxd, s2)), []).append(
+            flips.setdefault((kernel, body(maxd, s2)), []).append(
                 (got[k] != want[k]).float().mean().item())
     for (kernel, kind), shares in flips.items():
         note(f"  {kernel} fp16 ({kind}) against its plain version: "
              f"{min(shares):.4%} to {max(shares):.4%} of the values not "
              f"bit-equal over {len(shares)} cases")
+    nonfinite_gate(randn(*train_map), randn(*train_map),
+                   randn(train_map[0], 21 * 21, *train_map[2:]))
 
     img = randn(BATCH, 3, HEIGHT, WIDTH)
     flow8 = uniform(BATCH, 2, HEIGHT, WIDTH, scale=8.0)
@@ -5065,9 +5101,8 @@ def main() -> int:
                                                  retain_graph=True),
                      2 * b * h * w * (ch + 2 * (ch + 2 + 2)),
                      2 * b * h * w * (10 + 12 * ch)))
-        # K7 fp16 (forward and d_slab on the tensor-core bodies, d_f1 on the
-        # general body) at one band of the fp16 forward's and the fp16
-        # step's maps
+        # K7 fp16 (forward, d_f1 and d_slab on the tensor-core bodies) at
+        # one band of the fp16 forward's and the fp16 step's maps
         k7_rows(torch.float16)
 
         kernels = []
@@ -5151,8 +5186,8 @@ def main() -> int:
         by_name = {k["name"]: k for k in kernels}
 
         # the fp16 forms on the bf16 tensor-core bodies beside their bf16
-        # forms; K1's and K6's gate the dispatch: the general body reads
-        # ~10x its bf16 form's time
+        # forms; K1's, K5's and K6's gate the dispatch: the general body
+        # reads ~8-10x its bf16 form's time
         slow = []
         for name, gated in FP16_TENSOR_CORE_ROWS.items():
             h_ms = by_name[name]["ms"]

@@ -99,11 +99,11 @@
 // half g, f1 and f2 (entry points correlation_bwd_f1_fp16,
 // correlation_bwd_f2_fp16 and their K7 forms correlation_bwd_f1_rows_fp16,
 // correlation_bwd_f2_rows_fp16): the bf16 rule.  d_f2 and d_slab run as
-// bf16's do (launch_f2_fp16()): correlation_bwd_f2_mma_kernel, one
-// template on the element type, at maxd 20, s2 2 (a product of two halves,
-// 11 significant bits each, is exact in float32), the general body for any
-// other.  d_f1 and K7's d_f1 run the general body at every configuration
-// (launch_f1_fp16()): correlation_bwd_f1_mma_kernel is bf16's alone.
+// bf16's do (launch_f2_fp16()), and so do d_f1 and K7's d_f1
+// (launch_f1_fp16()): correlation_bwd_f2_mma_kernel and
+// correlation_bwd_f1_mma_kernel, each one template on the element type, at
+// maxd 20, s2 2 (a product of two halves, 11 significant bits each, is
+// exact in float32), the general bodies for any other.
 
 #include <cstdint>
 
@@ -1046,8 +1046,8 @@ correlation_bwd_f2_mma_kernel(const T* __restrict__ g, const T* __restrict__ f1,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core d_f1 body for bfloat16 g and f2 at maxd 20, s2 2 (K5 bf16
-// and K7 bf16 d_f1): the d_f2 body above, mirrored.
+// The tensor-core d_f1 body for bfloat16 or half g and f2 (T) at maxd 20,
+// s2 2 (K5 and K7 d_f1 in bf16 and fp16): the d_f2 body above, mirrored.
 //
 // Replaces _bwd_f1_kernel (correlation_pallas.py:449, launched at :557; wide
 // form :201, :340), which builds, per output row and row shift, the band
@@ -1081,7 +1081,7 @@ correlation_bwd_f2_mma_kernel(const T* __restrict__ g, const T* __restrict__ f1,
 // AND with one of 9 masks (2s + h - j runs over [-1, 7] where ``meets``
 // holds); the planes read run from ti0 - 4 to ti0 + 28, so the loads reach
 // 9 rows before the first stage (the f2 ring there) and 9 rows past the
-// last (kF1GPad), masked to zero.  A cotangent pitch of 72 bf16 puts the 16
+// last (kF1GPad), masked to zero.  A cotangent pitch of 72 values puts the 16
 // words of every band load on 16 banks; 64 would put them on 4.
 //
 // A block is (batch, 64-column tile, 64 channels, kRows = 4 output rows of
@@ -1103,26 +1103,35 @@ correlation_bwd_f2_mma_kernel(const T* __restrict__ g, const T* __restrict__ f1,
 // tile the columns and the channels from 0).  Where the whole map skips a
 // shift whose f2 row lies outside the map, the slab form reads a zero halo
 // row of the slab: its mma products are zeros, which leave the sums as they
-// are.  So every band's d_f1 rows carry the bits of the whole-map call.
-// The products of bf16 values are exact in f32; the order of the sums and
-// the tensor cores' adds differ from the general body's fmaf chain, which
-// puts ~2 values in 10^4 one ulp apart.
+// are.  So every band's d_f1 rows carry the bits of the whole-map call
+// (for finite operands: a zero times an inf is a NaN).  The products of
+// bf16 or half values are exact in f32; the order of the sums and the
+// tensor cores' adds differ from the general body's fmaf chain, which puts
+// ~2 values in 10^4 one bf16 ulp apart.  The band's masked terms are
+// multiplied, not skipped, so an inf in f2 makes NaNs of every output of
+// its n-tile where the general body makes a few non-finite sums: the set of
+// non-finite outputs can only grow (chip_smoke.py phase 2 counts by how
+// much), and an inf in the map leaves both bodies some.
 //
 // On an NVIDIA H100 80GB HBM3 at 700 W (kernel_ab.py, the parent's general
-// body in the same call): 0.0809 and 0.0804 ms for K5 at (8, 256, 48, 56)
-// against 0.6503 and 0.6570 (8.1x; the f32 tiled body 0.186), 0.0464 and
-// 0.0463 for K7 d_f1 at one band of two, g (8, 441, 24, 56) against its
-// (8, 256, 64, 56) slab, against 0.4644 and 0.4631 (10.0x); 15% and 19% of
-// the bytes' bound (0.0122, 0.0089 ms).  ptxas: 115 registers and no spill
-// in the 16-byte forms, 128 registers in the 4- and 2-byte forms (4 bytes
-// spilled by the whole-map 2-byte form).
+// body in the same call), in bf16: 0.0809 and 0.0804 ms for K5 at (8, 256,
+// 48, 56) against 0.6503 and 0.6570 (8.1x; the f32 tiled body 0.186),
+// 0.0464 and 0.0463 for K7 d_f1 at one band of two, g (8, 441, 24, 56)
+// against its (8, 256, 64, 56) slab, against 0.4644 and 0.4631 (10.0x); 15%
+// and 19% of the bytes' bound (0.0122, 0.0089 ms).  In fp16 (the half
+// instantiation differs only in the mma's operand type and the epilogue's
+// rounding): 0.0796 and 0.0790 ms for K5 against 0.6486 and 0.6517 (8.2x),
+// 0.0471 and 0.0473 for K7 d_f1 against 0.4636 and 0.4687 (9.9x).  ptxas,
+// either type: 115 registers and no spill in the 16-byte forms, 128
+// registers in the 4- and 2-byte forms (4 bytes spilled by the whole-map
+// 2-byte form).
 // ---------------------------------------------------------------------------
 
 constexpr int kF1GCols = kTileW;           // cotangent columns staged a plane
-constexpr int kF1GPitch = kF1GCols + 8;    // bf16 a staged cotangent row
+constexpr int kF1GPitch = kF1GCols + 8;    // values a staged cotangent row
 constexpr int kF1GElems = kRows * kD * kF1GPitch;   // one shift's rows
 constexpr int kF1GPad = 9 * kF1GPitch;     // read past the last stage
-constexpr size_t kSmemF1 =
+constexpr size_t kSmemF1 =   // 2-byte values, bfloat16 or half
     sizeof(__nv_bfloat16) * (kGBase + 2 * kF1GElems + kF1GPad);
 constexpr int kF1GSlots = kRows * (kD / kGPlanes) * (kF1GCols / 8);   // 224
 constexpr int kF1BandOff = (kLead - kMaxd) / kS2;   // 2
@@ -1132,13 +1141,13 @@ static_assert(kGBase >= 9 * kF1GPitch, "the ring lies below the first stage");
 static_assert((kF1GPitch * 2) % 16 == 0 && (kF1GPitch / 2) % 32 == 4,
               "16-byte rows; band loads on distinct banks");
 
-template <bool kSlab, int kPiece>
+template <typename T, bool kSlab, int kPiece>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-correlation_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g,
-                              const __nv_bfloat16* __restrict__ f2,
-                              __nv_bfloat16* __restrict__ d_f1, int C, int H,
-                              int W) {
-  extern __shared__ __align__(16) __nv_bfloat16 smem16[];
+correlation_bwd_f1_mma_kernel(const T* __restrict__ g, const T* __restrict__ f2,
+                              T* __restrict__ d_f1, int C, int H, int W) {
+  // raw bytes: an extern array of T would clash between the instantiations
+  extern __shared__ __align__(16) unsigned char f1_smem[];
+  T* smem16 = reinterpret_cast<T*>(f1_smem);
   const int H2 = kSlab ? H + 2 * kMaxd : H;   // rows of f2
   const int shift = kSlab ? kMaxd : 0;
 
@@ -1189,7 +1198,7 @@ correlation_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g,
   auto stage_g = [&](int n) {
     const int y2 = gy2 + 2 * n;
     if (!g_live || y2 < 0 || y2 >= H2) return;   // no warp reads it
-    __nv_bfloat16* dst = smem16 + kGBase + (n & 1) * kF1GElems + g_dst;
+    T* dst = smem16 + kGBase + (n & 1) * kF1GElems + g_dst;
     const int64_t off = g_base + static_cast<int64_t>(n * kD) * plane;
 #pragma unroll
     for (int t = 0; t < kGPlanes; ++t)
@@ -1198,7 +1207,7 @@ correlation_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g,
   auto stage_f2 = [&](int rho) {
     const int row = row0 + 2 * rho;
     if (!f_slot || row < 0 || row >= H2) return;   // no warp reads it
-    __nv_bfloat16* dst = smem16 + rho % kRing * kF1Elems + f_dst;
+    T* dst = smem16 + rho % kRing * kF1Elems + f_dst;
     const int64_t off = f_base + static_cast<int64_t>(row) * W;
 #pragma unroll
     for (int c = 0; c < kF1CPer; ++c)
@@ -1257,9 +1266,8 @@ correlation_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g,
     cp_async_commit();
     const int y2 = y + shift - kMaxd + 2 * n;   // the warp's f2 row
     if (!owns || y2 < 0 || y2 >= H2) continue;
-    const __nv_bfloat16* bp =
-        smem16 + kGBase + (n & 1) * kF1GElems + band_lane;
-    const __nv_bfloat16* ap = smem16 + (r + n) % kRing * kF1Elems + a_lane;
+    const T* bp = smem16 + kGBase + (n & 1) * kF1GElems + band_lane;
+    const T* ap = smem16 + (r + n) % kRing * kF1Elems + a_lane;
 #pragma unroll
     for (int s = 0; s < kKSteps; ++s) {
       if (!(ksteps >> s & 1)) continue;
@@ -1280,7 +1288,7 @@ correlation_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g,
 #pragma unroll
         for (int j = 0; j < kNTiles; ++j)
           if (meets(j, s) && (ntiles >> j & 1))
-            mma_bf16(acc[mt][j], a, bq[j][0], bq[j][1]);
+            mma_2b<T>(acc[mt][j], a, bq[j][0], bq[j][1]);
       }
     }
   }
@@ -1294,15 +1302,15 @@ correlation_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g,
     for (int h = 0; h < 2; ++h) {
       const int c = c0 + 16 * mt + gq + 8 * h;
       if (c >= C) continue;
-      __nv_bfloat16* o = d_f1 + (static_cast<int64_t>(b) * C + c) * plane +
-                         static_cast<int64_t>(y) * W;
+      T* o = d_f1 + (static_cast<int64_t>(b) * C + c) * plane +
+             static_cast<int64_t>(y) * W;
 #pragma unroll
       for (int j = 0; j < kNTiles; ++j) {
         const int x = x0 + 32 * half + 8 * j + 2 * qq;
         const float lo = acc[mt][j][2 * h] / cf;
         const float hi = acc[mt][j][2 * h + 1] / cf;
         if constexpr (kPiece > 1) {   // W even: the pair is 4-byte aligned
-          if (x < W) *reinterpret_cast<uint32_t*>(o + x) = bf16_pair(lo, hi);
+          if (x < W) *reinterpret_cast<uint32_t*>(o + x) = pair_2b<T>(lo, hi);
         } else {
           if (x < W) fnet_store(o + x, lo);
           if (x + 1 < W) fnet_store(o + x + 1, hi);
@@ -1312,17 +1320,14 @@ correlation_bwd_f1_mma_kernel(const __nv_bfloat16* __restrict__ g,
   }
 }
 
-// Either body: kF1 picks the d_f1 body (bf16 only), whose grid covers the
-// H output rows, or the d_f2 body (bf16 or half T), whose grid covers the
-// H2 rows of d_f2.
+// Either body, for bfloat16 or half T: kF1 picks the d_f1 body, whose grid
+// covers the H output rows, or the d_f2 body, whose grid covers the H2 rows
+// of d_f2.
 template <bool kF1, bool kSlab, int kPiece, typename T>
 int launch_as(const T* g, const T* src, T* out, int B, int C, int H, int W,
               cudaStream_t stream) {
-  void (*kernel)(const T*, const T*, T*, int, int, int);
-  if constexpr (kF1)
-    kernel = correlation_bwd_f1_mma_kernel<kSlab, kPiece>;
-  else
-    kernel = correlation_bwd_f2_mma_kernel<T, kSlab, kPiece>;
+  const auto kernel = kF1 ? correlation_bwd_f1_mma_kernel<T, kSlab, kPiece>
+                          : correlation_bwd_f2_mma_kernel<T, kSlab, kPiece>;
   const size_t smem = kF1 ? kSmemF1 : kSmem;
   const int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1635,13 +1640,18 @@ int launch_f2_bf16(const __nv_bfloat16* g, const __nv_bfloat16* f1,
       stream);
 }
 
-// The fp16 d_f1 (and K7's d_f1): the general body on the upcast operands at
-// every configuration (the d_f1 tensor-core body is written for bf16
-// operands).
+// The fp16 d_f1 (and K7's d_f1), chosen as the bf16 ones: the tensor-core
+// body for maxd 20, s2 2, the general body for any other (maxd, s2).
 template <bool kSlab>
 int launch_f1_fp16(const __half* g, const __half* f2, __half* d_f1, int B,
                    int C, int H, int W, int maxd, int s2, int device,
                    void* stream) {
+  if (maxd == band::kMaxd && s2 == band::kS2) {
+    const int err = fnet_set_device(device);
+    if (err) return err;
+    return band::launch<true, kSlab, __half>(
+        g, f2, d_f1, B, C, H, W, static_cast<cudaStream_t>(stream));
+  }
   return launch<__half>(correlation_bwd_f1_kernel<__half, kSlab>,
                         smem_f1(maxd, s2), g, f2, d_f1, B, C, H, W, H, maxd,
                         s2, device, stream);
@@ -1707,8 +1717,8 @@ extern "C" int correlation_bwd_f2_bf16(const __nv_bfloat16* g,
 
 // K5 and K6 for half g, f1 and f2: float32 sums of the half products,
 // divided by C and rounded once, so d_f1 and d_f2 are (B, C, H, W) half.
-// d_f2 on the tensor-core body at maxd 20, s2 2 and the general body for
-// any other (maxd, s2); d_f1 on the general body at every (maxd, s2).
+// Both on the tensor-core bodies at maxd 20, s2 2 and the general bodies
+// for any other (maxd, s2).
 extern "C" int correlation_bwd_f1_fp16(const __half* g, const __half* f2,
                                        __half* d_f1, int B, int C, int H,
                                        int W, int maxd, int s2, int device,

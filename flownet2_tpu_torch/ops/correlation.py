@@ -230,9 +230,9 @@ def correlation_bwd_cuda(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
     asks; any width.  float32, or bfloat16 or float16 g, f1 and f2 with
     gradients of their dtype (entry points ``correlation_bwd_f1_bf16``,
     ``correlation_bwd_f2_bf16`` and their ``_fp16`` forms: float32 sums of
-    the exact products, one rounding; at maxd 20, s2 2 bf16 runs both
-    tensor-core bodies and fp16 d_f2's, the general bodies, which upcast
-    the operands, run fp16 d_f1 and any other configuration)."""
+    the exact products, one rounding; at maxd 20, s2 2 both tensor-core
+    bodies in either dtype, the general bodies, which upcast the operands,
+    at any other configuration)."""
     _check_config("correlation backward", max_displacement, 1,
                   max_displacement, 1, stride2)
     dtypes = tuple(_cuda.KERNEL_DTYPES)

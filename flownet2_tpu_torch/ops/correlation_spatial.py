@@ -8,8 +8,7 @@ and ``correlation_pallas_bwd_rows`` (K7: the entry points
 ``csrc/correlation_bwd.cu``, and their ``_bf16`` and ``_fp16`` forms for
 bfloat16 and float16 operands, which sum the exact products in float32
 and round once: at maxd 20, s2 2 on the tensor-core bodies of K1, K5 and
-K6 in bf16 and of K1 and K6 in fp16; fp16 d_f1 and any other
-configuration on the general bodies).
+K6 in either dtype; any other configuration on the general bodies).
 
 Output rows ``[off, off + Hloc)`` of the cost volume read f2 rows
 ``[off - maxd, off + Hloc + maxd)``, zero beyond the map: a halo bounded
