@@ -80,7 +80,22 @@ Phases (any failure raises and the script exits non-zero):
    fp16 on the bands of 1, 2 and 4 (forward and d_f1 bit-equal to K1 and
    K5 fp16's rows, one band's d_slab rows [20, 20 + H) K6 fp16's, the top,
    a middle and the bottom band at one ulp of the plain version); the fp16
-   local-rows K2, K3 and K4 bit-equal to the whole image's rows.
+   local-rows K2, K3 and K4 bit-equal to the whole image's rows.  The
+   configurations no model uses (``cfg_kernels``, M6c): the kernels of
+   ``csrc/correlation_cfg.cu`` and ``csrc/resample2d_cfg.cu`` in float32,
+   bf16 and fp16 against their plain versions (f32 at 1e-4 for the
+   correlation, 1e-5 for the warp; bf16 and fp16 at one ulp, at most 1%
+   not bit-equal): the correlation and both gradients at (8, 256, 48, 64)
+   at (21, 3, 20, 1, 2) and (20, 1, 20, 2, 2) and at (2, 40, 20, 75) at
+   (2, 3, 3, 2, 1), (6, 1, 4, 1, 1) and (4, 2, 4, 1, 2); the bilinear K 2
+   and K 3 warps and their flow gradients and the nearest warp (bit-equal)
+   over the (8, 3, 384, 512) image at +-8 px and +-200 px and over
+   (2, 3, 100, 150); every gradient's two calls bit-equal; the image
+   gradient of the three warps as F4's; then the op surface
+   (``ops.Correlation(21, 3, 20, 1, 2)``, ``ops.Resample2d(3)`` forward and
+   backward, ``ops.Resample2d(1, bilinear=False)``) in each dtype with the
+   counters set to 0 before and read after: one launch of each cfg entry
+   point, no plain-op call.
 3. FlowNet2 inference, seeded random weights, b8 384x512 fp32: warm-up,
    then 10 timed batches with CUDA events, with the launch counters set to
    0 just before and read just after (1 K1 and 3 K2 launches per forward,
@@ -349,7 +364,13 @@ Phases (any failure raises and the script exits non-zero):
    their times before the row tiles; K2, K3 and K4, one and two flows, f32
    and bf16, at the smooth flow beside their times at the noise flows;
    then the one-flow K2 and K4 and their library calls with a cold L2
-   cache (six input sets of 31-44 MB taken in turn).
+   cache (six input sets of 31-44 MB taken in turn); then the cfg
+   kernels (``cfg_times``) in float32, bf16 and fp16, the correlation's
+   three at (8, 256, 48, 64) at (21, 3, 20, 1, 2), the bilinear K 3 warp,
+   its flow gradient and the nearest warp (beside ``F.grid_sample(mode=
+   "nearest")``) at (8, 3, 384, 512), +-8 px, their launches those of
+   phase 2's op-surface gate; the f32 correlation at (20, 1, 20, 2, 2) and
+   the warps at K 2 and at +-200 px printed beside.
 7. Where the device time goes: the phase 3 model and pair, 5 forwards, the
    phase 3b bf16 model, 5 forwards, and the phase 4 train step, 3 steps,
    under torch.profiler, the device time summed by kernel family and the
@@ -534,6 +555,15 @@ FP16_TENSOR_CORE_ROWS = {"correlation_fwd_fp16": True,
                          "correlation_fwd_rows_fp16": False,
                          "correlation_bwd_f1_rows_fp16": False,
                          "correlation_bwd_f2_rows_fp16": False}
+
+
+# phase 2's maps of the correlation at the configurations no model uses
+# (cfg_kernels) are normal values times this: the K 3 volume divides by
+# K*K*C = 2304, and of unit maps its values reach only ~0.1, where an fp16
+# subnormal step (6e-8) is half ulp_err's atol (1e-6 of the largest value)
+# and two float32 sum orders part by more than it near 0; FlowNetC's
+# features are of order 1 to 10
+CFG_CORR_SCALE = 4.0
 
 
 # The readings of the timed phases, printed where they are taken and again
@@ -2702,6 +2732,318 @@ def fp16_kernels(dev: torch.device, errs: dict) -> None:
               "bit-equal to the whole-image fp16 kernels' rows")
 
 
+def cfg_corr_flops(b: int, c: int, h: int, w: int, pad: int, k: int,
+                   maxd: int, s1: int, s2: int) -> int:
+    """Flops of the correlation at any configuration (the forward and each
+    gradient alike) that touch data: a tap's multiply-add of a shift counts
+    only where its f1 and its f2 sample lie inside the map (the bodies
+    skip or zero the others); ``corr_flops`` at K 1, s1 1, pad == maxd."""
+    k_rad = (k - 1) // 2
+    b_rad = k_rad + maxd
+    r = maxd // s2
+
+    def inside(n: int) -> int:
+        out_n = max(0, math.ceil((n + 2 * pad - 2 * b_rad) / s1))
+        return sum(1 for t in range(-r, r + 1)
+                   for j in range(-k_rad, k_rad + 1) for y in range(out_n)
+                   if 0 <= y * s1 + b_rad + j - pad < n
+                   and 0 <= y * s1 + b_rad + j - pad + t * s2 < n)
+
+    return 2 * b * c * inside(h) * inside(w)
+
+
+def cfg_kernels(dev: torch.device, errs: dict) -> dict:
+    """Phase 2's configurations no model uses (M6c): the kernels of
+    ``csrc/correlation_cfg.cu`` and ``csrc/resample2d_cfg.cu`` in float32,
+    bf16 and fp16 against their plain versions on the card, f32 within
+    1e-4 (the correlation, as K1's general body) and 1e-5 (the warp, as
+    K2), bf16 and fp16 within one ulp with at most 1% not bit-equal
+    (``ulp_err``): the correlation, forward and both gradients, at
+    FlowNetC's map (8, 256, 48, 64) at (pad 21, K 3, maxd 20, s1 1, s2 2)
+    (441 channels at 48x64) and (20, 1, 20, 2, 2) (24x32), and at
+    (2, 40, 20, 75) at (2, 3, 3, 2, 1), (6, 1, 4, 1, 1) and (4, 2, 4, 1, 2)
+    (an output that shrinks, one larger than the input, even K), on maps
+    of normal values times CFG_CORR_SCALE; the warp
+    (bilinear K 2 and K 3, nearest) and its flow gradient over the
+    (8, 3, 384, 512) image at +-8 px and +-200 px and over a ragged
+    (2, 3, 100, 150) one, the nearest warp bit-equal in every dtype; two
+    backward calls of each gradient bit-equal.  The image gradient
+    (``_d_img``, plain PyTorch) of the three warps at +-8 px and +-200 px,
+    float32: two calls bit-equal and within 1e-5 (of its largest magnitude)
+    of a float64 sum, as F4's check.  Then the op surface's launch gate in
+    each dtype: ``Correlation(21, 3, 20, 1, 2)(f1, f2).backward(g)``,
+    ``Resample2d(3)(img, flow).backward(g)`` and ``Resample2d(1,
+    bilinear=False)(img, flow).backward(g)``, with the counters set to 0
+    before and read after: one launch of each cfg entry point, no plain-op
+    call.  Inputs of a generator of their own; the readings go into
+    ``errs`` under the counter names.  Returns the gate's launches."""
+    from flownet2_tpu_torch import ops
+    from flownet2_tpu_torch.ops import _cuda
+    from flownet2_tpu_torch.ops import correlation as corr
+    from flownet2_tpu_torch.ops import resample2d as r2d
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def uniform(*shape, scale, dtype=torch.float32):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * scale).to(dtype)
+
+    def close(got, want, tol, what, name):
+        if got.dtype == torch.float32:
+            err = max_err(got, want, tol, tol, what)
+        else:
+            err = ulp_err(got, want, what)
+        errs.setdefault(name, []).append(err)
+
+    print("  the configurations no model uses (M6c), against their plain "
+          "versions")
+    main_map = (BATCH, 256, HEIGHT // 8, WIDTH // 8)
+    odd = (2, 40, 20, 75)
+    corr_cases = ((main_map, (21, 3, 20, 1, 2)), (main_map, (20, 1, 20, 2, 2)),
+                  (odd, (2, 3, 3, 2, 1)), (odd, (6, 1, 4, 1, 1)),
+                  (odd, (4, 2, 4, 1, 2)))
+    warps = ((2, True), (3, True), (1, False))
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    for dtype in dtypes:
+        sfx = _cuda.suffix(dtype)
+        for shape, cfg in corr_cases:
+            tag = f"{shape} at {cfg}, {str(dtype)[6:]}"
+            f1, f2 = (randn(*shape, dtype=dtype, scale=CFG_CORR_SCALE)
+                      for _ in range(2))
+            out = corr.correlation_cfg_cuda(f1, f2, *cfg)
+            close(out, corr.correlation_plain(f1, f2, *cfg), 1e-4,
+                  f"cfg correlation {tag}", "correlation_cfg_fwd" + sfx)
+            g = randn(*out.shape, dtype=dtype)
+            got = corr.correlation_cfg_bwd_cuda(g, f1, f2, *cfg)
+            want = corr.correlation_cfg_bwd_plain(g, f1, f2, *cfg)
+            for k in range(2):
+                close(got[k], want[k], 1e-4, f"cfg correlation d_f{k + 1} "
+                      f"{tag}", f"correlation_cfg_bwd_f{k + 1}" + sfx)
+            again = corr.correlation_cfg_bwd_cuda(g, f1, f2, *cfg)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"cfg correlation gradients {tag}: two "
+                                     "calls differ")
+        img = randn(BATCH, 3, HEIGHT, WIDTH, dtype=dtype)
+        ragged = randn(2, 3, 100, 150, dtype=dtype)
+        for im, px in ((img, 8.0), (img, 200.0), (ragged, 8.0)):
+            fl = uniform(im.shape[0], 2, *im.shape[2:], scale=px, dtype=dtype)
+            g = randn(*im.shape, dtype=dtype)
+            for taps, bilinear in warps:
+                tag = (f"{tuple(im.shape)}, +-{px:g} px, "
+                       f"{f'bilinear K {taps}' if bilinear else 'nearest'}, "
+                       f"{str(dtype)[6:]}")
+                name = ("resample2d_cfg_fwd" + ("" if bilinear else "_nearest")
+                        + sfx)
+                out = r2d.resample2d_cfg_cuda(im, fl, taps, bilinear)
+                want = r2d.resample2d_plain(im, fl, taps, bilinear)
+                if not bilinear:
+                    if not torch.equal(out, want):
+                        raise AssertionError(f"cfg warp {tag}: not the plain "
+                                             "version's gather")
+                    errs.setdefault(name, []).append(0.0)
+                    print(f"  cfg warp {tag}: bit-equal")
+                    continue
+                close(out, want, 1e-5, f"cfg warp {tag}", name)
+                d_flow = r2d.resample2d_cfg_grad_flow_cuda(g, im, fl, taps)
+                close(d_flow, r2d.resample2d_cfg_grad_flow_plain(g, im, fl,
+                                                                  taps),
+                      1e-5, f"cfg warp flow gradient {tag}",
+                      "resample2d_cfg_grad_flow" + sfx)
+                if not torch.equal(d_flow, r2d.resample2d_cfg_grad_flow_cuda(
+                        g, im, fl, taps)):
+                    raise AssertionError(f"cfg warp flow gradient {tag}: two "
+                                         "calls differ")
+        if dtype != torch.float32:
+            continue
+        for px in (8, 200):
+            fl = uniform(BATCH, 1, 2, HEIGHT, WIDTH, scale=px)
+            g = randn(BATCH, 1, 3, HEIGHT, WIDTH)
+            for taps, bilinear in warps:
+                what = (f"cfg warp image gradient, "
+                        f"{f'bilinear K {taps}' if bilinear else 'nearest'}, "
+                        f"+-{px} px")
+                first = r2d._d_img(g, img, fl, 0, taps, bilinear)
+                second = r2d._d_img(g, img, fl, 0, taps, bilinear)
+                with torch.enable_grad():
+                    leaf = img.double().requires_grad_()
+                    r2d.resample2d_plain(leaf, fl[:, 0].double(), taps,
+                                         bilinear).backward(g[:, 0].double())
+                err = (first.double() - leaf.grad).abs().max().item()
+                top = leaf.grad.abs().max().item()
+                same = torch.equal(first, second)
+                print(f"  {what}: two calls bit-equal {same}; max abs diff "
+                      f"{err:.3e} from a float64 sum (|max| {top:.3f}; limit "
+                      "1e-5 of it)")
+                if not same or err > 1e-5 * top:
+                    raise AssertionError(f"{what}: not a fixed sum of the "
+                                         "taps")
+        del leaf, first, second
+
+    launches = {}
+    for dtype in dtypes:
+        sfx = _cuda.suffix(dtype)
+        with torch.enable_grad():
+            f1, f2 = (randn(*main_map, dtype=dtype).requires_grad_()
+                      for _ in range(2))
+            g = randn(BATCH, 441, *main_map[2:], dtype=dtype)
+            img = randn(BATCH, 3, HEIGHT, WIDTH, dtype=dtype).requires_grad_()
+            fl = uniform(BATCH, 2, HEIGHT, WIDTH, scale=8.0,
+                         dtype=dtype).requires_grad_()
+            gw = randn(BATCH, 3, HEIGHT, WIDTH, dtype=dtype)
+            ops.reset_counts()
+            ops.Correlation(21, 3, 20, 1, 2)(f1, f2).backward(g)
+            ops.Resample2d(3)(img, fl).backward(gw)
+            ops.Resample2d(1, bilinear=False)(img, fl).backward(gw)
+            torch.cuda.synchronize(dev)
+            got, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        want = {base + sfx: 1 for base in (
+            "correlation_cfg_fwd", "correlation_cfg_bwd_f1",
+            "correlation_cfg_bwd_f2", "resample2d_cfg_fwd",
+            "resample2d_cfg_grad_flow", "resample2d_cfg_fwd_nearest")}
+        finite = all(bool(torch.isfinite(t.grad).all())
+                     for t in (f1, f2, img, fl))
+        note(f"  op surface, {str(dtype)[6:]}: Correlation(21, 3, 20, 1, 2) "
+             "and Resample2d(3) forward and backward, Resample2d(1, "
+             f"bilinear=False) forward: launches {got}, plain-op calls "
+             f"{plain}; gradients finite {finite}")
+        if got != want or plain or not finite:
+            raise AssertionError(f"op surface, {dtype}: launches {got}, "
+                                 f"plain-op calls {plain}; wanted {want}, "
+                                 "none, finite gradients")
+        launches.update(got)
+    return launches
+
+
+def cfg_times(dev: torch.device, smi: str, peaks, errs: dict,
+              launches: dict) -> list:
+    """Phase 6's rows of the cfg kernels, in float32, bf16 and fp16: the
+    correlation's three at FlowNetC's map (8, 256, 48, 64) at (21, 3, 20,
+    1, 2), the bilinear K 3 warp, its flow gradient and the nearest warp
+    over the (8, 3, 384, 512) image at +-8 px; each with the plain
+    version's time, its bound (in-map multiply-adds, ``cfg_corr_flops``,
+    and bytes; bf16 and fp16 at the tensor-core rate, and at the f32 rate
+    their bodies sum at) and, for the nearest warp, ``F.grid_sample(mode=
+    "nearest")``, which rounds a half pixel to even where the op rounds it
+    up.  Also printed, f32: the correlation at (20, 1, 20, 2, 2) and the
+    warps at K 2 and at +-200 px.  ``launches`` are the op-surface gate's
+    (``cfg_kernels``).  Returns the rows of the kernels line."""
+    from flownet2_tpu_torch.ops import _cuda
+    from flownet2_tpu_torch.ops import correlation as corr
+    from flownet2_tpu_torch.ops import resample2d as r2d
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    b, c, h, w = BATCH, 256, HEIGHT // 8, WIDTH // 8
+    f1, f2 = randn(b, c, h, w), randn(b, c, h, w)
+    img = randn(BATCH, 3, HEIGHT, WIDTH)
+    fl8 = (torch.rand((BATCH, 2, HEIGHT, WIDTH), generator=gen,
+                      device=dev) * 2 - 1) * 8.0
+    fl200 = fl8 * 25.0
+    gw = randn(BATCH, 3, HEIGHT, WIDTH)
+    xs = torch.arange(WIDTH, device=dev).view(1, 1, -1)
+    ys = torch.arange(HEIGHT, device=dev).view(1, -1, 1)
+    grid = torch.stack([(xs + fl8[:, 0]) * (2.0 / (WIDTH - 1)) - 1.0,
+                        (ys + fl8[:, 1]) * (2.0 / (HEIGHT - 1)) - 1.0], -1)
+    pixels = BATCH * HEIGHT * WIDTH
+
+    def corr_rows(cfg, dtype):
+        sfx = _cuda.suffix(dtype)
+        a, bb = f1.to(dtype), f2.to(dtype)
+        out_h, out_w = corr._out_dims(h, w, *cfg[:4])
+        disp = 2 * (cfg[2] // cfg[4]) + 1
+        g = randn(b, disp * disp, out_h, out_w).to(dtype)
+        size = a.element_size()
+        nbytes = size * (2 * b * c * h * w + b * disp * disp * out_h * out_w)
+        flops = cfg_corr_flops(b, c, h, w, *cfg)
+        yield ("correlation_cfg_fwd" + sfx, "correlation.py:60",
+               "correlation_cfg.cu",
+               lambda: corr.correlation_cfg_cuda(a, bb, *cfg),
+               lambda: corr.correlation_plain(a, bb, *cfg), None, nbytes,
+               flops)
+        for k, needs in ((1, (True, False)), (2, (False, True))):
+            yield (f"correlation_cfg_bwd_f{k}" + sfx, "correlation.py:253",
+                   "correlation_cfg.cu",
+                   (lambda needs=needs: corr.correlation_cfg_bwd_cuda(
+                       g, a, bb, *cfg, needs=needs)),
+                   (lambda needs=needs: corr.correlation_cfg_bwd_plain(
+                       g, a, bb, *cfg, needs=needs)), None, nbytes, flops)
+
+    def warp_rows(taps, fl, dtype):
+        sfx = _cuda.suffix(dtype)
+        im, flow, g = img.to(dtype), fl.to(dtype), gw.to(dtype)
+        size = im.element_size()
+        chans = im.shape[1]
+        # per output pixel ~10 flops of coordinates and weights, then 8 a
+        # corner and channel (the warp: a multiply and an add) or 12 a tap
+        # and channel (the flow gradient); the nearest warp ~4 a pixel
+        yield ("resample2d_cfg_fwd" + sfx, "resample2d.py:101",
+               "resample2d_cfg.cu",
+               lambda: r2d.resample2d_cfg_cuda(im, flow, taps, True),
+               lambda: r2d.resample2d_plain(im, flow, taps, True), None,
+               size * pixels * (2 * chans + 2),
+               pixels * (10 + 8 * taps * taps * chans))
+        yield ("resample2d_cfg_grad_flow" + sfx, "resample2d.py:281",
+               "resample2d_cfg.cu",
+               lambda: r2d.resample2d_cfg_grad_flow_cuda(g, im, flow, taps),
+               lambda: r2d.resample2d_cfg_grad_flow_plain(g, im, flow, taps),
+               None, size * pixels * (2 * chans + 4),
+               pixels * (10 + 12 * taps * taps * chans))
+        # the library call on bf16 would take a bf16 grid (2-4 px off)
+        lib = (None if dtype == torch.bfloat16 else
+               lambda g16=grid.to(dtype): F.grid_sample(
+                   im, g16, mode="nearest", padding_mode="border",
+                   align_corners=True))
+        yield ("resample2d_cfg_fwd_nearest" + sfx, "resample2d.py:124",
+               "resample2d_cfg.cu",
+               lambda: r2d.resample2d_cfg_cuda(im, flow, 1, False),
+               lambda: r2d.resample2d_plain(im, flow, 1, False), lib,
+               size * pixels * (2 * chans + 2), pixels * 4)
+
+    kernels = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        low = dtype != torch.float32
+        rows = [*corr_rows((21, 3, 20, 1, 2), dtype),
+                *warp_rows(3, fl8, dtype)]
+        for name, replaces, src, fn, plain, lib, nbytes, flops in rows:
+            k_ms = time_ms(fn, 20, head_start=True)
+            p_ms = time_ms(plain, 3, warmup=1)
+            l_ms = (time_ms(lib, 50, head_start=True) if lib is not None
+                    else None)
+            b_ms, b_by = bound_ms(nbytes, flops, peaks, tensor_cores=low)
+            note(f"  {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                 f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
+                 f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+                 f"{flops / 1e9:.3f} GFLOP); {launches[name]} launch a gate "
+                 f"run  [{smi}; SM clock, max: {sm_clock()}]")
+            extra = ({"bound_ms_f32_body": bound_ms(nbytes, flops, peaks)[0]}
+                     if low else {})
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"flownet2_tpu_torch/csrc/{src}",
+                "replaces": f"flownet2_tpu/ops/{replaces}",
+                "launches": launches[name], "max_abs_err": max(errs[name]),
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": l_ms, **extra})
+    for what, rows in (
+            ("at (20, 1, 20, 2, 2)", corr_rows((20, 1, 20, 2, 2),
+                                               torch.float32)),
+            ("at K 2 (nearest: K ignored), +-8 px",
+             warp_rows(2, fl8, torch.float32)),
+            ("at K 3, +-200 px", warp_rows(3, fl200, torch.float32))):
+        for name, _, _, fn, _, _, nbytes, flops in rows:
+            note(f"  {name} {what}: {time_ms(fn, 20, head_start=True):.4f} "
+                 f"ms, bound {bound_ms(nbytes, flops, peaks)[0]:.4f} ms  "
+                 f"[{smi}]")
+    return kernels
+
+
 def fp16_inference_phase(smi: str, model, pairs, small, plain_ops) -> dict:
     """Phase 3c: FlowNet2 fp16 inference (``get_model(...,
     dtype=torch.float16)``), phase 3's weights and pairs: TIMED_BATCHES
@@ -3826,6 +4168,8 @@ def main() -> int:
 
         # the fp16 forms of every kernel, on inputs of their own generator
         fp16_kernels(dev, errs)
+        # the configurations no model uses, and the op surface's launches
+        cfg_launches = cfg_kernels(dev, errs)
 
     # -- 3. FlowNet2 inference ----------------------------------------------
     print(f"phase 3: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, TF32 off")
@@ -5260,6 +5604,9 @@ def main() -> int:
                   f"turn): {cold_ms(fns, 60):.4f} ms, warm {warm[what]:.4f} "
                   f"ms  [{smi}; SM clock, max: {sm_clock()}]")
         del cold
+
+        # the kernels of the configurations no model uses
+        kernels.extend(cfg_times(dev, smi, peaks, errs, cfg_launches))
 
     # -- 7. where the device time goes --------------------------------------
     print(f"phase 7: FlowNet2 b{BATCH} {HEIGHT}x{WIDTH} fp32, "

@@ -44,3 +44,19 @@ def channel_norm_multi(*xs: torch.Tensor) -> torch.Tensor:
     """``cat([channel_norm(x) for x in xs], 1)``: one ``(B, N, H, W)``
     tensor of the N inputs' norms."""
     return _ChannelNorms.apply(*xs)
+
+
+class ChannelNorm(torch.nn.Module):
+    """The reference's ChannelNorm op as a module without parameters: the
+    JAX package's ``ChannelNorm`` class, which takes the L2 norm alone."""
+
+    def __init__(self, norm_deg: int = 2):
+        super().__init__()
+        if norm_deg != 2:
+            raise NotImplementedError(
+                "only the L2 channel norm is supported (the reference kernel "
+                "hard-codes L2 as well)")
+        self.norm_deg = norm_deg
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return channel_norm(x)

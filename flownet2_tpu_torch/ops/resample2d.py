@@ -33,12 +33,18 @@ The bilinear K=1 warp is differentiable in two ways, which agree:
   writes d1 = d out/d dx and d2 = d out/d dy per channel, so the backward
   is the elementwise ``d_flow = (sum_c g*d1, sum_c g*d2)``.
 
-The image gradient, the transpose of the four taps' gather, is plain
-PyTorch on any device (the JAX package leaves it to an XLA scatter), summed
-in a fixed order that does not depend on the device's schedule (no
-``scatter_add_``, whose CUDA form adds with atomics), and computed only
-when the image needs a gradient, which no model's warp does.  Nearest and
-K > 1 are differentiated by autograd through the plain version, on the CPU.
+Every other warp (nearest, or bilinear with a K x K tap window, K != 1) is
+the ``torch.autograd.Function`` ``_WarpCfg``: forward ``resample2d_plain``
+or the kernel ``csrc/resample2d_cfg.cu``, backward the flow gradient summed
+over the taps (``resample2d_cfg_grad_flow_plain`` or the same source's
+kernel; nearest's flow gradient is none, as floor is piecewise constant:
+the JAX package returns zeros, the port no gradient).
+
+The image gradient, the transpose of the taps' gather, is plain PyTorch on
+any device (the JAX package leaves it to an XLA scatter), summed in a fixed
+order that does not depend on the device's schedule (no ``scatter_add_``,
+whose CUDA form adds with atomics), and computed only when the image needs
+a gradient, which no model's warp does.
 
 bfloat16 and float16, as the JAX package's Pallas kernels compute bf16:
 the image, the flow and the cotangent are upcast, the coordinates, weights
@@ -50,12 +56,13 @@ casts the weights to fp16 and multiplies in fp16; the port keeps its
 kernels' rule.)
 
 A CPU tensor takes the plain PyTorch versions.  A CUDA tensor launches the
-kernels (bilinear, K=1; float32, or a bfloat16 or float16 image, flow and
-cotangent, over the whole image or its local rows) or raises; no tensor is
-cast to run a kernel of another type.  With
+kernels (float32, or a bfloat16 or float16 image, flow and cotangent; the
+bilinear K=1 ones over the whole image or its local rows) or raises; no
+tensor is cast to run a kernel of another type.  With
 ``sharding_hints.spatial_shards() > 1``, or under a band context across
-processes, the three differentiable entry points run as row bands
-(``ops/resample2d_spatial.py``); other warps have no band form.
+processes, the bilinear K=1 entry points run as row bands
+(``ops/resample2d_spatial.py``); other warps have no band form, and under a
+band context they raise.
 """
 
 from __future__ import annotations
@@ -108,31 +115,47 @@ def _corners(img: torch.Tensor, flow: torch.Tensor, off: int = 0):
             _gather(img, y_b, x_r))
 
 
-def _bilinear_plain(img, flow, kernel_size, off=0):
-    _, _, height, width = img.shape
+def _taps(flow: torch.Tensor, height: int, width: int, kernel_size: int,
+          off: int = 0):
+    """The bilinear warp's a, b (B, 1, Ho, Wo) and, for each tap (fy, fx)
+    of its K x K window in order, the four corners' clamped (row, column)
+    indices, top left, top right, bottom left, bottom right, each
+    (B, Ho, Wo): the corners shifted by the tap and clamped again."""
     a, b, x_l, x_r, y_t, y_b = _sample_point(flow, height, width, off)
+    taps = []
+    for fy in range(kernel_size):
+        yts = (y_t + fy).clamp_max(height - 1)
+        ybs = (y_b + fy).clamp_max(height - 1)
+        for fx in range(kernel_size):
+            xls = (x_l + fx).clamp_max(width - 1)
+            xrs = (x_r + fx).clamp_max(width - 1)
+            taps.append(((yts, xls), (yts, xrs), (ybs, xls), (ybs, xrs)))
+    return a, b, taps
+
+
+def _bilinear_plain(img, flow, kernel_size, off=0):
+    a, b, taps = _taps(flow, *img.shape[2:], kernel_size, off)
     a, b = a.to(img.dtype), b.to(img.dtype)
     out = torch.zeros(img.shape[:2] + flow.shape[2:], dtype=img.dtype,
                       device=img.device)
-    for fy in range(kernel_size):
-        for fx in range(kernel_size):
-            yts = (y_t + fy).clamp_max(height - 1)
-            ybs = (y_b + fy).clamp_max(height - 1)
-            xls = (x_l + fx).clamp_max(width - 1)
-            xrs = (x_r + fx).clamp_max(width - 1)
-            out = out + (1 - a) * (1 - b) * _gather(img, yts, xls)
-            out = out + a * (1 - b) * _gather(img, yts, xrs)
-            out = out + (1 - a) * b * _gather(img, ybs, xls)
-            out = out + a * b * _gather(img, ybs, xrs)
+    for tl, tr, bl, br in taps:
+        out = out + (1 - a) * (1 - b) * _gather(img, *tl)
+        out = out + a * (1 - b) * _gather(img, *tr)
+        out = out + (1 - a) * b * _gather(img, *bl)
+        out = out + a * b * _gather(img, *br)
     return out
 
 
-def _nearest_plain(img, flow):
-    _, _, height, width = img.shape
+def _nearest_point(flow: torch.Tensor, height: int, width: int):
+    """The nearest warp's clamped indices yn, xn (B, H, W):
+    floor(y + dy + 0.5), floor(x + dx + 0.5)."""
     xf, yf = _coords(flow)
-    xn = torch.floor(xf + 0.5).clamp(0, width - 1).long()
-    yn = torch.floor(yf + 0.5).clamp(0, height - 1).long()
-    return _gather(img, yn, xn)
+    return (torch.floor(yf + 0.5).clamp(0, height - 1).long(),
+            torch.floor(xf + 0.5).clamp(0, width - 1).long())
+
+
+def _nearest_plain(img, flow):
+    return _gather(img, *_nearest_point(flow, *img.shape[2:]))
 
 
 def _per_flow(base: str, nflows: int) -> str:
@@ -204,11 +227,36 @@ def resample2d_grad_flow_plain(g: torch.Tensor, img: torch.Tensor,
     return torch.stack(d_flows, dim=1).to(flows.dtype)
 
 
+def resample2d_cfg_grad_flow_plain(g: torch.Tensor, img: torch.Tensor,
+                                   flow: torch.Tensor,
+                                   kernel_size: int) -> torch.Tensor:
+    """The flow gradient (B, 2, H, W) of the bilinear warp of ``img`` by
+    ``flow`` with a K x K tap window for the cotangent ``g`` (B, C, H, W):
+    for each tap in order, the channels' sum of the analytic derivative,
+    added to the total (the JAX package's ``_resample2d_bwd``); in the
+    flow's dtype (bfloat16, float16: summed in float32, rounded once)."""
+    _cuda.PLAIN_CALLS["resample2d_cfg_grad_flow"] += 1
+    g, wide = _cuda.widened(g), _cuda.widened(img)
+    a, b, taps = _taps(flow, *img.shape[2:], kernel_size)
+    d_dx = torch.zeros_like(g[:, 0])
+    d_dy = torch.zeros_like(g[:, 0])
+    for corners in taps:
+        i_tl, i_tr, i_bl, i_br = (_gather(wide, yi, xi) for yi, xi in corners)
+        d_dx = d_dx + torch.sum(
+            g * ((1 - b) * (i_tr - i_tl) + b * (i_br - i_bl)), 1)
+        d_dy = d_dy + torch.sum(
+            g * ((1 - a) * (i_bl - i_tl) + a * (i_br - i_tr)), 1)
+    return torch.stack([d_dx, d_dy], dim=1).to(flow.dtype)
+
+
 def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
-           off: int = 0) -> torch.Tensor:
-    """The image gradient of the bilinear warp: each flow's cotangent
-    (B, F, C, Ho, W), weighted, summed back onto its four taps in the
-    full-height image (the reference's and the JAX package's scatter-add).
+           off: int = 0, kernel_size: int = 1,
+           bilinear: bool = True) -> torch.Tensor:
+    """The image gradient of the warp: each flow's cotangent
+    (B, F, C, Ho, W), weighted, summed back onto its taps in the
+    full-height image (the reference's and the JAX package's scatter-add):
+    the bilinear warp's four corners at each tap of its K x K window, or
+    the nearest warp's one pixel (weight 1; whole image only).
 
     The sum's order is fixed, so two calls give the same bits on any
     device: the taps (flow, corner, pixel) are sorted stably by their
@@ -222,15 +270,21 @@ def _d_img(g: torch.Tensor, img: torch.Tensor, flows: torch.Tensor,
     g = _cuda.widened(g)
     targets, values = [], []
     for f in range(flows.shape[1]):
-        a, b, x_l, x_r, y_t, y_b = _sample_point(flows[:, f], height, width,
-                                                 off)
         gf = g[:, f].reshape(batch, channels, -1)
+        if not bilinear:
+            yn, xn = _nearest_point(flows[:, f], height, width)
+            targets.append((yn * width + xn).reshape(batch, -1))
+            values.append(gf)
+            continue
+        a, b, taps = _taps(flows[:, f], height, width, kernel_size, off)
         a, b = a.reshape(batch, 1, -1), b.reshape(batch, 1, -1)
-        for yi, xi, w in ((y_t, x_l, (1 - a) * (1 - b)),
-                          (y_t, x_r, a * (1 - b)),
-                          (y_b, x_l, (1 - a) * b), (y_b, x_r, a * b)):
-            targets.append((yi * width + xi).reshape(batch, -1))
-            values.append(w * gf)
+        weights = ((1 - a) * (1 - b), a * (1 - b), (1 - a) * b, a * b)
+        for corners in taps:
+            for (yi, xi), w in zip(corners, weights):
+                targets.append((yi * width + xi).reshape(batch, -1))
+                values.append(w * gf)
+    if not targets:   # a window of no taps reads nothing
+        return torch.zeros_like(img)
     targets, order = torch.sort(torch.cat(targets, 1), dim=1, stable=True)
     values = torch.cat(values, 2)
     values = values.gather(2, order.unsqueeze(1).expand_as(values))
@@ -293,6 +347,19 @@ _POINTERS = {"resample2d_fwd": 3, "resample2d_tangents": 5,
 _ENTRY_POINTS = {lib: tuple(lib + sfx
                             for sfx in _cuda.KERNEL_DTYPES.values())
                  for lib in _POINTERS}
+
+
+# csrc/resample2d_cfg.cu: each entry point's (and its _bf16 and _fp16
+# forms') tensors, then B, C, H, W, K, the forward's mode (1 bilinear, 0
+# nearest), the device index and the stream
+_CFG_ARGTYPES = {
+    "resample2d_cfg_fwd":
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "resample2d_cfg_grad_flow":
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+_ENTRY_POINTS["resample2d_cfg"] = tuple(
+    base + sfx for base in _CFG_ARGTYPES
+    for sfx in _cuda.KERNEL_DTYPES.values())
 
 
 def _argtypes(lib: str) -> list:
@@ -399,6 +466,63 @@ def resample2d_grad_flow_cuda(g: torch.Tensor, img: torch.Tensor,
     return d_flows
 
 
+def _cfg_launch(base: str, name: str, tensors, ints, device) -> None:
+    """Run the C entry point ``base`` + the dtype's suffix of
+    ``csrc/resample2d_cfg.cu`` on ``tensors`` and ``ints`` (B, C, H, W, K
+    and, for the forward, the mode) on the current stream, and count the
+    launch under ``name``."""
+    entry = base + _cuda.suffix(tensors[0].dtype)
+    fn = _cuda.function("resample2d_cfg", entry, _CFG_ARGTYPES[base])
+    err = fn(*(t.data_ptr() for t in tensors), *ints, device.index,
+             _cuda.stream_ptr(device))
+    _cuda.LAUNCHES[name] += 1
+    _cuda.check("resample2d_cfg", name, err)
+
+
+def resample2d_cfg_cuda(img: torch.Tensor, flow: torch.Tensor,
+                        kernel_size: int, bilinear: bool) -> torch.Tensor:
+    """The CUDA warp of one flow (B, 2, H, W) other than bilinear K=1
+    (``csrc/resample2d_cfg.cu``): bilinear with a K x K tap window, or
+    nearest; float32, or a bfloat16 or float16 image and flow (entry
+    points ``resample2d_cfg_fwd_bf16``, ``_fp16``), counted under
+    ``resample2d_cfg_fwd`` (bilinear) or ``resample2d_cfg_fwd_nearest``
+    with the dtype's suffix."""
+    name = ("resample2d_cfg_fwd" + ("" if bilinear else "_nearest")
+            + _cuda.suffix(img.dtype))
+    device, dims, shape = _check_warp(name, img, flow.unsqueeze(1), 0,
+                                      tuple(_cuda.KERNEL_DTYPES))
+    batch, _, channels, height, width = dims[:5]
+    out = torch.empty(img.shape, dtype=img.dtype, device=device)
+    if out.numel():
+        _cfg_launch("resample2d_cfg_fwd", name, (img, flow, out),
+                    (batch, channels, height, width, int(kernel_size),
+                     int(bool(bilinear))), device)
+    return out
+
+
+def resample2d_cfg_grad_flow_cuda(g: torch.Tensor, img: torch.Tensor,
+                                  flow: torch.Tensor,
+                                  kernel_size: int) -> torch.Tensor:
+    """The flow gradient (B, 2, H, W) of the bilinear warp with a K x K tap
+    window for the cotangent ``g`` (B, C, H, W), in one launch
+    (``csrc/resample2d_cfg.cu``), in the flow's dtype (bfloat16, float16:
+    entry points ``resample2d_cfg_grad_flow_bf16``, ``_fp16``)."""
+    name = "resample2d_cfg_grad_flow" + _cuda.suffix(img.dtype)
+    device, dims, _ = _check_warp(name, img, flow.unsqueeze(1), 0,
+                                  tuple(_cuda.KERNEL_DTYPES))
+    _cuda.check_operand(name, "g", g, 4, device, (img.dtype,))
+    if g.shape != img.shape:
+        raise ValueError(f"{name}: g {tuple(g.shape)} is not "
+                         f"{tuple(img.shape)}")
+    batch, _, channels, height, width = dims[:5]
+    d_flow = torch.empty_like(flow)
+    if d_flow.numel():
+        _cfg_launch("resample2d_cfg_grad_flow", name, (g, img, flow, d_flow),
+                    (batch, channels, height, width, int(kernel_size)),
+                    device)
+    return d_flow
+
+
 class _Warp(torch.autograd.Function):
     """The generic bilinear K=1 warp of F flows over the image rows
     ``[off, off + Ho)``: forward K2, backward K4 recomputing the corners
@@ -463,6 +587,35 @@ class _WarpTangents(torch.autograd.Function):
         return d_img, d_flows, None
 
 
+class _WarpCfg(torch.autograd.Function):
+    """Every warp of one flow other than bilinear K=1: the
+    ``resample2d_cfg`` kernels on CUDA, the plain versions on the CPU.  The
+    nearest warp gives the flow no gradient."""
+
+    @staticmethod
+    def forward(ctx, img, flow, kernel_size, bilinear):
+        ctx.save_for_backward(img, flow)
+        ctx.config = (kernel_size, bilinear)
+        if _cuda.on_cpu(img):
+            return resample2d_plain(img, flow, kernel_size, bilinear)
+        return resample2d_cfg_cuda(img, flow, kernel_size, bilinear)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, flow = ctx.saved_tensors
+        kernel_size, bilinear = ctx.config
+        g = g.contiguous()
+        d_img = (_d_img(g.unsqueeze(1), img, flow.unsqueeze(1), 0,
+                        kernel_size, bilinear)
+                 if ctx.needs_input_grad[0] else None)
+        d_flow = None
+        if ctx.needs_input_grad[1] and bilinear:
+            grad_flow = (resample2d_cfg_grad_flow_plain if _cuda.on_cpu(img)
+                         else resample2d_cfg_grad_flow_cuda)
+            d_flow = grad_flow(g, img, flow, kernel_size)
+        return d_img, d_flow, None, None
+
+
 def _warp(img: torch.Tensor, flows: torch.Tensor,
           tangents: bool) -> torch.Tensor:
     """The differentiable bilinear K=1 warp of F flows, by the generic or
@@ -493,9 +646,7 @@ def resample2d(img: torch.Tensor, flow: torch.Tensor, kernel_size: int = 1,
     if sharding_hints.band() is not None:
         raise NotImplementedError("resample2d on row bands: bilinear, "
                                   "kernel_size 1 only")
-    if _cuda.on_cpu(img):
-        return resample2d_plain(img, flow, kernel_size, bilinear)
-    return resample2d_cuda(img, flow, kernel_size, bilinear)
+    return _WarpCfg.apply(img, flow, kernel_size, bilinear)
 
 
 def resample2d_multi(img: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
@@ -508,3 +659,17 @@ def resample2d_tangents(img: torch.Tensor,
                         flows: torch.Tensor) -> torch.Tensor:
     """``resample2d_multi`` differentiated by the tangent route."""
     return _warp(img, flows, True)
+
+
+class Resample2d(torch.nn.Module):
+    """The reference's Resample2d op as a module without parameters: the
+    JAX package's ``Resample2d`` class, its constructor's arguments and
+    defaults."""
+
+    def __init__(self, kernel_size: int = 1, bilinear: bool = True):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.bilinear = bilinear
+
+    def forward(self, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        return resample2d(img, flow, self.kernel_size, self.bilinear)

@@ -23,6 +23,8 @@ halo's transpose.  The nearest upsample and the pooling are row-local.
 from __future__ import annotations
 
 import functools
+import sys
+import types
 
 import torch
 import torch.nn.functional as F
@@ -116,7 +118,31 @@ def upsample_nearest(x: torch.Tensor, scale: int = 4) -> torch.Tensor:
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
+def upsample(x: torch.Tensor, scale: int = 4,
+             mode: str = "bilinear") -> torch.Tensor:
+    """The JAX package's ``upsample(x, scale, mode)``: bilinear or nearest
+    by an integer ``scale``."""
+    if mode == "bilinear":
+        return upsample_bilinear(x, scale)
+    if mode == "nearest":
+        return upsample_nearest(x, scale)
+    raise ValueError(f"unknown upsample mode {mode!r}")
+
+
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     """NCHW average pool with stride == window (torch ``AvgPool2d(k, k)``),
     as the MultiScale loss pools its target."""
     return F.avg_pool2d(x, window, window)
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as ``upsample``: ``ops.upsample(x, scale,
+    mode)`` is the JAX package's ``ops.upsample``, and ``ops.upsample``
+    stays the module its users import."""
+
+    def __call__(self, x: torch.Tensor, scale: int = 4,
+                 mode: str = "bilinear") -> torch.Tensor:
+        return upsample(x, scale, mode)
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -26,10 +26,15 @@ CSRC = pathlib.Path(_cuda.CSRC)
 ENTRY = re.compile(r'extern\s+"C"\s+([\w\s]+?[\s*]+)(\w+)\s*\(([^)]*)\)')
 
 # entry point -> (source file stem, the argtypes its wrapper passes)
-WRAPPED = {name: (lib, corr._ARGTYPES)
+WRAPPED = {name: (lib, corr._CFG_ARGTYPES if lib == "correlation_cfg"
+                  else corr._ARGTYPES)
            for lib, names in corr._ENTRY_POINTS.items() for name in names}
 WRAPPED.update({name: (lib, r2d._argtypes(lib))
-                for lib, names in r2d._ENTRY_POINTS.items() for name in names})
+                for lib, names in r2d._ENTRY_POINTS.items() if lib in
+                r2d._POINTERS for name in names})
+WRAPPED.update({base + sfx: ("resample2d_cfg", argtypes)
+                for base, argtypes in r2d._CFG_ARGTYPES.items()
+                for sfx in _cuda.KERNEL_DTYPES.values()})
 
 
 def _kind(param: str) -> str:

@@ -7,6 +7,7 @@ CPU the port's ops take their plain PyTorch versions; the CUDA kernels are
 held against those same plain versions on the card by chip_smoke.py.
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -34,7 +35,8 @@ jax_glue = _jax_ops("stage_glue")
 jax_up = _jax_ops("upsample")
 
 from flownet2_tpu_torch.ops import channelnorm, correlation, resample2d  # noqa: E402
-from flownet2_tpu_torch.ops import stage_glue, upsample  # noqa: E402
+from flownet2_tpu_torch.ops import sharding_hints, stage_glue  # noqa: E402
+from flownet2_tpu_torch.ops import upsample  # noqa: E402
 
 # one torch thread per test process: several test workers share the cores
 # with XLA's own thread pools
@@ -385,6 +387,268 @@ def test_fusion_glue_grads_match_jax(monkeypatch, route, plain):
         np.testing.assert_allclose(_nhwc(t.grad), w, rtol=1e-5, atol=1e-4)
 
 
+# ------------------------------------------ the configurations no model uses
+#
+# The correlation outside K 1, s1 1, pad == maxd and the warp other than
+# bilinear K=1 (the ``_CorrelationCfg`` and ``_WarpCfg`` Functions: their
+# plain versions here, the ``correlation_cfg`` and ``resample2d_cfg``
+# kernels on the card, held to the same plain versions by chip_smoke.py).
+# The inputs are values of bfloat16 (exact in float16 and float32), so that
+# one JAX float32 reference serves the three dtypes: float32 at 1e-5,
+# bfloat16 and float16 within one ulp of that reference rounded to their
+# dtype (both sum in float32 and round once).
+
+LOW = {torch.bfloat16: 7, torch.float16: 10}   # significand bits
+DTYPES = pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.bfloat16, torch.float16],
+    ids=["f32", "bf16", "fp16"])
+
+
+def _bf16_values(shape, seed, scale=1.0):
+    """Seeded normal values rounded to bfloat16, as float32 numpy."""
+    return torch.from_numpy(_rand(shape, seed, scale)).bfloat16().float(
+        ).numpy()
+
+
+def _close(got, want, dtype, what):
+    """float32 at 1e-5; bfloat16 and float16 within one ulp of ``want``
+    rounded to their dtype (rtol one ulp, atol 1e-6 of the largest
+    magnitude)."""
+    assert got.dtype == dtype, (what, got.dtype)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_nhwc(got), want, rtol=1e-5, atol=1e-5,
+                                   err_msg=what)
+        return
+    rounded = torch.from_numpy(np.array(want)).to(dtype).float()
+    got = torch.from_numpy(np.ascontiguousarray(_nhwc(got.float())))
+    ulp = 2.0 ** -LOW[dtype]
+    top = float(rounded.abs().max())
+    print(f"{what}: max abs diff {float((got - rounded).abs().max()):.3e} "
+          f"from the rounded JAX float32 result, not bit-equal "
+          f"{float((got != rounded).float().mean()):.4%}")
+    torch.testing.assert_close(got, rounded, rtol=ulp, atol=1e-6 * top,
+                               msg=what)
+
+
+# (pad, K, maxd, s1, s2) and an NHWC map: an output that shrinks (pad below
+# b_rad, stride1 2), one larger than the input (pad 6 above maxd 4), even
+# K, and the twins of (21, 3, 20, 1, 2) and (20, 1, 20, 2, 2) at maxd 4:
+# the same pad - b_rad, K, stride1 and stride2 at D = 5 (the JAX shifts
+# form's vjp at D = 21 and K 3 compiles for ~56 s on a CPU; the port's
+# kernels meet the full configurations on the card, chip_smoke.py phase 2).
+CFG_CASES = [((5, 3, 4, 1, 2), (2, 14, 16, 6)),
+             ((4, 1, 4, 2, 2), (2, 16, 20, 8)),
+             ((2, 3, 3, 2, 1), (2, 16, 20, 8)),
+             ((6, 1, 4, 1, 1), (2, 12, 14, 5)),
+             ((4, 2, 4, 1, 2), (2, 12, 14, 12))]
+CFG_IDS = ["-".join(map(str, c)) for c, _ in CFG_CASES]
+
+
+@functools.lru_cache(maxsize=None)
+def _correlation_cfg_reference(cfg, shape):
+    """Seeded bfloat16 values f1, f2, g (NHWC) and the JAX package's
+    correlation and ``jax.vjp`` of it (its general ``_corr_bwd``) in
+    float32, one compile."""
+    f1, f2 = _bf16_values(shape, 80), _bf16_values(shape, 81)
+    out = jax.eval_shape(lambda a, b: jax_corr.correlation(a, b, *cfg),
+                         jnp.asarray(f1), jnp.asarray(f2))
+    g = _bf16_values(out.shape, 82)
+
+    @jax.jit
+    def both(a, b, cot):
+        value, vjp = jax.vjp(lambda x, y: jax_corr.correlation(x, y, *cfg),
+                             a, b)
+        return value, vjp(cot)
+
+    want, (want1, want2) = both(jnp.asarray(f1), jnp.asarray(f2),
+                                jnp.asarray(g))
+    return f1, f2, g, np.asarray(want), np.asarray(want1), np.asarray(want2)
+
+
+@DTYPES
+@pytest.mark.parametrize("cfg,shape", CFG_CASES, ids=CFG_IDS)
+def test_correlation_cfg_and_grads_match_jax_vjp(cfg, shape, dtype):
+    """The cost volume and both gradients at a configuration no model uses
+    (``_CorrelationCfg``: ``correlation_plain`` and
+    ``correlation_cfg_bwd_plain`` on the CPU) against the JAX package's
+    correlation and its VJP."""
+    f1, f2, g, want, want1, want2 = _correlation_cfg_reference(cfg, shape)
+    t1 = _nchw(f1).to(dtype).requires_grad_()
+    t2 = _nchw(f2).to(dtype).requires_grad_()
+    ops.reset_counts()
+    out = correlation.correlation(t1, t2, *cfg)
+    out.backward(_nchw(g).to(dtype))
+    assert dict(ops.PLAIN_CALLS) == {"correlation": 1,
+                                     "correlation_cfg_bwd": 1}
+    assert sum(ops.LAUNCHES.values()) == 0
+    for what, got, ref in (("out", out, want), ("d_f1", t1.grad, want1),
+                           ("d_f2", t2.grad, want2)):
+        _close(got, ref, dtype, f"{cfg} {what}")
+    if dtype != torch.float32 and cfg == CFG_CASES[0][0]:
+        # the JAX package's own low-precision shifts form multiplies in
+        # the low dtype: printed beside, the JAX package's own difference
+        jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float16
+        low = jax.jit(lambda a, b: jax_corr.correlation(a, b, *cfg))(
+            jnp.asarray(f1, jdt), jnp.asarray(f2, jdt))
+        rounded = np.asarray(jnp.asarray(want, jdt).astype(jnp.float32))
+        gap = float(np.abs(np.asarray(low.astype(jnp.float32))
+                           - rounded).max())
+        print(f"{cfg}: the JAX package's {jdt.dtype.name} correlation "
+              f"{gap:.3e} from its rounded float32 result (|out| up to "
+              f"{float(np.abs(want).max()):.3f})")
+
+
+@pytest.mark.parametrize("cfg",
+                         [(21, 3, 20, 1, 2)] + [c for c, _ in CFG_CASES],
+                         ids=["21-3-20-1-2"] + CFG_IDS)
+def test_correlation_cfg_bwd_plain_matches_autograd(cfg):
+    """``correlation_cfg_bwd_plain`` (the windows' in-place sums) against
+    torch.autograd of ``correlation_plain``, at FlowNetC's map's
+    configuration with K 3 too, float32 at 1e-6."""
+    f1 = torch.from_numpy(_rand((2, 5, 12, 14), 83)).requires_grad_()
+    f2 = torch.from_numpy(_rand((2, 5, 12, 14), 84)).requires_grad_()
+    out = correlation.correlation_plain(f1, f2, *cfg)
+    g = torch.from_numpy(_rand(tuple(out.shape), 85))
+    want = torch.autograd.grad(out, (f1, f2), g)
+    got = correlation.correlation_cfg_bwd_plain(g, f1.detach(), f2.detach(),
+                                                *cfg)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    only2 = correlation.correlation_cfg_bwd_plain(
+        g, f1.detach(), f2.detach(), *cfg, needs=(False, True))
+    assert only2[0] is None and torch.equal(only2[1], got[1])
+
+
+def test_correlation_cfg_rejects_undefined_and_empty_launches_nothing():
+    """kernel_size, stride1 or stride2 below 1, or a negative pad or
+    max_displacement raise ``ValueError`` (the JAX package divides by zero
+    at K 0); an output with no rows is empty and its gradients zero."""
+    f = torch.from_numpy(_rand((1, 2, 4, 4), 86))
+    for bad in ((0, 0, 1, 1, 1), (0, 1, 1, 0, 1), (0, 1, 1, 1, 0),
+                (-1, 1, 1, 1, 1), (1, 1, -1, 1, 1)):
+        with pytest.raises(ValueError, match="kernel_size"):
+            correlation.correlation(f, f, *bad)
+    with pytest.raises(ValueError, match="kernel_size"):
+        ops.Correlation()(f, f)
+    leaf = f.clone().requires_grad_()
+    ops.reset_counts()
+    out = correlation.correlation(leaf, f, 0, 3, 4, 1, 1)
+    assert out.shape == (1, 81, 0, 0)
+    out.sum().backward()
+    assert torch.equal(leaf.grad, torch.zeros_like(f))
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+WARP_CFG_CASES = [(2, True), (3, True), (1, False)]
+WARP_CFG_IDS = ["bilinear-K2", "bilinear-K3", "nearest"]
+
+
+@functools.lru_cache(maxsize=None)
+def _warp_cfg_reference(kernel_size, bilinear):
+    """Seeded bfloat16 values: an image (2, 14, 18, 3), a flow of up to
+    +-9 px (some sample points off every edge) and a cotangent; the JAX
+    package's warp and ``_resample2d_bwd`` (image and flow gradients) in
+    float32."""
+    img = _bf16_values((2, 14, 18, 3), 90)
+    flow = _bf16_values((2, 14, 18, 2), 91, 4.0)
+    g = _bf16_values((2, 14, 18, 3), 92)
+    impl = (functools.partial(jax_r2d._resample2d_bilinear_impl,
+                              kernel_size=kernel_size) if bilinear
+            else functools.partial(jax_r2d._resample2d_nearest_impl,
+                                   kernel_size=kernel_size))
+    want = impl(jnp.asarray(img), jnp.asarray(flow))
+    want_img, want_flow = jax_r2d._resample2d_bwd(
+        kernel_size, bilinear, (jnp.asarray(img), jnp.asarray(flow), None),
+        jnp.asarray(g))
+    return (img, flow, g, np.asarray(want), np.asarray(want_img),
+            np.asarray(want_flow))
+
+
+@DTYPES
+@pytest.mark.parametrize("kernel_size,bilinear", WARP_CFG_CASES,
+                         ids=WARP_CFG_IDS)
+def test_warp_cfg_and_grads_match_jax_bwd(kernel_size, bilinear, dtype):
+    """The warps no model uses (``_WarpCfg``: ``resample2d_plain``,
+    ``resample2d_cfg_grad_flow_plain`` and the image gradient ``_d_img``
+    on the CPU): the warp, its image gradient and its flow gradient
+    against the JAX package's warp and ``_resample2d_bwd``.  The nearest
+    warp is an exact gather in every dtype, and gives the flow no gradient
+    (the JAX package's zeros)."""
+    img, flow, g, want, want_img, want_flow = _warp_cfg_reference(
+        kernel_size, bilinear)
+    t_img = _nchw(img).to(dtype).requires_grad_()
+    t_flow = _nchw(flow).to(dtype).requires_grad_()
+    ops.reset_counts()
+    out = resample2d.resample2d(t_img, t_flow, kernel_size, bilinear)
+    out.backward(_nchw(g).to(dtype))
+    plain = {"resample2d": 1}
+    if bilinear:
+        plain["resample2d_cfg_grad_flow"] = 1
+    assert dict(ops.PLAIN_CALLS) == plain
+    assert sum(ops.LAUNCHES.values()) == 0
+    what = f"{WARP_CFG_IDS[WARP_CFG_CASES.index((kernel_size, bilinear))]}"
+    if bilinear:
+        _close(out, want, dtype, f"{what} warp")
+        _close(t_flow.grad, want_flow, dtype, f"{what} flow gradient")
+    else:
+        np.testing.assert_array_equal(_nhwc(out.float()), want)
+        assert t_flow.grad is None and not want_flow.any()
+    _close(t_img.grad, want_img, dtype, f"{what} image gradient")
+
+
+@pytest.mark.parametrize("kernel_size,bilinear", WARP_CFG_CASES,
+                         ids=WARP_CFG_IDS)
+def test_warp_cfg_image_gradient_is_a_fixed_sum(kernel_size, bilinear):
+    """``_d_img`` with the taps of a K x K window, or nearest's one tap:
+    two calls bit-equal, and within 1e-6 of a float64 scatter-add."""
+    img = torch.from_numpy(_rand((2, 3, 14, 18), 93))
+    flow = torch.from_numpy(_rand((2, 1, 2, 14, 18), 94, 4.0))
+    g = torch.from_numpy(_rand((2, 1, 3, 14, 18), 95))
+    first = resample2d._d_img(g, img, flow, 0, kernel_size, bilinear)
+    second = resample2d._d_img(g, img, flow, 0, kernel_size, bilinear)
+    assert torch.equal(first, second)
+    leaf = img.double().requires_grad_()
+    resample2d.resample2d_plain(leaf, flow[:, 0].double(), kernel_size,
+                                bilinear).backward(g[:, 0].double())
+    torch.testing.assert_close(first.double(), leaf.grad, rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_op_surface_matches_jax_classes():
+    """``ops.Correlation``, ``ops.Resample2d``, ``ops.ChannelNorm`` and
+    ``ops.upsample`` against the JAX package's classes and function."""
+    jax_ops = importlib.import_module("flownet2_tpu.ops")
+    f1, f2 = _rand((2, 12, 14, 5), 96), _rand((2, 12, 14, 5), 97)
+    args = (4, 2, 4, 1, 2)
+    got = ops.Correlation(*args)(_nchw(f1), _nchw(f2))
+    want = jax_ops.Correlation(*args)(jnp.asarray(f1), jnp.asarray(f2))
+    np.testing.assert_allclose(_nhwc(got), want, rtol=1e-5, atol=1e-5)
+    img, flow = _rand((2, 12, 14, 3), 98), _rand((2, 12, 14, 2), 99, 4.0)
+    for taps, bilinear in ((1, True), (2, True), (1, False)):
+        got = ops.Resample2d(taps, bilinear)(_nchw(img), _nchw(flow))
+        want = jax_ops.Resample2d(taps, bilinear)(jnp.asarray(img),
+                                                  jnp.asarray(flow))
+        np.testing.assert_allclose(_nhwc(got), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        _nhwc(ops.ChannelNorm()(_nchw(img))),
+        jax_ops.ChannelNorm()(jnp.asarray(img)), rtol=1e-5, atol=1e-6)
+    for module in (ops.ChannelNorm, jax_ops.ChannelNorm):
+        with pytest.raises(NotImplementedError, match="L2"):
+            module(1)
+    x = _rand((2, 5, 6, 2), 100)
+    for mode in ("bilinear", "nearest"):
+        got = ops.upsample(_nchw(x), 4, mode)
+        want = jax_ops.upsample(jnp.asarray(x), 4, mode)
+        np.testing.assert_allclose(_nhwc(got), want, rtol=1e-6, atol=1e-6)
+    for up in (ops.upsample, jax_ops.upsample):
+        with pytest.raises(ValueError, match="unknown upsample mode"):
+            up(jnp.asarray(x) if up is jax_ops.upsample else _nchw(x), 4,
+               "bicubic")
+    # ops.upsample is also the module its users import
+    assert ops.upsample.upsample_bilinear is upsample.upsample_bilinear
+    assert list(ops.Correlation(*args).parameters()) == []
+
+
 # ------------------------------------------------------- dispatch and counts
 
 def test_cpu_takes_plain_versions_and_launches_nothing():
@@ -417,9 +681,11 @@ def test_cpu_backward_takes_plain_versions_and_launches_nothing():
 
 def test_non_cpu_tensors_never_fall_back_to_plain():
     """A tensor off the CPU goes to the CUDA wrapper, which raises on
-    anything it cannot launch: here a tensor on the meta device, a
-    configuration the kernel does not cover, and inputs that need grad,
-    which go through the autograd.Function to the same wrapper."""
+    anything it cannot launch: here a tensor on the meta device, at the
+    models' configurations and at the others (which go to the
+    ``correlation_cfg`` and ``resample2d_cfg`` wrappers), and inputs that
+    need grad, which go through the autograd.Function to the same
+    wrapper.  Under a band context the other configurations raise."""
     f = torch.empty(1, 4, 8, 8, device="meta")
     img = torch.empty(1, 3, 8, 8, device="meta")
     flow = torch.empty(1, 2, 8, 8, device="meta")
@@ -432,9 +698,9 @@ def test_non_cpu_tensors_never_fall_back_to_plain():
         resample2d.resample2d_multi(img, torch.stack([flow, flow], 1))
     with pytest.raises(ValueError, match="CUDA device"):
         resample2d.resample2d_tangents(img, torch.stack([flow, flow], 1))
-    with pytest.raises(NotImplementedError, match="kernel_size=1"):
+    with pytest.raises(ValueError, match="CUDA device"):
         correlation.correlation(f, f, 3, 3, 2, 1, 1)
-    with pytest.raises(NotImplementedError, match="bilinear"):
+    with pytest.raises(ValueError, match="CUDA device"):
         resample2d.resample2d(img, flow, 1, False)
     f_grad = f.clone().requires_grad_()
     flow_grad = flow.clone().requires_grad_()
@@ -444,7 +710,13 @@ def test_non_cpu_tensors_never_fall_back_to_plain():
         resample2d.resample2d(img, flow_grad)
     with pytest.raises(ValueError, match="CUDA device"):
         resample2d.resample2d_tangents(img, flow_grad.unsqueeze(1))
-    with pytest.raises(NotImplementedError, match="bilinear"):
+    with pytest.raises(ValueError, match="CUDA device"):
         resample2d.resample2d(img, flow_grad, 1, False)
+    band = sharding_hints.Band(None, 2, 0, ((0, 64), (64, 128)))
+    with sharding_hints.scoped_band(band):
+        with pytest.raises(NotImplementedError, match="row bands"):
+            correlation.correlation(f, f, 3, 3, 2, 1, 1)
+        with pytest.raises(NotImplementedError, match="row bands"):
+            resample2d.resample2d(img, flow, 3, True)
     assert sum(ops.PLAIN_CALLS.values()) == 0
     assert sum(ops.LAUNCHES.values()) == 0
